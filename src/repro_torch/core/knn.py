@@ -1,0 +1,467 @@
+"""k-NN search over the flattened forest (paper Algorithm 2).
+
+Paper Alg. 2:  STEP 1 route the query to the closest index center and append
+that index's neighbor overlap-indexes; STEP 2 run the kNN-BCCF
+branch-and-bound on every selected index; STEP 3 gather.
+
+As in the JAX package (``repro.core.knn``), the per-index branch-and-bound
+descent is a *sorted-lower-bound masked bucket scan* over the forest's
+flattened buckets:
+
+  1. route:   d(q, index_centers) -> closest + neighbors -> eligibility mask
+              over buckets (STEP 1).
+  2. bound:   lb_b = max(0, d(q, bucket_pivot_b) - bucket_radius_b) for all
+              eligible buckets (one K2 distance matrix), +inf elsewhere,
+              then a stable sort.
+  3. scan:    visit buckets in ascending-lb order; each step evaluates the
+              next ``beam`` buckets per query (one K1 launch: gather, distance,
+              top-k merge) and the scan stops once lb > kth-best for every
+              query (exact: lb is sorted and kth-best is non-increasing).
+
+The JAX package runs step 3 as a ``lax.while_loop``; here it is a Python loop
+that reads one flag from the device per step (``any`` query still active),
+so a phase of ``s`` steps costs ``s + 1`` host synchronisations.
+
+``delta`` (a DeltaView) adds the streaming delta buckets as a second scan
+phase over the per-index append buffers, seeded with the main phase's top-k
+carry; lower bounds only prune, so splitting the scan keeps it exact.
+"""
+from __future__ import annotations
+
+import math
+from collections.abc import Mapping
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.forest import FOREST_FIELDS, ForestArrays
+from repro_torch.core.metric import pairwise
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+
+Tensor = torch.Tensor
+
+
+class DeviceForest(NamedTuple):
+    index_centers: Tensor  # (I, D)
+    index_radii: Tensor  # (I,)
+    neighbors: Tensor  # (I, MAXNBR) i32, -1 pad
+    bucket_x: Tensor  # (NB, C, D) f32, or int8 when quantized
+    bucket_ids: Tensor  # (NB, C) i32, -1 pad
+    bucket_mask: Tensor  # (NB, C) bool
+    bucket_pivot: Tensor  # (NB, D) f32 (bounds stay full precision)
+    bucket_radius: Tensor  # (NB,)
+    bucket_index: Tensor  # (NB,) i32
+    bucket_scale: Tensor | None = None  # (NB, C) f32 dequant scales (int8 mode)
+
+
+class DeltaView(NamedTuple):
+    """Search-facing view of the streaming delta buffers: one delta bucket
+    per index, with ``max(0, d(q, pivot) - radius)`` a valid lower bound on
+    any member distance.  Unfilled slots carry id -1."""
+
+    x: Tensor  # (I, CAPD, D) f32
+    ids: Tensor  # (I, CAPD) i32, -1 pad
+    mask: Tensor  # (I, CAPD) bool
+    pivot: Tensor  # (I, D) f32
+    radius: Tensor  # (I,) f32
+
+
+class SearchStats(NamedTuple):
+    buckets_visited: Tensor  # (Q,) i32
+    distances: Tensor  # (Q,) i32  useful (unpadded) OBJECT distances
+    bound_distances: Tensor  # (Q,) i32  routing (centers) + bucket-bound dists
+    padded_distances: Tensor  # (Q,) i32  object distances incl. padding lanes
+    comparisons: Tensor  # (Q,) i32  routing + bound + top-k comparisons
+    steps: Tensor  # () i32  scan-loop trip count
+
+
+_DTYPES = {
+    "index_centers": torch.float32, "index_radii": torch.float32,
+    "neighbors": torch.int32, "bucket_x": torch.float32,
+    "bucket_ids": torch.int32, "bucket_mask": torch.bool,
+    "bucket_pivot": torch.float32, "bucket_radius": torch.float32,
+    "bucket_index": torch.int32,
+}
+
+
+def _put(a, dtype: torch.dtype, device) -> Tensor:
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def device_forest_from_numpy(
+    arrays: Mapping[str, np.ndarray], *, device, quantize: bool = False
+) -> DeviceForest:
+    """Upload a flattened forest given as numpy arrays by field name (the
+    ``ForestArrays`` fields of either package).  ``quantize=True`` stores
+    bucket members int8 with per-member scales (``ops.quantize_datastore``);
+    bounds and pivots stay f32."""
+    fields = {n: _put(arrays[n], dt, device) for n, dt in _DTYPES.items()}
+    bucket_scale = None
+    if quantize:
+        nb, cap, dim = fields["bucket_x"].shape
+        xq, scale = kops.quantize_datastore(fields["bucket_x"].reshape(nb * cap, dim))
+        fields["bucket_x"] = xq.reshape(nb, cap, dim).contiguous()
+        bucket_scale = scale.reshape(nb, cap).contiguous()
+    return DeviceForest(**fields, bucket_scale=bucket_scale)
+
+
+def device_forest(f: ForestArrays, *, device, quantize: bool = False) -> DeviceForest:
+    """Upload the flattened forest (see ``device_forest_from_numpy``)."""
+    return device_forest_from_numpy(
+        {n: getattr(f, n) for n in FOREST_FIELDS}, device=device, quantize=quantize
+    )
+
+
+def delta_view_from_numpy(arrays: Mapping[str, np.ndarray], *, device) -> DeltaView:
+    """A DeltaView from numpy arrays by field name (x, ids, mask, pivot,
+    radius), e.g. the JAX package's ``stream.ingest.delta_view`` output."""
+    return DeltaView(
+        x=_put(arrays["x"], torch.float32, device),
+        ids=_put(arrays["ids"], torch.int32, device),
+        mask=_put(arrays["mask"], torch.bool, device),
+        pivot=_put(arrays["pivot"], torch.float32, device),
+        radius=_put(arrays["radius"], torch.float32, device),
+    )
+
+
+def route_points(centers: Tensor, q: Tensor, *, kernel: bool = True) -> tuple[Tensor, Tensor]:
+    """Alg. 2 STEP 1 routing: distances to index centers + closest index.
+
+    Returns (d_idx (Q, I) squared distances, closest (Q,) i32); ties go to
+    the first index, as ``jnp.argmin``'s do.
+    """
+    d_idx = pairwise(q, centers, metric="sq_l2", use_kernel=kernel)  # (Q, I)
+    return d_idx, torch.argmin(d_idx, dim=1).to(torch.int32)
+
+
+def route_eligibility(closest: Tensor, neighbors: Tensor) -> Tensor:
+    """(Q, I) bool: closest index + its overlap-index neighbors, per query.
+
+    Scatter formulation: each query contributes 1 + MAXNBR (query, index)
+    pairs, reduced per (query, index) cell with ``scatter_reduce`` amax (the
+    JAX package's ``segment_max``).
+    """
+    n_idx = neighbors.shape[0]
+    qn = closest.shape[0]
+    nbrs = neighbors[closest.long()]  # (Q, MAXNBR)
+    cand = torch.cat(
+        [closest[:, None], torch.where(nbrs >= 0, nbrs, 0)], dim=1
+    )  # (Q, 1 + MAXNBR), invalid links parked on index 0 with value 0
+    val = torch.cat(
+        [torch.ones((qn, 1), dtype=torch.int32, device=closest.device),
+         (nbrs >= 0).to(torch.int32)], dim=1
+    )
+    seg = (
+        cand.long() + n_idx * torch.arange(qn, device=closest.device)[:, None]
+    ).ravel()
+    sel = torch.zeros(qn * n_idx, dtype=torch.int32, device=closest.device)
+    sel = sel.scatter_reduce(0, seg, val.ravel(), reduce="amax")
+    return sel.reshape(qn, n_idx) > 0
+
+
+class _Carry(NamedTuple):
+    top_d: Tensor  # (Q, kk) ascending squared dists
+    top_i: Tensor  # (Q, kk) ids
+    t: int  # steps taken in this phase
+    visits: Tensor
+    ndist: Tensor
+    npad: Tensor
+
+
+class ScanOut(NamedTuple):
+    """One executor's bounded-scan result before the stats rollup."""
+
+    top_d: Tensor  # (Q, kk) ascending SQUARED distances
+    top_i: Tensor  # (Q, kk) global object ids, -1 pad
+    visits: Tensor  # (Q,) i32
+    ndist: Tensor  # (Q,) i32
+    npad: Tensor  # (Q,) i32
+    steps: int
+    n_elig: Tensor  # (Q,) i32 eligible main buckets
+    n_elig_d: Tensor  # (Q,) i32 eligible delta buckets
+
+
+class PhaseBounds(NamedTuple):
+    """STEP 2a output for one scan phase: the ascending visit order, the
+    sorted lower bounds (ineligible rows at +inf, padded to a beam multiple)
+    and the per-query eligible-row count for the cost instrumentation."""
+
+    order: Tensor  # (Q, n_steps*beam) i32
+    lb_sorted: Tensor  # (Q, n_steps*beam) f32, ascending, +inf tail
+    n_elig: Tensor  # (Q,) i32
+
+
+def _sorted_bounds(lb: Tensor, beam: int) -> tuple[Tensor, Tensor, int]:
+    """Ascending visit order + sorted bounds, padded to a beam multiple.
+    The sort is stable, as ``jnp.argsort``'s is, so equal bounds keep row
+    order."""
+    nb = lb.shape[1]
+    lb_sorted, order = torch.sort(lb, dim=1, stable=True)
+    order = order.to(torch.int32)  # the kernels' index type, as in the JAX package
+    n_steps = -(-nb // beam)  # ceil
+    pad = n_steps * beam - nb
+    if pad:
+        order = torch.nn.functional.pad(order, (0, pad))
+        lb_sorted = torch.nn.functional.pad(lb_sorted, (0, pad), value=float("inf"))
+    return order, lb_sorted, n_steps
+
+
+ScanStep = Callable[..., tuple[Tensor, Tensor]]
+
+
+def _scan_phase(
+    carry: _Carry,
+    q: Tensor,
+    order: Tensor,
+    lb_sorted: Tensor,
+    n_steps: int,
+    beam: int,
+    scan_step: ScanStep,
+    scan_x: Tensor,
+    scan_ids: Tensor,
+    scan_scale: Tensor | None,
+    bucket_count: Tensor,
+    cap: int,
+) -> _Carry:
+    """One bounded best-first scan phase (main buckets or delta buckets).
+
+    Visits buckets in ascending-lb order until lb > kth-best for every query.
+    The carry's top-k streams through phases: the delta phase starts from
+    the main phase's result.  Each step reads one flag from the device (is
+    any query still active?) to decide whether to continue.
+    """
+    c = carry
+    while c.t < n_steps:
+        lo = c.t * beam
+        kth = torch.sqrt(c.top_d[:, -1])  # inf until kk found
+        act = lb_sorted[:, lo : lo + beam] <= kth[:, None]  # (Q, beam)
+        if not bool(act.any()):
+            break
+        bsel = order[:, lo : lo + beam]
+        new_d, new_i = scan_step(
+            q, scan_x, scan_ids, bsel, act, c.top_d, c.top_i, scan_scale
+        )
+        n_act = torch.sum(act, dim=1, dtype=torch.int32)
+        n_members = torch.where(act, bucket_count[bsel], 0)  # (Q, beam)
+        c = _Carry(
+            top_d=new_d,
+            top_i=new_i,
+            t=c.t + 1,
+            visits=c.visits + n_act,
+            ndist=c.ndist + torch.sum(n_members, dim=1, dtype=torch.int32),
+            npad=c.npad + n_act * cap,
+        )
+    return c
+
+
+def route_select(
+    forest: DeviceForest, q: Tensor, *, mode: str = "forest", kernel: bool = True
+) -> tuple[Tensor, Tensor, Tensor]:
+    """Alg. 2 STEP 1: per-query index selection + the routing cost counters.
+
+    Returns (sel (Q, I) bool, route_dists (Q,) i32, route_cmps (Q,) i32).
+    """
+    qn = q.shape[0]
+    n_idx = forest.index_centers.shape[0]
+    dev = q.device
+    if mode == "forest":
+        _, closest = route_points(forest.index_centers, q, kernel=kernel)
+        sel = route_eligibility(closest, forest.neighbors)  # (Q, I)
+        route_dists = torch.full((qn,), n_idx, dtype=torch.int32, device=dev)
+        route_cmps = torch.full((qn,), n_idx, dtype=torch.int32, device=dev)
+    elif mode == "all":
+        sel = torch.ones((qn, n_idx), dtype=torch.bool, device=dev)
+        route_dists = torch.zeros((qn,), dtype=torch.int32, device=dev)
+        route_cmps = torch.zeros((qn,), dtype=torch.int32, device=dev)
+    else:
+        raise ValueError(f"mode {mode!r}")
+    return sel, route_dists, route_cmps
+
+
+def bucket_bounds(
+    forest: DeviceForest,
+    q: Tensor,
+    bucket_sel: Tensor,
+    *,
+    beam: int = 1,
+    kernel: bool = True,
+) -> PhaseBounds:
+    """STEP 2a over the main bucket rows: eligibility -> pivot lower bounds
+    -> sorted visit order.  The paper's Fig. 21 cost metric charges exactly
+    the eligible bound count per query."""
+    elig = bucket_sel[:, forest.bucket_index.long()]  # (Q, NB) -> sel[q, owner(b)]
+    n_elig = torch.sum(elig, dim=1, dtype=torch.int32)  # (Q,)
+    d_piv = pairwise(q, forest.bucket_pivot, metric="l2", use_kernel=kernel)  # (Q, NB)
+    lb = torch.clamp_min(d_piv - forest.bucket_radius[None, :], 0.0)
+    lb = torch.where(elig, lb, float("inf"))
+    order, lb_sorted, _ = _sorted_bounds(lb, beam)
+    return PhaseBounds(order=order, lb_sorted=lb_sorted, n_elig=n_elig)
+
+
+def delta_bounds(
+    delta: DeltaView,
+    q: Tensor,
+    delta_sel: Tensor,
+    *,
+    beam: int = 1,
+    kernel: bool = True,
+) -> PhaseBounds:
+    """STEP 2a over the delta rows (one streaming bucket per index; empty
+    buffers are never eligible)."""
+    dcount = torch.sum(delta.mask, dim=1, dtype=torch.int32)  # (I_d,)
+    elig_d = delta_sel & (dcount[None, :] > 0)  # (Q, I_d)
+    n_elig_d = torch.sum(elig_d, dim=1, dtype=torch.int32)
+    d_piv_d = pairwise(q, delta.pivot, metric="l2", use_kernel=kernel)
+    lb_d = torch.clamp_min(d_piv_d - delta.radius[None, :], 0.0)
+    lb_d = torch.where(elig_d, lb_d, float("inf"))
+    order_d, lb_d_sorted, _ = _sorted_bounds(lb_d, beam)
+    return PhaseBounds(order=order_d, lb_sorted=lb_d_sorted, n_elig=n_elig_d)
+
+
+def scan_sorted(
+    forest: DeviceForest,
+    q: Tensor,
+    bounds: PhaseBounds,
+    *,
+    kk: int,
+    beam: int = 1,
+    kernel: bool = True,
+    delta: DeltaView | None = None,
+    dbounds: PhaseBounds | None = None,
+) -> ScanOut:
+    """STEP 2b/2c executor body: bounded best-first scan over the bucket
+    rows (and delta rows), visiting in the precomputed ``PhaseBounds``
+    order."""
+    qn = q.shape[0]
+    dev = q.device
+    _, cap, _ = forest.bucket_x.shape
+    zeros = torch.zeros((qn,), dtype=torch.int32, device=dev)
+    init = _Carry(
+        top_d=torch.full((qn, kk), float("inf"), device=dev),
+        top_i=torch.full((qn, kk), -1, dtype=torch.int32, device=dev),
+        t=0,
+        visits=zeros,
+        ndist=zeros,
+        npad=zeros,
+    )
+    # real (unpadded) member count per bucket, for the cost instrumentation
+    bucket_count = torch.sum(forest.bucket_mask, dim=1, dtype=torch.int32)  # (NB,)
+    scan_step = kops.bucket_scan_topk if kernel else kref.bucket_scan_topk_ref
+    n_steps = bounds.order.shape[1] // beam
+    out = _scan_phase(
+        init, q, bounds.order, bounds.lb_sorted, n_steps, beam,
+        scan_step, forest.bucket_x, forest.bucket_ids, forest.bucket_scale,
+        bucket_count, cap,
+    )
+    total_steps = out.t
+
+    n_elig_d = zeros
+    if delta is not None:
+        dcap = delta.x.shape[1]
+        dcount = torch.sum(delta.mask, dim=1, dtype=torch.int32)  # (I_d,)
+        dstep = kops.delta_scan_topk if kernel else kref.bucket_scan_topk_ref
+        n_steps_d = dbounds.order.shape[1] // beam
+        out = _scan_phase(
+            out._replace(t=0), q, dbounds.order, dbounds.lb_sorted, n_steps_d,
+            beam, dstep, delta.x, delta.ids, None, dcount, dcap,
+        )
+        total_steps += out.t
+        n_elig_d = dbounds.n_elig
+
+    return ScanOut(
+        top_d=out.top_d,
+        top_i=out.top_i,
+        visits=out.visits,
+        ndist=out.ndist,
+        npad=out.npad,
+        steps=total_steps,
+        n_elig=bounds.n_elig,
+        n_elig_d=n_elig_d,
+    )
+
+
+def local_scan(
+    forest: DeviceForest,
+    q: Tensor,
+    bucket_sel: Tensor,
+    *,
+    kk: int,
+    beam: int = 1,
+    kernel: bool = True,
+    delta: DeltaView | None = None,
+    delta_sel: Tensor | None = None,
+) -> ScanOut:
+    """STEP 2 executor body over the bucket rows AND delta rows it is given.
+    ``bucket_sel`` (Q, I) is the selection table indexed by
+    ``forest.bucket_index``; ``delta_sel`` (Q, I_d) selects per delta row
+    (defaults to ``bucket_sel``)."""
+    bounds = bucket_bounds(forest, q, bucket_sel, beam=beam, kernel=kernel)
+    dbounds = None
+    if delta is not None:
+        if delta_sel is None:
+            delta_sel = bucket_sel
+        dbounds = delta_bounds(delta, q, delta_sel, beam=beam, kernel=kernel)
+    return scan_sorted(
+        forest, q, bounds, kk=kk, beam=beam, kernel=kernel,
+        delta=delta, dbounds=dbounds,
+    )
+
+
+def scan_stats(
+    route_dists: Tensor, route_cmps: Tensor, out: ScanOut, *, kk: int
+) -> SearchStats:
+    """Roll a ``ScanOut`` + routing counters into the paper's ``SearchStats``."""
+    return SearchStats(
+        buckets_visited=out.visits,
+        distances=out.ndist,
+        bound_distances=route_dists + out.n_elig + out.n_elig_d,
+        padded_distances=out.npad,
+        comparisons=route_cmps
+        + out.n_elig + out.n_elig_d  # bound comparisons (eligible buckets)
+        # top-k merge comparisons over every padded lane actually scanned
+        + out.npad * int(math.ceil(math.log2(max(kk, 2)))),
+        steps=torch.tensor(out.steps, dtype=torch.int32),
+    )
+
+
+def knn_search_impl(
+    forest: DeviceForest,
+    q: Tensor,
+    *,
+    k: int,
+    mode: str = "forest",
+    beam: int = 1,
+    kernel: bool = True,
+    delta: DeltaView | None = None,
+) -> tuple[Tensor, Tensor, SearchStats]:
+    """Batched kNN over the forest. Returns (dists (Q,k), ids (Q,k), stats).
+
+    dists are true L2 distances; ids are global object ids (-1 if fewer than
+    k objects were reachable).  ``kernel=True`` (default) routes every
+    distance through the ``kernels.ops`` dispatch layer (the K1/K2 kernels on
+    a CUDA tensor, the plain versions on a CPU tensor); ``kernel=False`` runs
+    the plain versions on any device, as a reference.
+    """
+    n_idx = forest.index_centers.shape[0]
+    nb, cap, _ = forest.bucket_x.shape
+    n_cap = nb * cap
+    if delta is not None:
+        n_cap += n_idx * delta.x.shape[1]
+    kk = min(k, n_cap)
+
+    sel, route_dists, route_cmps = route_select(forest, q, mode=mode, kernel=kernel)
+    out = local_scan(
+        forest, q, sel, kk=kk, beam=beam, kernel=kernel,
+        delta=delta, delta_sel=sel,
+    )
+    stats = scan_stats(route_dists, route_cmps, out, kk=kk)
+    return torch.sqrt(out.top_d), out.top_i, stats
+
+
+def knn_exact(x: Tensor, q: Tensor, *, k: int, kernel: bool = True) -> tuple[Tensor, Tensor]:
+    """Brute-force oracle: exact kNN of q (Q, D) in x (N, D)."""
+    d2 = pairwise(q, x, metric="sq_l2", use_kernel=kernel)
+    vals, idx = kref.topk_smallest(d2, min(k, x.shape[0]))
+    return torch.sqrt(torch.clamp_min(vals, 0.0)), idx.to(torch.int32)

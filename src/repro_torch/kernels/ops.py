@@ -1,0 +1,85 @@
+"""The one dispatch layer for every distance on the search path.
+
+Dispatch rule of each wrapper below, decided by where its tensors lie:
+
+* a CUDA tensor gets the hand-written kernel (``pairwise_l2.py``,
+  ``bucket_scan.py``), or the call raises: there is no fallback and no
+  switch that forces the plain version on the card;
+* a CPU tensor gets the plain version from ``ref.py`` (the same math; this
+  is what the CPU tests run).
+
+Each kernel wrapper counts its own launches (``launch_counts``), so a run can
+show that its main path went through the kernels.
+
+The search's delta phase scans the streaming append buffers through the same
+K1 step, named ``delta_scan_topk`` at its call site; delta members always
+scan f32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.bucket_scan import bucket_scan_topk_cuda
+from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_cuda
+
+Tensor = torch.Tensor
+
+KERNELS = {
+    "pairwise_sq_l2": pairwise_sq_l2_cuda,
+    "bucket_scan_topk": bucket_scan_topk_cuda,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last ``reset_launch_counts``."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def pairwise_sq_l2(q: Tensor, x: Tensor) -> Tensor:
+    """(Q, D) x (N, D) -> (Q, N) squared L2 distances."""
+    if q.is_cuda:
+        return pairwise_sq_l2_cuda(q, x)
+    return ref.pairwise_sq_l2_ref(q, x)
+
+
+def bucket_scan_topk(
+    q: Tensor,
+    bucket_x: Tensor,
+    bucket_ids: Tensor,
+    bsel: Tensor,
+    act: Tensor,
+    top_d: Tensor,
+    top_i: Tensor,
+    scale: Tensor | None = None,
+) -> tuple[Tensor, Tensor]:
+    """Fused forest-scan step: gather ``bsel`` buckets, distances, top-k merge.
+
+    See ``bucket_scan.py`` for the kernel and ``ref.py`` for the plain
+    version.  ``scale`` enables the int8 bucket storage path.
+    """
+    if q.is_cuda:
+        return bucket_scan_topk_cuda(q, bucket_x, bucket_ids, bsel, act, top_d, top_i, scale)
+    return ref.bucket_scan_topk_ref(q, bucket_x, bucket_ids, bsel, act, top_d, top_i, scale)
+
+
+# The delta phase dispatches through the identical kernel step, named so the
+# call site in core/knn.py reads as what it scans.
+delta_scan_topk = bucket_scan_topk
+
+
+def quantize_datastore(x: Tensor) -> tuple[Tensor, Tensor]:
+    """Symmetric per-row int8 quantization: (int8 rows, f32 per-row scales).
+
+    ``torch.round`` rounds half to even, as ``jnp.round`` does, so the result
+    matches the JAX package's bit for bit.
+    """
+    x = x.float()
+    scale = torch.clamp_min(torch.amax(torch.abs(x), dim=1), 1e-8) / 127.0
+    xq = torch.clamp(torch.round(x / scale[:, None]), -127, 127).to(torch.int8)
+    return xq, scale.to(torch.float32)

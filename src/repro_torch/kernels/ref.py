@@ -1,0 +1,81 @@
+"""Plain PyTorch versions of the search-path kernels.
+
+Each hand-written CUDA kernel (``pairwise_l2.py``, ``bucket_scan.py``) is held
+against the function here on the same inputs; on a CPU tensor the dispatch
+layer (``ops.py``) runs these directly.  The arithmetic follows the JAX
+package's ``repro.kernels.ref`` line for line: f32 throughout, the expansion
+``max(||q||^2 + ||x||^2 - 2 q.x, 0)``, and a top-k whose ties go to the lower
+position (``lax.top_k``'s order), taken here with a stable ascending sort.
+"""
+from __future__ import annotations
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def no_tf32() -> None:
+    """Keep f32 products in full f32 on the card: TF32 distances (about three
+    decimal digits) break the bound pruning's exactness."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def pairwise_sq_l2_ref(q: Tensor, x: Tensor) -> Tensor:
+    """(Q, D) x (N, D) -> (Q, N) squared L2, via the expansion."""
+    if q.is_cuda:
+        no_tf32()
+    q = q.float()
+    x = x.float()
+    qq = torch.sum(q * q, dim=-1)[:, None]
+    xx = torch.sum(x * x, dim=-1)[None, :]
+    return torch.clamp_min(qq + xx - 2.0 * (q @ x.T), 0.0)
+
+
+def topk_smallest(d: Tensor, k: int) -> tuple[Tensor, Tensor]:
+    """k smallest values per row, ascending, ties to the lower position."""
+    vals, pos = torch.sort(d, dim=1, stable=True)
+    return vals[:, :k], pos[:, :k]
+
+
+def bucket_scan_topk_ref(
+    q: Tensor,
+    bucket_x: Tensor,
+    bucket_ids: Tensor,
+    bsel: Tensor,
+    act: Tensor,
+    top_d: Tensor,
+    top_i: Tensor,
+    scale: Tensor | None = None,
+) -> tuple[Tensor, Tensor]:
+    """One forest-scan step: gather selected buckets, distance, top-k merge.
+
+    q (Q, D); bucket_x (NB, C, D) f32 or int8 (then ``scale`` (NB, C) holds
+    per-member dequant scales); bsel/act (Q, beam); top_d/top_i (Q, kk) the
+    running per-query top-k (squared distances ascending, object ids).
+    Members with id < 0 (padding) and buckets with act == 0 contribute
+    nothing.  Returns the merged (top_d, top_i).
+    """
+    if q.is_cuda:
+        no_tf32()
+    qn, kk = top_d.shape
+    q = q.float()
+    bsel = bsel.long()
+    bx = bucket_x[bsel].float()  # (Q, beam, C, D)
+    if scale is not None:
+        bx = bx * scale[bsel][..., None].float()
+    bids = bucket_ids[bsel]  # (Q, beam, C)
+    live = (bids >= 0) & (act != 0)[:, :, None]
+    d2 = (
+        torch.sum(q * q, dim=-1)[:, None, None]
+        + torch.sum(bx * bx, dim=-1)
+        - 2.0 * torch.einsum("qbcd,qd->qbc", bx, q)
+    )
+    inf = torch.tensor(float("inf"), device=d2.device)
+    d2 = torch.where(live, torch.clamp_min(d2, 0.0), inf)
+    cand_d = d2.reshape(qn, -1)
+    cand_i = torch.where(live, bids, -1).reshape(qn, -1).to(torch.int32)
+    merged_d = torch.cat([top_d.float(), cand_d], dim=1)
+    merged_i = torch.cat([top_i.to(torch.int32), cand_i], dim=1)
+    vals, pos = topk_smallest(merged_d, kk)
+    return vals, torch.gather(merged_i, 1, pos)

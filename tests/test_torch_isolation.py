@@ -1,0 +1,70 @@
+"""The port stands alone: ``repro_torch`` imports neither ``jax`` nor any
+module of the JAX package, and its entry points never fall back to the CPU
+on their own."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+PORT = Path(__file__).resolve().parent.parent / "src" / "repro_torch"
+
+
+def _modules() -> list[str]:
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(PORT.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts.pop()
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_import_loads_no_jax_and_no_repro():
+    mods = _modules()
+    assert "repro_torch.core.knn" in mods and "repro_torch.api.index" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(PORT.parent))
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+IMPORT_RE = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\s|\.|$)", re.M)
+
+
+def test_no_jax_or_repro_import_lines():
+    offenders = []
+    for path in sorted(PORT.rglob("*.py")):
+        for m in IMPORT_RE.finditer(path.read_text()):
+            offenders.append(f"{path.relative_to(PORT)}: {m.group(0).strip()}")
+    assert not offenders, offenders
+
+
+def test_baseline_without_device_refuses_cpu(monkeypatch):
+    """No ``device=`` and no CUDA: the entry point raises instead of quietly
+    running on the CPU (the CPU is there only when asked for)."""
+    from repro_torch.api import OverlapIndex
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.random.default_rng(0).normal(size=(50, 4)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        OverlapIndex.baseline(x)
+    ix = OverlapIndex.baseline(x, device="cpu")
+    assert ix.search(x[:3], k=2).ids.shape == (3, 2)

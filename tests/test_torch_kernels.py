@@ -1,0 +1,263 @@
+"""The port's plain K1/K2 (``repro_torch.kernels``) against the JAX package.
+
+Each case feeds the same numpy-seeded inputs to the port's plain version, to
+``repro.kernels.ref`` and to the Pallas kernel in interpret mode.  On a CPU
+tensor the port's dispatch layer runs the plain version, so these tests hold
+the arithmetic the CUDA kernels are held to on the card (the card-only
+comparison lives in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+
+Tolerances: squared distances agree to ``rtol = atol = 1e-5`` on unit-scale
+f32 data (the three implementations sum ||q||^2, ||x||^2 and q.x in
+different orders; at these magnitudes the rounding is ~1e-6) and ``1e-4``
+for int8 members (dequantized magnitudes reach 127 * scale, so the sums
+carry larger rounding).  Ids are compared exactly where the case pins the
+tie order (exact duplicates, a dry pool, fewer than k reachable), and by
+the distance they achieve elsewhere.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.bucket_scan import bucket_scan_topk_pallas
+from repro.kernels.ops import quantize_datastore as j_quantize
+from repro.kernels.pairwise_l2 import pairwise_sq_l2_pallas
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.bucket_scan import bucket_scan_topk_cuda
+from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_cuda
+
+TOL = 1e-5
+TOL_INT8 = 1e-4
+
+# (Q, N, D): the sweep of tests/test_kernels_pairwise.py, then the widths
+# D = 1, 5, 13, 20, 128 (5 and 20 are the paper's datasets)
+PAIRWISE_SHAPES = [
+    (8, 16, 4), (64, 64, 64), (65, 130, 33), (128, 257, 96), (1, 300, 20),
+    (7, 9, 1), (33, 70, 5), (16, 40, 13), (50, 61, 20), (9, 17, 128),
+]
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("q_n,x_n,d", PAIRWISE_SHAPES)
+def test_pairwise_plain_matches_jax(q_n, x_n, d):
+    g = np.random.default_rng(q_n * 1000 + x_n + d)
+    q = g.normal(size=(q_n, d)).astype(np.float32)
+    x = g.normal(size=(x_n, d)).astype(np.float32)
+    got = ops.pairwise_sq_l2(_t(q), _t(x)).numpy()
+    want = np.asarray(jref.pairwise_sq_l2_ref(jnp.asarray(q), jnp.asarray(x)))
+    pallas = np.asarray(pairwise_sq_l2_pallas(
+        jnp.asarray(q), jnp.asarray(x), bq=64, bn=64, bd=64, interpret=True
+    ))
+    assert got.dtype == np.float32 and got.shape == (q_n, x_n)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, pallas, rtol=TOL, atol=TOL)
+    assert (got >= 0).all()
+
+
+def test_pairwise_plain_bf16_inputs():
+    """bf16 operands upcast to f32 before the expansion, as in the JAX
+    oracle: both sides round the same f32 values to bf16 (round to nearest
+    even), so the f32 results agree to the f32 tolerance."""
+    g = np.random.default_rng(3)
+    q = g.normal(size=(65, 33)).astype(np.float32)
+    x = g.normal(size=(130, 33)).astype(np.float32)
+    got = ref.pairwise_sq_l2_ref(_t(q).bfloat16(), _t(x).bfloat16()).numpy()
+    want = np.asarray(jref.pairwise_sq_l2_ref(
+        jnp.asarray(q, jnp.bfloat16), jnp.asarray(x, jnp.bfloat16)
+    ))
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+def _problem(g, qn, nb, cap, dim, beam, kk, *, pad_frac=0.3, seeded_topk=True):
+    """numpy twin of tests/test_bucket_scan.py::_problem."""
+    q = g.normal(size=(qn, dim)).astype(np.float32)
+    bx = g.normal(size=(nb, cap, dim)).astype(np.float32)
+    ids = np.arange(nb * cap, dtype=np.int32).reshape(nb, cap)
+    ids = np.where(g.random((nb, cap)) < pad_frac, -1, ids).astype(np.int32)
+    bsel = g.integers(0, nb, size=(qn, beam)).astype(np.int32)
+    act = g.random((qn, beam)) < 0.75
+    if seeded_topk:
+        top_d = np.sort(g.random((qn, kk)).astype(np.float32) * 40.0, axis=1)
+        top_d[:, kk // 2:] = np.inf
+        top_i = np.where(
+            np.isinf(top_d), -1, g.integers(10_000, 20_000, (qn, kk))
+        ).astype(np.int32)
+    else:
+        top_d = np.full((qn, kk), np.inf, np.float32)
+        top_i = np.full((qn, kk), -1, np.int32)
+    return q, bx, ids, bsel, act, top_d, top_i
+
+
+def _scan_all(args, scale=None):
+    """(port plain, JAX ref, Pallas interpret) results of one scan step."""
+    q, bx, ids, bsel, act, top_d, top_i = args
+    tp = ops.bucket_scan_topk(
+        _t(q), _t(bx), _t(ids), _t(bsel), _t(act), _t(top_d), _t(top_i),
+        None if scale is None else _t(scale),
+    )
+    ja = [jnp.asarray(a) for a in args]
+    js = None if scale is None else jnp.asarray(scale)
+    jr = jref.bucket_scan_topk_ref(*ja, js)
+    jp = bucket_scan_topk_pallas(*ja, js, interpret=True)
+    port = (tp[0].numpy(), tp[1].numpy())
+    return port, tuple(np.asarray(a) for a in jr), tuple(np.asarray(a) for a in jp)
+
+
+def _ids_achieve_values(q, bx, ids, got_d, got_i, scale=None):
+    """Returned ids must achieve the returned distances (tie-tolerant)."""
+    flat_x = bx.reshape(-1, bx.shape[-1]).astype(np.float32)
+    if scale is not None:
+        flat_x = flat_x * scale.reshape(-1)[:, None]
+    flat_ids = ids.reshape(-1)
+    for qi in range(q.shape[0]):
+        for j in range(got_d.shape[1]):
+            gid = got_i[qi, j]
+            if gid < 0 or gid >= 10_000 or not np.isfinite(got_d[qi, j]):
+                continue  # seeded/pad entries carry no coordinates
+            rows = flat_x[flat_ids == gid]
+            d2 = ((rows - q[qi]) ** 2).sum(-1)
+            assert np.any(np.abs(d2 - got_d[qi, j]) < 1e-3), (qi, j, gid)
+
+
+# (Q, NB, C, D, beam, kk): the sweep of tests/test_bucket_scan.py
+SCAN_SHAPES = [
+    (4, 7, 5, 6, 3, 4),
+    (2, 9, 8, 16, 4, 7),
+    (1, 3, 2, 33, 2, 5),
+    (5, 6, 4, 8, 6, 11),
+]
+
+
+@pytest.mark.parametrize("qn,nb,cap,dim,beam,kk", SCAN_SHAPES)
+def test_bucket_scan_plain_matches_jax(qn, nb, cap, dim, beam, kk):
+    g = np.random.default_rng(qn * 100 + nb * 10 + cap)
+    args = _problem(g, qn, nb, cap, dim, beam, kk)
+    (pd, pi), (rd, ri), (kd, ki) = _scan_all(args)
+    np.testing.assert_allclose(pd, rd, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(pd, kd, rtol=TOL, atol=TOL)
+    _ids_achieve_values(args[0], args[1], args[2], pd, pi)
+    np.testing.assert_array_equal(np.isinf(pd), pi == -1)
+    with np.errstate(invalid="ignore"):
+        diffs = np.diff(pd, axis=1)
+    assert np.all((diffs >= 0) | np.isnan(diffs))
+
+
+def test_bucket_scan_fewer_than_k_reachable():
+    """Heavily padded buckets + sparse activity: inf/-1 tail, ids exact."""
+    g = np.random.default_rng(21)
+    args = _problem(g, 3, 4, 3, 5, 2, 9, pad_frac=0.8, seeded_topk=False)
+    (pd, pi), (rd, ri), (kd, ki) = _scan_all(args)
+    np.testing.assert_allclose(pd, rd, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(pd, kd, rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(pi, ri)
+    np.testing.assert_array_equal(pi, ki)
+    assert np.isinf(pd).any(), "the case must leave part of the top-k empty"
+    np.testing.assert_array_equal(np.isinf(pd), pi == -1)
+
+
+def test_bucket_scan_dry_pool_keeps_ids_unique():
+    """A partly filled top-k and a step with no live candidate: the merge
+    must not re-emit an extracted id once the pool runs dry."""
+    g = np.random.default_rng(22)
+    qn, nb, cap, dim, beam = 2, 3, 4, 5, 2
+    q = g.normal(size=(qn, dim)).astype(np.float32)
+    bx = g.normal(size=(nb, cap, dim)).astype(np.float32)
+    ids = np.full((nb, cap), -1, np.int32)  # every member is padding
+    bsel = g.integers(0, nb, size=(qn, beam)).astype(np.int32)
+    act = np.zeros((qn, beam), bool)  # ...and nothing is active anyway
+    top_d = np.array([[1.0, 2.5, np.inf, np.inf, np.inf]] * qn, np.float32)
+    top_i = np.array([[42, 7, -1, -1, -1]] * qn, np.int32)
+    (pd, pi), (rd, ri), (kd, ki) = _scan_all((q, bx, ids, bsel, act, top_d, top_i))
+    np.testing.assert_array_equal(pd, top_d)
+    np.testing.assert_array_equal(pi, top_i)
+    np.testing.assert_array_equal(pi, ri)
+    np.testing.assert_array_equal(pi, ki)
+
+
+def test_bucket_scan_duplicate_distances_ids_exact():
+    """Exactly tied candidates (one member row copied across buckets): each
+    implementation computes the same d2 for every copy, and the lower
+    position wins the tie, so the ids agree exactly."""
+    g = np.random.default_rng(23)
+    qn, nb, cap, dim, beam, kk = 3, 5, 4, 6, 3, 6
+    q = g.normal(size=(qn, dim)).astype(np.float32)
+    row = g.normal(size=(dim,)).astype(np.float32)
+    bx = np.broadcast_to(row, (nb, cap, dim)).copy()
+    bx[2:] = g.normal(size=(nb - 2, cap, dim))
+    ids = np.arange(nb * cap, dtype=np.int32).reshape(nb, cap)
+    bsel = np.array([[0, 1, 2], [1, 0, 3], [0, 0, 4]], np.int32)
+    act = np.ones((qn, beam), bool)
+    top_d = np.full((qn, kk), np.inf, np.float32)
+    top_i = np.full((qn, kk), -1, np.int32)
+    (pd, pi), (rd, ri), (kd, ki) = _scan_all((q, bx, ids, bsel, act, top_d, top_i))
+    np.testing.assert_allclose(pd, rd, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(pd, kd, rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(pi, ri)
+    np.testing.assert_array_equal(pi, ki)
+    assert (np.diff(pd, axis=1) == 0).any(), "the case must hold exact ties"
+
+
+def test_bucket_scan_int8_matches_jax():
+    g = np.random.default_rng(24)
+    qn, nb, cap, dim, beam, kk = 4, 6, 5, 12, 3, 6
+    q, bx, ids, bsel, act, top_d, top_i = _problem(g, qn, nb, cap, dim, beam, kk)
+    xq, scale = ops.quantize_datastore(_t(bx.reshape(nb * cap, dim)))
+    bxq = xq.numpy().reshape(nb, cap, dim)
+    bscale = scale.numpy().reshape(nb, cap)
+    (pd, pi), (rd, ri), (kd, ki) = _scan_all(
+        (q, bxq, ids, bsel, act, top_d, top_i), bscale
+    )
+    np.testing.assert_allclose(pd, rd, rtol=TOL_INT8, atol=TOL_INT8)
+    np.testing.assert_allclose(pd, kd, rtol=TOL_INT8, atol=TOL_INT8)
+    _ids_achieve_values(q, bxq, ids, pd, pi, bscale)
+
+
+@pytest.mark.parametrize("shape", [(40, 7), (130, 20), (9, 5)])
+def test_quantize_datastore_bitwise(shape):
+    """Same int8 rows and scales as the JAX package, bit for bit (both round
+    half to even); the rows include exact halves and an all-zero row."""
+    g = np.random.default_rng(shape[0])
+    x = (g.normal(size=shape) * 3).astype(np.float32)
+    x[0] = 0.0
+    x[1, :] = np.arange(shape[1], dtype=np.float32) - 2.5
+    tq, ts = ops.quantize_datastore(_t(x))
+    jq, js = j_quantize(jnp.asarray(x))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy().view(np.int32), np.asarray(js).view(np.int32))
+
+
+def test_dispatch_on_cpu_runs_plain_and_counts_nothing():
+    """A CPU tensor takes the plain version; no kernel launch is counted."""
+    g = np.random.default_rng(5)
+    q, x = _t(g.normal(size=(8, 5)).astype(np.float32)), _t(g.normal(size=(9, 5)).astype(np.float32))
+    ops.reset_launch_counts()
+    np.testing.assert_array_equal(
+        ops.pairwise_sq_l2(q, x).numpy(), ref.pairwise_sq_l2_ref(q, x).numpy()
+    )
+    args = [_t(a) for a in _problem(g, 3, 4, 5, 5, 2, 3)]
+    got = ops.bucket_scan_topk(*args)
+    want = ref.bucket_scan_topk_ref(*args)
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    assert ops.launch_counts() == {"pairwise_sq_l2": 0, "bucket_scan_topk": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The CUDA wrappers launch or raise: a CPU tensor is refused, never run
+    through a plain fallback."""
+    q = torch.zeros((2, 3))
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        pairwise_sq_l2_cuda(q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        bucket_scan_topk_cuda(
+            q, torch.zeros((1, 2, 3)), torch.zeros((1, 2), dtype=torch.int32),
+            torch.zeros((2, 1), dtype=torch.int32), torch.ones((2, 1), dtype=torch.bool),
+            torch.full((2, 1), float("inf")), torch.full((2, 1), -1, dtype=torch.int32),
+        )
+    assert ops.launch_counts() == before
