@@ -10,16 +10,29 @@ Phases, in order; any failure raises and the run exits non-zero:
 2. K2 (``pairwise_sq_l2``) against its plain version on the card;
 3. K1 (``bucket_scan_topk``) against its plain version on the card, f32 and
    int8, including exact ties, fewer than k reachable and a dry pool;
-4. the slice: ``OverlapIndex.baseline`` over WARD-like 1,000,000 x 5 (c_max
-   1000) and Tracking-like 62,702 x 20, then ``search`` of 1,024 queries at
-   k=10, beam 1 and 4, f32 and int8 buckets, held against a brute force on
-   the card (f32: exact up to ties; int8: against the dequantized rows the
-   index stores, at least 0.99, with the recall against the f32 rows
-   printed); the kernels' launch counters must rise during this phase;
-5. kernel times (CUDA events) beside the plain versions', the library
+4. K3, K4, K5 (the DBSCAN ``eps_*`` passes) against their plain versions:
+   exact on unit-scale rows and on hand-made cases (ties, no core point, all
+   core, ragged tiles), and on 2,048 rows of each full dataset against the
+   whole dataset under the in-band rule (``check_eps_data``);
+5. the baseline slice: ``OverlapIndex.baseline`` over WARD-like
+   1,000,000 x 5 (c_max 1000) and Tracking-like 62,702 x 20, then ``search``
+   of 1,024 queries at k=10, beam 1 and 4, f32 and int8 buckets, held
+   against a brute force on the card (f32: exact up to ties; int8: against
+   the dequantized rows the index stores, at least 0.99, with the recall
+   against the f32 rows printed); K1 and K2 must launch in this phase;
+6. the overlap build: ``OverlapIndex.build`` at the repo's full-size
+   configurations (Tracking with VBM, DBM and OBM, WARD with VBM, and the
+   tests' blob set with VBM, whose forest has overlap-neighbour links), each
+   build's report and per-phase seconds printed, Tracking's structure held
+   to the JAX package's; Tracking's DBSCAN also run through the plain path
+   on the card, and both runs held to the whole-DBSCAN rule
+   (``check_dbscan``);
+7. ``search`` on every overlap forest as in phase 5, beside the baseline's
+   cost counters; K1-K5 must all launch across phases 6-7;
+8. kernel times (CUDA events) beside the plain versions', the library
    yardstick and the bound (bytes over 3.35 TB/s, f32 flops over
    67 TFLOP/s, whichever is larger), then one ``torch.profiler`` pass per
-   search for the device's busy share.
+   baseline search for the device's busy share.
 
 The last lines are one JSON object of per-kernel numbers, then
 ``{"ok": true, "device": {...}}``; ``--json PATH`` also writes the full
@@ -55,13 +68,15 @@ def require(ok: bool, what: str) -> None:
 # timing and bounds
 # --------------------------------------------------------------------------
 
-def device_ms(fn, *, reps: int = 7, launches_hint: int = 1) -> float:
+def device_ms(fn, *, reps: int = 7, launches_hint: int = 1, warm: bool = True) -> float:
     """Median device time of ``fn`` in ms, by CUDA events.  A sleep kernel
     queued ahead of each timed run keeps the device busy while the host
-    enqueues, so the interval measures device execution, not Python."""
+    enqueues, so the interval measures device execution, not Python.
+    ``warm=False`` skips the untimed first run (for calls of many seconds)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     cycles = int(2e5) * max(1, launches_hint)  # ~0.1 ms of sleep per launch
     times = []
@@ -226,34 +241,247 @@ def check_k1(dev, gen) -> float:
 
 
 # --------------------------------------------------------------------------
-# phase 4: the slice
+# phase 4: K3, K4, K5 against their plain versions
+# --------------------------------------------------------------------------
+
+def grid_rows(gen, dev, n, d):
+    """Unit-scale rows on a 1/8 grid in [-2, 2].  Every product and partial
+    sum of the expansion is then exact in f32, whatever the order, so the
+    kernels and the plain versions must agree bit for bit, and d2 == eps_sq
+    and exact d2 ties really occur."""
+    import torch
+
+    return torch.randint(-16, 17, (n, d), generator=gen, device=dev).float() / 8
+
+
+def compare_eps(q, x, labels, core, eps_sq, what: str) -> float:
+    """K3 counts, K4 labels and K5 labels exactly equal to the plain
+    versions'; K5's d2 within the K2 tolerance.  Returns max |d2 error|."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.eps_graph import (
+        eps_count_cuda,
+        eps_min_label_cuda,
+        eps_nearest_core_cuda,
+    )
+
+    kc = eps_count_cuda(q, x, eps_sq)
+    kl = eps_min_label_cuda(q, x, labels, core, eps_sq)
+    kd, kn = eps_nearest_core_cuda(q, x, labels, core)
+    pc = ref.eps_count_ref(q, x, eps_sq)
+    pl = ref.eps_min_label_ref(q, x, labels, core, eps_sq)
+    pd, pn = ref.eps_nearest_core_ref(q, x, labels, core)
+    torch.cuda.synchronize()
+    require(torch.equal(kc, pc), f"K3 {what}: counts differ")
+    require(torch.equal(kl, pl), f"K4 {what}: labels differ")
+    require(torch.equal(kn, pn), f"K5 {what}: labels differ")
+    fin = torch.isfinite(pd)
+    require(torch.equal(fin, torch.isfinite(kd)), f"K5 {what}: +inf differs")
+    if not bool(fin.any()):
+        return 0.0
+    xx = float((x.double() ** 2).sum(1).max()) if x.shape[0] else 0.0
+    tol = 1e-5 + 1e-5 * ((q.double() ** 2).sum(1) + xx)
+    err = (kd.double() - pd.double()).abs()
+    require(bool((err[fin] <= tol[fin]).all()), f"K5 {what}: d2 off the plain version's")
+    return float(err[fin].max())
+
+
+def check_eps_unit(dev, gen) -> float:
+    """Phase 4a: random unit-scale cases and hand-made ones, all exact."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    worst, n_cases = 0.0, 0
+    sizes = (1, 63, 64, 65, 1000, 4097)
+    shapes = [(qn, n, d) for qn in sizes for n in sizes for d in (1, 5, 20, 33)]
+    shapes += [(65, 4097, 200), (1000, 63, 70)]  # widths above 64: the generic path
+    for qn, n, d in shapes:
+        q, x = grid_rows(gen, dev, qn, d), grid_rows(gen, dev, n, d)
+        # the threshold on a data value: many pairs sit exactly on it
+        eps_sq = float(ref.pairwise_sq_l2_ref(q, x).flatten().median())
+        labels = torch.randint(0, n, (n,), generator=gen, device=dev, dtype=torch.int32)
+        core = torch.rand((n,), generator=gen, device=dev) < 0.5
+        worst = max(worst, compare_eps(q, x, labels, core, eps_sq, f"{(qn, n, d)}"))
+        n_cases += 1
+
+    from repro_torch.kernels.eps_graph import eps_min_label_cuda, eps_nearest_core_cuda
+
+    d, n = 5, 300  # 300 rows: two full tiles of 128 and a ragged one
+    x = 40.0 + grid_rows(gen, dev, n, d)
+    unit = torch.eye(d, device=dev)
+    x[2], x[5], x[140], x[290] = unit[2], unit[0], -unit[0], unit[1]  # all at d2 = 1
+    core = torch.ones(n, dtype=torch.bool, device=dev)
+    core[2] = False  # the earliest tied row is not core
+    labels = torch.arange(n, 0, -1, dtype=torch.int32, device=dev)  # later rows smaller
+    q = torch.zeros((3, d), device=dev)
+    q[2] = -3.0  # no core row within eps of this query
+    worst = max(worst, compare_eps(q, x, labels, core, 1.0, "exact ties"))
+    _, kn = eps_nearest_core_cuda(q, x, labels, core)
+    require(kn[:2].tolist() == [labels[5].item()] * 2, "K5: the first tied core index must win")
+    kl = eps_min_label_cuda(q, x, labels, core, 1.0)
+    require(kl[:2].tolist() == [labels[290].item()] * 2 and kl[2].item() == n,
+            "K4: min label over the tied rows, sentinel N without a core neighbour")
+    for what, mask in (("all core", torch.ones(n, dtype=torch.bool, device=dev)),
+                       ("no core", torch.zeros(n, dtype=torch.bool, device=dev))):
+        worst = max(worst, compare_eps(q, x, labels, mask, 1.0, what))
+    kd, kn = eps_nearest_core_cuda(q, x, labels, torch.zeros(n, dtype=torch.bool, device=dev))
+    require(bool(torch.isinf(kd).all()) and bool((kn == n).all()), "K5: (+inf, N) without core")
+    n_cases += 4
+    log(f"[K3-K5] {n_cases} cases match the plain versions exactly on the card "
+        f"(unit-scale rows on a 1/8 grid, Q and N in {sizes}, D in (1, 5, 20, 33, 70, "
+        "200), eps_sq on a data value; exact d2 ties for K5's first-index rule; a "
+        "query with no core neighbour; all core and no core; N = 300, not a multiple "
+        f"of the 128-row tile); max K5 |d2 kernel - plain| = {worst:.3e}")
+    return worst
+
+
+def band(qq, xx):
+    """Per pair, 8 ulp of ||q||^2 + ||x||^2 (f64, (Q, N)): how far two
+    correct f32 expansions of the same d2 may lie apart."""
+    return 8.0 * 2.0 ** -23 * (qq[:, None] + xx[None, :])
+
+
+def check_eps_data(name, x, eps, min_pts, *, rows: int = 2048, seed: int = SEED) -> dict:
+    """Phase 4b: ``rows`` rows of a full dataset against the whole dataset.
+
+    Where the exact d2 of a pair lies within ``band`` of eps_sq, the kernel
+    and the plain version may decide it differently.  So, per query:
+
+    * K3's count lies in [plain count at eps_sq - band, at eps_sq + band];
+    * K4's label lies in [plain min label over the core neighbours within
+      eps_sq + band, within eps_sq - band] (K4's edge set up to in-band
+      pairs);
+    * K5's d2 is the plain minimum within the K2 tolerance, and the plain d2
+      of the row whose label K5 returns is within that tolerance of it
+      (labels are the row indices here, so a label names one row).
+
+    The core mask and labels fed to K4/K5 are a real first sweep's: core
+    from a full K3 pass, labels0 = the row index of each core row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.eps_graph import (
+        eps_count_cuda,
+        eps_min_label_cuda,
+        eps_nearest_core_cuda,
+    )
+
+    dev = x.device
+    n = x.shape[0]
+    eps_sq = float(np.float32(eps) ** 2)
+    core = eps_count_cuda(x, x, eps_sq) >= min_pts
+    labels = torch.where(core, torch.arange(n, dtype=torch.int32, device=dev), n).to(torch.int32)
+    pick = np.random.default_rng(seed).choice(n, rows, replace=False)
+    q = x[torch.from_numpy(pick).to(dev)]
+    kc = eps_count_cuda(q, x, eps_sq).long()
+    kl = eps_min_label_cuda(q, x, labels, core, eps_sq).long()
+    kd, kn = eps_nearest_core_cuda(q, x, labels, core)
+    kn = kn.long()
+
+    qq = (q.double() ** 2).sum(1)
+    big = n  # the sentinel
+    cnt = torch.zeros(rows, dtype=torch.long, device=dev)
+    cnt_lo, cnt_hi = cnt.clone(), cnt.clone()
+    lab = torch.full((rows,), big, dtype=torch.long, device=dev)
+    lab_lo, lab_hi = lab.clone(), lab.clone()  # over edges within -band, +band
+    near_d = torch.full((rows,), float("inf"), device=dev)
+    near_j = torch.full((rows,), big, dtype=torch.long, device=dev)
+    d_at_k = torch.full((rows,), float("inf"), dtype=torch.float64, device=dev)
+    chunk = 1 << 16
+    for c0 in range(0, n, chunk):
+        xc = x[c0:c0 + chunk]
+        d2 = ref.pairwise_sq_l2_ref(q, xc)
+        d2d = d2.double()
+        bd = band(qq, (xc.double() ** 2).sum(1))
+        lo, hi = d2d <= eps_sq - bd, d2d <= eps_sq + bd
+        cnt += (d2 <= eps_sq).sum(1)
+        cnt_lo += lo.sum(1)
+        cnt_hi += hi.sum(1)
+        cc = core[c0:c0 + chunk][None, :]
+        lc = labels[c0:c0 + chunk].long()[None, :]
+        lab = torch.minimum(lab, torch.where((d2 <= eps_sq) & cc, lc, big).min(1).values)
+        lab_lo = torch.minimum(lab_lo, torch.where(lo & cc, lc, big).min(1).values)
+        lab_hi = torch.minimum(lab_hi, torch.where(hi & cc, lc, big).min(1).values)
+        dm = torch.where(cc, d2, float("inf"))
+        j = torch.argmin(dm, 1)
+        v = torch.gather(dm, 1, j[:, None])[:, 0]
+        better = v < near_d  # strict: the earlier chunk keeps a tie
+        near_d = torch.where(better, v, near_d)
+        near_j = torch.where(better, j + c0, near_j)
+        inside = (kn >= c0) & (kn < c0 + xc.shape[0])
+        if bool(inside.any()):
+            r = torch.nonzero(inside)[:, 0]
+            d_at_k[r] = d2d[r, kn[r] - c0]
+    pn = torch.where(torch.isinf(near_d), big, labels.long()[near_j.clamp_max(n - 1)])
+    torch.cuda.synchronize()
+    require(bool(((kc >= cnt_lo) & (kc <= cnt_hi)).all()),
+            f"K3 {name}: a count outside the in-band interval")
+    require(bool(((kl >= lab_hi) & (kl <= lab_lo)).all()),
+            f"K4 {name}: a label outside the in-band interval")
+    xx = float((x.double() ** 2).sum(1).max())
+    tol = 1e-5 + 1e-5 * (qq + xx)
+    fin = torch.isfinite(near_d)
+    require(torch.equal(fin, torch.isfinite(kd)), f"K5 {name}: +inf differs")
+    err = torch.where(fin, (kd.double() - near_d.double()).abs(), 0.0)
+    require(bool((err <= tol).all()), f"K5 {name}: d2 off the plain minimum")
+    require(bool((torch.where(fin, d_at_k - near_d.double(), 0.0) <= tol).all()),
+            f"K5 {name}: the returned row is not a nearest core row up to rounding")
+    out = dict(
+        core_share=float(core.float().mean()), in_band_queries=int((cnt_lo < cnt_hi).sum()),
+        k3_differ=int((kc != cnt).sum()), k3_max=int((kc - cnt).abs().max()),
+        k4_differ=int((kl != lab).sum()), k4_max=int((kl - lab).abs().max()),
+        k5_label_differ=int((kn != pn).sum()),
+        k5_max_d2_err=float(err.max()),
+    )
+    log(f"[K3-K5] {name}: {rows} rows x {n} x {x.shape[1]} against the plain versions "
+        f"under the in-band rule (band = 8 ulp of ||q||^2 + ||x||^2 per pair): "
+        f"{out['in_band_queries']} queries have an in-band pair; K3 counts differ on "
+        f"{out['k3_differ']} (max {out['k3_max']}), K4 labels on {out['k4_differ']}, "
+        f"K5 labels on {out['k5_label_differ']} (each explained), max K5 |d2 kernel - "
+        f"plain| = {out['k5_max_d2_err']:.3e}; core share {out['core_share']:.4f}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 5: the baseline slice
 # --------------------------------------------------------------------------
 
 class BruteForce:
     """Exact kNN on the card, independent of the port's search: chunked
     plain distances, then ``torch.topk``; returns f64 exact squared
-    distances for the checks."""
+    distances for the checks.  With a ``route`` (``Route``), each query
+    sees only the rows the route allows it: the brute force of a
+    forest-mode search."""
 
-    def __init__(self, x, q):
+    def __init__(self, x, q, *, route=None):
         import torch
 
         from repro_torch.kernels import ref
 
-        self.x, self.q = x, q
+        self.x, self.q, self.route = x, q, route
         best_d = torch.full((q.shape[0], 0), float("inf"), device=q.device)
         best_i = torch.zeros((q.shape[0], 0), dtype=torch.int64, device=q.device)
         chunk = 1 << 16
         for lo in range(0, x.shape[0], chunk):
             d2 = ref.pairwise_sq_l2_ref(q, x[lo:lo + chunk])
+            if route is not None:
+                cols = torch.arange(lo, lo + d2.shape[1], device=q.device)
+                d2 = torch.where(route.allows(cols[None, :].expand(q.shape[0], -1)), d2,
+                                 float("inf"))
             vd, vi = torch.topk(d2, min(K, d2.shape[1]), dim=1, largest=False)
             best_d = torch.cat([best_d, vd], 1)
             best_i = torch.cat([best_i, vi + lo], 1)
             best_d, pos = torch.topk(best_d, min(K, best_d.shape[1]), dim=1, largest=False)
             best_i = torch.gather(best_i, 1, pos)
-        self.ids = best_i
-        self.d2 = self.exact_d2(best_i)
+        # a query routed to fewer than k rows gets id -1 past them
+        require(route is not None or bool(torch.isfinite(best_d).all()), "fewer than k rows")
+        self.ids = torch.where(torch.isfinite(best_d), best_i, -1)
+        self.d2 = self.exact_d2(self.ids)
         self.kth = self.d2.max(dim=1).values
-        self.kth_tol = self.tol(best_i).max(dim=1).values
+        self.kth_tol = self.tol(self.ids).max(dim=1).values
 
     def exact_d2(self, ids):
         """f64 squared distances of the rows ``ids`` to their queries."""
@@ -289,17 +517,18 @@ def check_result(bf: BruteForce, dists, ids, *, truth: BruteForce | None = None)
     dev = bf.q.device
     ids_t = torch.as_tensor(ids, device=dev).long()
     d_t = torch.as_tensor(dists, device=dev).double()
+    require(bool((ids_t >= 0).all()), "missing ids (every dataset here holds more than k rows)")
     exact = bf.exact_d2(ids_t)
     tol = bf.tol(ids_t)
-    tie_recall = float((exact <= (bf.kth + bf.kth_tol)[:, None] + tol).float().mean())
+    tie_recall = float((exact <= (bf.kth + bf.kth_tol)[:, None] + tol).double().mean())
     ref_ids = (truth or bf).ids
-    recall = float((ids_t[:, :, None] == ref_ids[:, None, :]).any(-1).float().mean())
+    recall = float((ids_t[:, :, None] == ref_ids[:, None, :]).any(-1).double().mean())
     floor = 1.0 if truth is None else 0.99
     require(tie_recall >= floor, f"recall {tie_recall} < {floor} up to ties")
     derr = (d_t ** 2 - exact).abs()
     require(bool((derr <= tol).all()), "distances off the exact ones")
     uniq = all(len(set(r)) == len(r) for r in ids_t.tolist())
-    require(uniq and bool((ids_t >= 0).all()), "duplicate or missing ids")
+    require(uniq, "duplicate ids")
     return dict(recall=recall, recall_ties=tie_recall, max_d2_err=float(derr.max()))
 
 
@@ -315,21 +544,30 @@ def make_queries(x, seed: int):
 DATASETS = [("WARD", "ward_like", 1_000_000, 1000), ("Tracking", "tracking_like", 62_702, None)]
 
 
-def run_slice(dev, datasets=DATASETS) -> dict:
-    """Build both datasets' baselines and search them; returns what phase 5
-    and the summary need.  The launch counters are reset just before the
-    searches and read just after them."""
+def make_data() -> dict:
+    """The paper's two datasets at full size (synthetic, from their seeds)."""
+    from repro_torch.data import synthetic
+
+    data = {}
+    for name, gen, n, _ in DATASETS:
+        t0 = time.perf_counter()
+        data[name] = getattr(synthetic, gen)(n)
+        log(f"[data] {name}: x {data[name].shape} made in {time.perf_counter() - t0:.1f} s")
+    return data
+
+
+def run_slice(dev, data) -> dict:
+    """Build both datasets' baselines and search them; returns what the later
+    phases and the summary need.  The launch counters are reset just before
+    the searches and read just after them."""
     import torch
 
     from repro_torch.api import Config, IndexConfig, OverlapIndex, SearchConfig
-    from repro_torch.data import synthetic
     from repro_torch.kernels import ops
 
     built = {}
-    for name, gen, n, c_max in datasets:
-        t0 = time.perf_counter()
-        x = getattr(synthetic, gen)(n)
-        t_data = time.perf_counter() - t0
+    for name, _, _, c_max in DATASETS:
+        x = data[name]
         idx = {}
         for quantize in (False, True):
             cfg = Config(index=IndexConfig(pivot_method="kmeans", c_max=c_max),
@@ -338,7 +576,7 @@ def run_slice(dev, datasets=DATASETS) -> dict:
             idx[quantize] = OverlapIndex.baseline(x, cfg, device=dev)
             t_build = time.perf_counter() - t0
         f = idx[False].forest
-        log(f"[slice] {name}: x {x.shape} made in {t_data:.1f} s; baseline build "
+        log(f"[slice] {name}: baseline build "
             f"{t_build:.1f} s (host numpy, 2-means); bucket_x {f.bucket_x.shape}, "
             f"{f.bucket_x.nbytes / 1e6:.1f} MB f32")
         q = make_queries(x, SEED + len(built))
@@ -366,7 +604,8 @@ def run_slice(dev, datasets=DATASETS) -> dict:
                 results.append((name, quantize, beam, res, wall))
     launches = ops.launch_counts()
     log(f"[slice] launch counts over the {len(results)} searches: {launches}")
-    require(all(v > 0 for v in launches.values()), "a kernel of the path never launched")
+    require(launches["bucket_scan_topk"] > 0 and launches["pairwise_sq_l2"] > 0,
+            "a kernel of the search path never launched")
 
     for name, quantize, beam, res, wall in results:
         b = built[name]
@@ -428,7 +667,405 @@ def check_kernel_vs_plain_search(built) -> None:
 
 
 # --------------------------------------------------------------------------
-# phase 5: times
+# phases 6-7: the overlap build and its searches
+# --------------------------------------------------------------------------
+
+# The repo's full-size configurations (benchmarks/common.py, load_datasets
+# with full=True), and the tests' blob set with the thresholds of
+# tests/test_torch_search.py's OVERLAP_CFG, whose forest has overlap indexes
+# and neighbour links.
+BUILD_CFG = {
+    "Tracking": dict(eps=6.0, min_pts=16, xi_min=0.4, xi_max=0.8, c_max=250),
+    "WARD": dict(eps=2.0, min_pts=23, xi_min=0.4, xi_max=0.8, c_max=1000),
+    "Blob": dict(eps=1.5, min_pts=8, xi_min=0.1, xi_max=0.7),
+}
+BUILDS = [("Tracking", "vbm"), ("Tracking", "dbm"), ("Tracking", "obm"),
+          ("WARD", "vbm"), ("Blob", "vbm")]
+# The JAX package's structure on the same arrays, (n_clusters, DBSCAN
+# iterations, n_indexes, n_overlap_indexes), from a CPU run of
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "
+#   from repro.api import OverlapIndex, Config, IndexConfig
+#   from repro.data.synthetic import tracking_like
+#   x = tracking_like(62702)
+#   for m in ('vbm', 'dbm', 'obm'):
+#       r = OverlapIndex.build(x, Config(index=IndexConfig(method=m, eps=6.0,
+#           min_pts=16, xi_min=0.4, xi_max=0.8, c_max=250))).build_report
+#       print(m, r.n_clusters, r.detail['dbscan_iterations'], r.n_indexes,
+#             r.n_overlap_indexes)"
+# and the same for ("Blob", "vbm") on blob_rows() with BUILD_CFG["Blob"].
+JAX_STRUCTURE = {
+    ("Tracking", "vbm"): (24, 3, 24, 0),
+    ("Tracking", "dbm"): (24, 3, 1, 0),
+    ("Tracking", "obm"): (24, 3, 1, 0),
+    ("Blob", "vbm"): (5, 4, 7, 3),
+}
+
+
+def blob_rows():
+    """tests/conftest.py's blob_data: five Gaussian clusters and uniform
+    noise, 2,100 x 8."""
+    import numpy as np
+
+    g = np.random.default_rng(7)
+    centers = g.normal(size=(5, 8)) * 10.0
+    parts = [c + g.normal(size=(400, 8)) for c in centers]
+    parts.append(g.uniform(-15, 15, size=(100, 8)))
+    return np.concatenate(parts).astype(np.float32)
+
+
+def run_overlap(dev, built, base_results) -> dict:
+    """Build every configuration of ``BUILDS`` twice (f32 and int8 bucket
+    storage; the two forests must be equal), then search each as phase 5
+    searches the baselines.  The launch counters are reset just before the
+    first build and read just after the last search."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Config, IndexConfig, OverlapIndex, SearchConfig
+    from repro_torch.core.forest import FOREST_FIELDS
+    from repro_torch.kernels import ops
+
+    blob = blob_rows()
+    qb = torch.from_numpy(make_queries(blob, SEED + 7)).to(dev)
+    xb = torch.from_numpy(blob).to(dev)
+    xq, scale = ops.quantize_datastore(xb)
+    sets = dict(built)
+    sets["Blob"] = dict(x=blob, q=qb.cpu().numpy(), bf=BruteForce(xb, qb),
+                        bf_int8=BruteForce(xq.float() * scale[:, None], qb))
+
+    ops.reset_launch_counts()
+    builds = {}
+    for name, method in BUILDS:
+        x = sets[name]["x"]
+        idx, rows = {}, {}
+        for quantize in (False, True):
+            cfg = Config(index=IndexConfig(method=method, **BUILD_CFG[name]),
+                         search=SearchConfig(quantize=quantize))
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            ix = OverlapIndex.build(x, cfg, device=dev)
+            t_build = time.perf_counter() - t0
+            launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            t0 = time.perf_counter()
+            ix.device  # the upload
+            torch.cuda.synchronize()
+            t_upload = time.perf_counter() - t0
+            idx[quantize] = ix
+            rows[quantize] = dict(build_s=t_build, upload_s=t_upload, launched=launched,
+                                  phase_s=dict(ix.build_report.phase_s))
+        f0, f1 = idx[False].forest, idx[True].forest
+        require(all(np.array_equal(getattr(f0, k), getattr(f1, k)) for k in FOREST_FIELDS),
+                f"{name} {method}: two builds of the same input differ")
+        rep = idx[False].build_report
+        r0 = rows[False]
+        structure = (rep.n_clusters, rep.detail["dbscan_iterations"], rep.n_indexes,
+                     rep.n_overlap_indexes)
+        links = int((f0.neighbors >= 0).sum())
+        log(f"[build] {name} {x.shape[0]} x {x.shape[1]} {method}: n_clusters="
+            f"{rep.n_clusters}, DBSCAN iterations={rep.detail['dbscan_iterations']}, "
+            f"n_indexes={rep.n_indexes}, n_overlap_indexes={rep.n_overlap_indexes}, "
+            f"neighbour links={links}, buckets={f0.n_buckets} (C={f0.c_max}); decision "
+            f"{rep.detail['decision']}; seconds: DBSCAN {r0['phase_s']['dbscan']:.2f}, "
+            f"overlap+decide {r0['phase_s']['decide']:.2f}, forest "
+            f"{r0['phase_s']['forest']:.2f}, upload {r0['upload_s']:.2f} (build "
+            f"{r0['build_s']:.2f}; the int8 twin {rows[True]['build_s']:.2f}); kernel "
+            f"launches in the build {r0['launched']}")
+        want = JAX_STRUCTURE.get((name, method))
+        if want is not None:
+            require(structure == want,
+                    f"{name} {method}: structure {structure} differs from the JAX package's {want}")
+            log(f"[build] {name} {method}: structure equals the JAX package's {want}")
+        builds[(name, method)] = dict(idx=idx, rows=rows, structure=structure, links=links,
+                                      decision=dict(rep.detail["decision"]))
+
+    base = {(n, qz, bm): res for n, qz, bm, res, _ in base_results}
+    searches = []
+    for (name, method), bd in builds.items():
+        b = sets[name]
+        route = Route(bd["idx"][False], b["bf"].q)
+        routed = dict(bf=BruteForce(b["bf"].x, b["bf"].q, route=route),
+                      bf_int8=BruteForce(b["bf_int8"].x, b["bf"].q, route=route))
+        log(f"[search] {name} {method}: {route.ambiguous} of {NQ} routings are near ties "
+            "of two centers")
+        for beam in (1, 4):  # warm-up: each plan's first search, untimed
+            for mode in ("forest", "all"):
+                for quantize in (False, True):
+                    bd["idx"][quantize].search(b["q"], k=K, beam=beam, mode=mode)
+        torch.cuda.synchronize()
+        for beam in (1, 4):
+            for mode in ("forest", "all"):
+                for quantize in (False, True):
+                    t0 = time.perf_counter()
+                    res = bd["idx"][quantize].search(b["q"], k=K, beam=beam, mode=mode)
+                    wall = time.perf_counter() - t0
+                    if mode == "forest":
+                        bf = routed["bf_int8" if quantize else "bf"]
+                        chk = check_forest(bf, res.dists, res.ids,
+                                           truth=routed["bf"] if quantize else None)
+                        what = (f"routed rows nearer than the k-th found: {chk['routed_found']:.4f}"
+                                f" ({'int8 rows' if quantize else 'f32'}); {chk['short']} queries "
+                                f"routed to fewer than {K} rows; {chk['outside']:.4f} of the "
+                                f"results from unrouted buckets; routed-row recall "
+                                f"{chk['recall']:.4f}")
+                    elif quantize:
+                        chk = check_result(b["bf_int8"], res.dists, res.ids, truth=b["bf"])
+                        what = (f"recall vs the stored int8 rows up to ties="
+                                f"{chk['recall_ties']:.4f}, vs the f32 rows={chk['recall']:.4f}")
+                    else:
+                        chk = check_result(b["bf"], res.dists, res.ids)
+                        what = f"recall={chk['recall']:.4f}, up to ties={chk['recall_ties']:.4f}"
+                    ids_t = torch.as_tensor(res.ids, device=dev).long()
+                    full = b["bf"].ids
+                    chk["recall_all"] = float(
+                        (full[:, :, None] == ids_t[:, None, :]).any(-1).double().mean())
+                    what += f"; recall against all rows={chk['recall_all']:.4f}"
+                    st = res.stats
+                    row = dict(dataset=name, method=method, mode=mode, quantize=quantize,
+                               beam=beam, us_per_query=wall / NQ * 1e6, steps=int(st["steps"]),
+                               buckets_visited=float(st["buckets_visited"].mean()),
+                               distances=float(st["distances"].mean()), **chk)
+                    bl = base.get((name, quantize, beam))
+                    if bl is not None:
+                        row.update(base_buckets_visited=float(bl.stats["buckets_visited"].mean()),
+                                   base_distances=float(bl.stats["distances"].mean()),
+                                   base_steps=int(bl.stats["steps"]))
+                        what += (f"; baseline on the same queries: buckets_visited "
+                                 f"{row['base_buckets_visited']:.2f}, distances "
+                                 f"{row['base_distances']:.1f}, steps {row['base_steps']}")
+                    searches.append(row)
+                    log(f"[search] {name} {method} {mode} {'int8' if quantize else 'f32 '} "
+                        f"beam={beam}: {row['us_per_query']:.1f} us/query, steps={row['steps']}, "
+                        f"mean buckets_visited={row['buckets_visited']:.2f}, mean distances="
+                        f"{row['distances']:.1f}, {what}")
+    launches = ops.launch_counts()
+    log(f"[overlap] launch counts over the {len(BUILDS) * 2} builds and "
+        f"{len(searches)} searches: {launches}")
+    require(all(v > 0 for v in launches.values()), "a kernel of the overlap path never launched")
+    return dict(builds=builds, searches=searches, launches=launches)
+
+
+class Route:
+    """The routed rows of a forest-mode search (Alg. 2), per query: the rows
+    of its closest index and of that index's overlap neighbours.  The
+    closest index is the argmin of the K2 distances to the index centers,
+    as the search takes it; where the plain distances pick another index,
+    the two centers must be tied up to the K2 tolerance."""
+
+    def __init__(self, ix, q):
+        import numpy as np
+        import torch
+
+        from repro_torch.kernels import ops, ref
+
+        f = ix.forest
+        dev = q.device
+        centers = torch.from_numpy(f.index_centers).to(dev)
+        dk = ops.pairwise_sq_l2(q, centers)
+        dp = ref.pairwise_sq_l2_ref(q, centers)
+        closest = torch.argmin(dk, 1)
+        alt = torch.argmin(dp, 1)
+        gap = (torch.gather(dp, 1, closest[:, None]) - torch.gather(dp, 1, alt[:, None]))[:, 0]
+        tol = torch.gather(k2_tol(q, centers), 1, closest[:, None])[:, 0]
+        self.ambiguous = int((closest != alt).sum())
+        require(bool((gap <= 2 * tol).all()), "routing: the K2 argmin is no nearest center")
+        qn = q.shape[0]
+        eligible = np.zeros((qn, f.n_indexes), bool)
+        cl = closest.cpu().numpy()
+        eligible[np.arange(qn), cl] = True
+        nbrs = f.neighbors[cl]
+        r, c = np.nonzero(nbrs >= 0)
+        eligible[r, nbrs[r, c]] = True
+        owner = np.full(len(ix.x_all), -1, np.int64)
+        live = f.bucket_ids >= 0
+        owner[f.bucket_ids[live]] = np.broadcast_to(f.bucket_index[:, None], live.shape)[live]
+        require(bool((owner >= 0).all()), "a row lies in no bucket of the forest")
+        self.eligible = torch.from_numpy(eligible).to(dev)
+        self.owner = torch.from_numpy(owner).to(dev)
+
+    def allows(self, ids):
+        """(Q, m) bool for (Q, m) row ids."""
+        import torch
+
+        return torch.gather(self.eligible, 1, self.owner[ids])
+
+
+def check_forest(bf: BruteForce, dists, ids, *, truth: BruteForce | None = None) -> dict:
+    """Hold a forest-mode result against the brute force over its routed
+    rows (``bf`` with a ``Route``).
+
+    The bounded scan visits every routed bucket whose lower bound is <= the
+    running k-th best, so every routed row nearer than the returned k-th
+    distance is returned (``routed_found`` must be 1 for f32 rows, 0.99 for
+    int8 rows, whose bounds are not exact: see ``check_result``).  Rows of
+    other indexes may come back too: their buckets' bound is +inf, which is
+    <= the k-th best while fewer than k rows are found, so a step that
+    starts short of k (the first, or any of a query whose routed rows are
+    fewer than k) scans them in row order.  Every returned distance must be
+    the exact one to the f32 rounding, and no id may repeat."""
+    import torch
+
+    dev = bf.q.device
+    ids_t = torch.as_tensor(ids, device=dev).long()
+    d_t = torch.as_tensor(dists, device=dev).double()
+    require(bool((ids_t >= 0).all()), "missing ids (every dataset here holds more than k rows)")
+    exact = bf.exact_d2(ids_t)
+    tol = bf.tol(ids_t)
+    require(bool(((d_t ** 2 - exact).abs() <= tol).all()), "distances off the exact ones")
+    require(all(len(set(r)) == len(r) for r in ids_t.tolist()), "duplicate ids")
+    kth = exact.max(1).values
+    live = bf.ids >= 0
+    nearer = live & (bf.d2 < (kth[:, None] - bf.tol(bf.ids)))
+    got = (bf.ids[:, :, None] == ids_t[:, None, :]).any(-1)
+    found = float(got[nearer].double().mean()) if bool(nearer.any()) else 1.0
+    floor = 1.0 if truth is None else 0.99
+    require(found >= floor, f"routed rows nearer than the k-th missing: {found} < {floor}")
+    outside = ~bf.route.allows(ids_t)
+    ref_ids = (truth or bf).ids
+    ref_live = ref_ids >= 0
+    recall = float((ref_ids[:, :, None] == ids_t[:, None, :]).any(-1)[ref_live].double().mean())
+    return dict(routed_found=found, recall=recall, outside=float(outside.double().mean()),
+                short=int((~live).any(1).sum()),
+                max_d2_err=float((d_t ** 2 - exact).abs().max()))
+
+
+def check_dbscan(x, eps: float, min_pts: int) -> dict:
+    """Tracking's DBSCAN through the kernel path and the plain path on the
+    card, held to the whole-DBSCAN rule.
+
+    A pair whose exact d2 lies within ``band`` of eps_sq may be decided
+    either way by two correct f32 implementations.  So each run must be a
+    valid DBSCAN of the data for SOME decision of its in-band pairs, checked
+    against plain distances with the band (``lo``: d2 <= eps_sq - band, a
+    certain edge; ``hi``: d2 <= eps_sq + band, a possible one):
+
+    1. every core point has >= min_pts possible neighbours, every other
+       point < min_pts certain ones;
+    2. core points joined by a certain edge share a label;
+    3. each cluster's core points lie in one connected component of the
+       possible edges among the run's core points;
+    4. a labelled border point has a core point of its label within the
+       possible radius that is its nearest core point up to the band; a noise
+       point has no core point within the certain radius.
+
+    Any point where the two runs differ (label up to renaming, or core flag)
+    is then explained by in-band pairs.  The run fails on any violation."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.dbscan import dbscan
+    from repro_torch.kernels import ref
+
+    dev = x.device
+    n = x.shape[0]
+    eps_sq = float(np.float32(eps) ** 2)
+    t0 = time.perf_counter()
+    rk = dbscan(x, eps, min_pts)
+    t_k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rp = dbscan(x, eps, min_pts, kernel=False)
+    t_p = time.perf_counter() - t0
+
+    xx = (x.double() ** 2).sum(1)
+    block = 2048
+
+    def blocks():
+        for lo in range(0, n, block):
+            d2 = ref.pairwise_sq_l2_ref(x[lo:lo + block], x).double()
+            bd = band(xx[lo:lo + block], xx)
+            yield lo, d2 - bd, d2 + bd  # the exact d2 lies between
+
+    cnt_lo = torch.zeros(n, dtype=torch.long, device=dev)
+    cnt_hi = torch.zeros(n, dtype=torch.long, device=dev)
+    for lo, dlo, dhi in blocks():
+        cnt_lo[lo:lo + block] = (dhi <= eps_sq).sum(1)  # certainly within eps
+        cnt_hi[lo:lo + block] = (dlo <= eps_sq).sum(1)  # possibly within eps
+
+    def validate(res, what):
+        lab = torch.from_numpy(res.labels).to(dev).long()
+        core = torch.from_numpy(res.core_mask).to(dev)
+        require(bool((cnt_hi[core] >= min_pts).all()) and bool((cnt_lo[~core] < min_pts).all()),
+                f"{what}: a core flag no decision of the in-band pairs explains")
+        big = torch.iinfo(torch.long).max
+        # 2: certain edges between core points join equal labels
+        # 3: components of the possible edges among core points
+        comp = torch.where(core, torch.arange(n, device=dev), big)
+        sweeps = 0
+        while True:
+            new = comp.clone()
+            for lo, dlo, dhi in blocks():
+                cc = core[None, :] & core[lo:lo + block, None]
+                certain = (dhi <= eps_sq) & cc
+                lab_b = lab[None, :].expand(certain.shape[0], -1)
+                if sweeps == 0:
+                    mn = torch.where(certain, lab_b, big).min(1).values
+                    mx = torch.where(certain, lab_b, -1).max(1).values
+                    own = lab[lo:lo + block]
+                    has = certain.any(1)
+                    require(bool(((mn == own) & (mx == own))[has].all()),
+                            f"{what}: a certain core-core edge joins two labels")
+                possible = (dlo <= eps_sq) & cc
+                m = torch.where(possible, comp[None, :], big).min(1).values
+                new[lo:lo + block] = torch.minimum(new[lo:lo + block], m)
+            for _ in range(3):  # pointer jumping: a core entry names a core row
+                new = torch.where(core, torch.minimum(new, new[torch.where(core, new, 0)]), new)
+            sweeps += 1
+            if torch.equal(new, comp):
+                break
+            comp = new
+        cl = lab[core]
+        cm = comp[core]
+        k = int(cl.max()) + 1 if cl.numel() else 0
+        lo_c = torch.full((k,), big, device=dev).scatter_reduce(0, cl, cm, "amin")
+        hi_c = torch.full((k,), -1, device=dev).scatter_reduce(0, cl, cm, "amax")
+        require(bool((lo_c == hi_c).all()),
+                f"{what}: a cluster spans two components of the possible edges")
+        # 4: border and noise points
+        for lo, dlo, dhi in blocks():
+            rows = torch.arange(lo, min(lo + block, n), device=dev)
+            nc = ~core[rows]
+            if not bool(nc.any()):
+                continue
+            cc = core[None, :]
+            inf = float("inf")
+            near_hi = torch.where(cc, dhi, inf).min(1).values
+            same = cc & (lab[None, :] == lab[rows][:, None])
+            near_same_lo = torch.where(same, dlo, inf).min(1).values
+            labelled = nc & (lab[rows] >= 0)
+            noise = nc & (lab[rows] < 0)
+            require(bool((near_same_lo[labelled] <= eps_sq).all())
+                    and bool((near_same_lo[labelled] <= near_hi[labelled]).all()),
+                    f"{what}: a border label no nearest core point within eps explains")
+            require(bool((near_hi[noise] > eps_sq).all()),
+                    f"{what}: a noise point with a core point certainly within eps")
+        return sweeps
+
+    sk = validate(rk, "kernel path")
+    sp = validate(rp, "plain path")
+    # the two runs side by side: labels up to renaming, core flags
+    both = (rk.labels >= 0) & (rp.labels >= 0)
+    pairs = np.unique(np.stack([rk.labels[both], rp.labels[both]]), axis=1)
+    one_to_one = (len(np.unique(pairs[0])) == pairs.shape[1]
+                  and len(np.unique(pairs[1])) == pairs.shape[1])
+    mapping = dict(zip(pairs[0].tolist(), pairs[1].tolist())) if one_to_one else {}
+    mapped = np.array([mapping.get(v, -2) if v >= 0 else -1 for v in rk.labels.tolist()])
+    lab_diff = int((mapped != rp.labels).sum()) if one_to_one else -1
+    core_diff = int((rk.core_mask != rp.core_mask).sum())
+    in_band = (cnt_lo < cnt_hi).cpu().numpy()
+    out = dict(kernel_s=t_k, plain_s=t_p, n_clusters=(rk.n_clusters, rp.n_clusters),
+               iterations=(rk.n_iterations, rp.n_iterations), label_differ=lab_diff,
+               core_differ=core_diff, in_band_points=int(in_band.sum()),
+               clusters_one_to_one=one_to_one)
+    log(f"[dbscan] Tracking kernel path {t_k:.2f} s vs plain path {t_p:.2f} s on the card: "
+        f"n_clusters {rk.n_clusters} / {rp.n_clusters}, iterations {rk.n_iterations} / "
+        f"{rp.n_iterations}; clusters one to one: {one_to_one}; labels differ (up to "
+        f"renaming) on {lab_diff} points, core flags on {core_diff}; {out['in_band_points']} "
+        f"points have an in-band pair; both runs pass the whole-DBSCAN rule ({sk} and {sp} "
+        "sweeps of the possible-edge components)")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 8: times
 # --------------------------------------------------------------------------
 
 def time_k2(built) -> list[dict]:
@@ -461,6 +1098,66 @@ def time_k2(built) -> list[dict]:
             f"{plain * 1e3:.1f} us, torch.cdist {lib * 1e3:.1f} us, bound "
             f"{b_ms * 1e3:.2f} us by {by} ({nbytes} B: q, pivots read once, "
             f"(Q, N) f32 written once)")
+    return rows
+
+
+def time_eps(built, overlap) -> list[dict]:
+    """K3, K4, K5 at the shapes DBSCAN gives them: all N rows against all N,
+    on each full dataset, with the core mask and labels of a first sweep.
+    The plain versions run over blocks of 1,024 query rows (a whole (N, N)
+    matrix does not fit), which is the plain path's own plan.  The bound
+    counts what the pass must do: each of q and x read once, labels and the
+    core flag read once, the outputs written once; Q * N' * (3D + 2) f32
+    operations, N' the rows whose distance the pass needs (all N for K3,
+    the core rows for K4 and K5, which skip the rest)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.eps_graph import (
+        eps_count_cuda,
+        eps_min_label_cuda,
+        eps_nearest_core_cuda,
+    )
+
+    rows = []
+    for name in ("WARD", "Tracking"):
+        x = torch.from_numpy(built[name]["x"]).to("cuda")
+        n, d = x.shape
+        cfg = BUILD_CFG[name]
+        eps_sq = float(np.float32(cfg["eps"]) ** 2)
+        core = eps_count_cuda(x, x, eps_sq) >= cfg["min_pts"]
+        labels = torch.where(core, torch.arange(n, dtype=torch.int32, device=x.device), n)
+        labels = labels.to(torch.int32)
+        n_core = int(core.sum())
+        per_build = overlap["builds"][(name, "vbm")]["rows"][False]["launched"]
+        blk = 1024
+
+        def plain(fn):
+            return lambda: [fn(x[lo:lo + blk]) for lo in range(0, n, blk)]
+
+        cases = [
+            ("eps_count", lambda: eps_count_cuda(x, x, eps_sq),
+             plain(lambda qb: ref.eps_count_ref(qb, x, eps_sq)), n, 4 * n),
+            ("eps_min_label", lambda: eps_min_label_cuda(x, x, labels, core, eps_sq),
+             plain(lambda qb: ref.eps_min_label_ref(qb, x, labels, core, eps_sq)),
+             n_core, 9 * n),
+            ("eps_nearest_core", lambda: eps_nearest_core_cuda(x, x, labels, core),
+             plain(lambda qb: ref.eps_nearest_core_ref(qb, x, labels, core)),
+             n_core, 13 * n),
+        ]
+        for kname, kern, pl, cols, extra_bytes in cases:
+            ms = device_ms(kern, reps=3)
+            plain_ms = device_ms(pl, reps=1, warm=False, launches_hint=n // blk)
+            nbytes = 4 * 2 * n * d + extra_bytes  # q and x once; labels, flags, outputs
+            b_ms, by = bound(nbytes, float(n) * cols * (3 * d + 2))
+            rows.append(dict(name=kname, shape=f"{name} Q=N={n} D={d}", dataset=name, ms=ms,
+                             plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=by,
+                             cols=cols, launches_per_build=per_build[kname]))
+            log(f"[time] {kname} {name} ({n} x {n} x {d}, {cols} columns computed): kernel "
+                f"{ms:.2f} ms, plain {plain_ms:.2f} ms (blocks of {blk} rows), bound "
+                f"{b_ms:.2f} ms by {by} ({b_ms / ms:.1%} of it); {per_build[kname]} "
+                "launches in the VBM build")
     return rows
 
 
@@ -633,11 +1330,20 @@ def main(argv=None) -> int:
     gen.manual_seed(SEED)
     k2_err = check_k2(dev, gen)
     k1_err = check_k1(dev, gen)
+    eps_err = check_eps_unit(dev, gen)
+    data = make_data()
+    eps_data = {ds: check_eps_data(ds, torch.from_numpy(data[ds]).to(dev),
+                                   BUILD_CFG[ds]["eps"], BUILD_CFG[ds]["min_pts"])
+                for ds, *_ in DATASETS}
 
-    sl = run_slice(dev)
+    sl = run_slice(dev, data)
     check_kernel_vs_plain_search(sl["built"])
+    ov = run_overlap(dev, sl["built"], sl["results"])
+    cfg = BUILD_CFG["Tracking"]
+    db = check_dbscan(torch.from_numpy(data["Tracking"]).to(dev), cfg["eps"], cfg["min_pts"])
     k2_rows = time_k2(sl["built"])
     k1_rows = time_k1(sl["built"])
+    eps_rows = time_eps(sl["built"], ov)
     prof_rows = profile_searches(sl["built"], sl["results"])
 
     # how much of each search's wall time the K1 launches account for
@@ -647,24 +1353,40 @@ def main(argv=None) -> int:
         log(f"[time] {r['shape']}: K1 device time {r['ms'] * r['steps']:.2f} ms of "
             f"the search's {wall_ms:.2f} ms wall ({r['ms'] * r['steps'] / wall_ms:.1%})")
 
-    def entry(kname, src_file, replaces, row, err):
+    def entry(kname, src_file, replaces, row, err, launches):
         return dict(
             name=kname, route="cuda", source=src_file, replaces=replaces,
-            launches=sl["launches"][kname], max_abs_err=err, ms=row["ms"],
+            launches=launches[kname], max_abs_err=err, ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], shape=row["shape"],
         )
 
+    # K1/K2: launches of the baseline searches (phase 5); K3-K5: of the
+    # overlap builds and searches (phases 6-7); times at the WARD shapes
+    eps_src = "src/repro_torch/csrc/eps_graph.cu"
+    eps_d2 = max([eps_err] + [v["k5_max_d2_err"] for v in eps_data.values()])
+    eps_counts = max(v["k3_max"] for v in eps_data.values())
     kernels = [
         entry("bucket_scan_topk", "src/repro_torch/csrc/bucket_scan.cu",
               "src/repro/kernels/bucket_scan.py:197", k1_rows[0],
-              max([k1_err] + [r["max_abs_err"] for r in k1_rows])),
+              max([k1_err] + [r["max_abs_err"] for r in k1_rows]), sl["launches"]),
         entry("pairwise_sq_l2", "src/repro_torch/csrc/pairwise_l2.cu",
               "src/repro/kernels/pairwise_l2.py:102", k2_rows[0],
-              max([k2_err] + [r["max_abs_err"] for r in k2_rows])),
+              max([k2_err] + [r["max_abs_err"] for r in k2_rows]), sl["launches"]),
+        entry("eps_count", eps_src, "src/repro/kernels/pairwise_l2.py:211",
+              eps_rows[0], float(eps_counts), ov["launches"]),
+        entry("eps_min_label", eps_src, "src/repro/kernels/pairwise_l2.py:238",
+              eps_rows[1], float(max(v["k4_max"] for v in eps_data.values())), ov["launches"]),
+        entry("eps_nearest_core", eps_src, "src/repro/kernels/pairwise_l2.py:270",
+              eps_rows[2], eps_d2, ov["launches"]),
     ]
     if args.json:
-        detail = dict(card=smi, kernels=kernels, k1=k1_rows, k2=k2_rows, profile=prof_rows,
+        builds = {f"{n} {m}": dict(structure=b["structure"], links=b["links"],
+                                   decision=b["decision"], **b["rows"][False])
+                  for (n, m), b in ov["builds"].items()}
+        detail = dict(card=smi, kernels=kernels, k1=k1_rows, k2=k2_rows, eps=eps_rows,
+                      eps_data=eps_data, builds=builds, searches=ov["searches"],
+                      dbscan=db, profile=prof_rows, nvcc_s=t_build,
                       seconds=time.perf_counter() - t_start)
         out = Path(args.json)
         out.parent.mkdir(parents=True, exist_ok=True)

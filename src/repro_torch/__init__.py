@@ -1,12 +1,13 @@
 """PyTorch + CUDA port of the overlap-optimized kNN forest (``repro``).
 
 The module layout mirrors ``src/repro``: ``kernels`` (plain versions, the
-hand-written Hopper kernels and their dispatch), ``core`` (BCCF build, forest
-flattening, the bounded forest search), ``data`` and ``api`` (the
-``OverlapIndex`` facade).  This package imports ``torch`` and numpy only.
+hand-written Hopper kernels and their dispatch), ``core`` (DBSCAN, overlap
+rates, the decision stage, BCCF build, forest flattening, the bounded forest
+search), ``data`` and ``api`` (the ``OverlapIndex`` facade).  This package imports ``torch`` and numpy only.
 
     from repro_torch.api import OverlapIndex
 
+    ix = OverlapIndex.build(x, cfg)        # the overlap forest, on "cuda"
     ix = OverlapIndex.baseline(x)          # BCCF baseline, on "cuda"
     res = ix.search(q, k=10, beam=4)       # SearchResult: dists / ids / stats
 """

@@ -2,8 +2,12 @@
 
     from repro_torch.api import OverlapIndex
 
-    ix = OverlapIndex.baseline(x)          # runs on "cuda" unless device= is given
+    ix = OverlapIndex.build(x, cfg)        # the paper's overlap forest, on "cuda"
+    ix = OverlapIndex.baseline(x)          # the BCCF baseline; device= names another
     res = ix.search(q, k=10)               # SearchResult(dists, ids, stats)
+
+Overlap heuristics resolve through ``register_overlap_method`` /
+``available_overlap_methods`` (VBM, DBM and OBM are the built-in entries).
 """
 from repro_torch.api.config import (
     Config,
@@ -14,8 +18,15 @@ from repro_torch.api.config import (
 )
 from repro_torch.api.index import OverlapIndex
 from repro_torch.api.plan import PlanCache, PlanKey, SearchPlan, SearchResult
+from repro_torch.core.overlap import (
+    available_overlap_methods,
+    register_overlap_method,
+    unregister_overlap_method,
+)
 
 __all__ = [
     "Config", "ConfigError", "IndexConfig", "SearchConfig", "as_index_config",
     "OverlapIndex", "PlanCache", "PlanKey", "SearchPlan", "SearchResult",
+    "available_overlap_methods", "register_overlap_method",
+    "unregister_overlap_method",
 ]

@@ -10,12 +10,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field, fields
 
+from repro_torch.core.overlap import available_overlap_methods
 from repro_torch.core.pipeline import IndexConfig as _CoreIndexConfig
 
 PIVOT_METHODS = ("gh", "kmeans")
 SEARCH_MODES = ("forest", "all")
-# the overlap heuristics of the paper, as the JAX package registers them
-OVERLAP_METHODS = ("dbm", "obm", "vbm")
 
 
 class ConfigError(ValueError):
@@ -28,10 +27,11 @@ def _require(ok: bool, msg: str) -> None:
 
 
 def _check_method(name: str, *, owner: str, field_name: str) -> None:
-    if name not in OVERLAP_METHODS:
+    if name not in available_overlap_methods():
         raise ConfigError(
             f"{owner}.{field_name}={name!r} is not a registered overlap "
-            f"method; choose one of {', '.join(OVERLAP_METHODS)}"
+            f"method; choose one of {', '.join(available_overlap_methods())} "
+            "or add yours with repro_torch.api.register_overlap_method(name, fn)"
         )
 
 

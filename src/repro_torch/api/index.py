@@ -2,6 +2,7 @@
 
     from repro_torch.api import OverlapIndex
 
+    ix = OverlapIndex.build(x, cfg)          # the paper's overlap forest, on "cuda"
     ix = OverlapIndex.baseline(x)            # BCCF baseline, on "cuda"
     res = ix.search(q, k=10, beam=4)         # SearchResult: dists / ids / stats
 
@@ -9,8 +10,8 @@ The facade owns the host ``ForestArrays``, the device ``DeviceForest``
 upload (quantized per ``cfg.search``), and a ``PlanCache`` of search
 executors.  Entry points run on ``cuda`` unless the caller passes a
 ``device``; with no device given and no CUDA available they raise rather than
-run on the CPU.  This slice carries the baseline build and search; the
-overlap build, streaming, persistence and serving come with later slices.
+run on the CPU.  The port carries the overlap build, the baseline build and
+search so far; streaming, persistence and serving come with later slices.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from repro_torch.core.pipeline import (
     BuildReport,
     IndexConfig as _CoreIndexConfig,
     build_baseline_core,
+    build_index_core,
     default_delta_capacity,
 )
 
@@ -78,7 +80,8 @@ class OverlapIndex:
 
     def __init__(self, *args, **kwargs):
         raise TypeError(
-            "OverlapIndex is constructed via OverlapIndex.baseline(x, cfg)"
+            "OverlapIndex is constructed via OverlapIndex.build(x, cfg) or "
+            "OverlapIndex.baseline(x, cfg)"
         )
 
     @classmethod
@@ -97,6 +100,20 @@ class OverlapIndex:
         self.capacity = default_delta_capacity(self.n_total)
         self.plans = PlanCache()
         return self
+
+    @classmethod
+    def build(
+        cls, x, cfg: Config | _CoreIndexConfig | None = None, *, device=None
+    ) -> "OverlapIndex":
+        """The paper's proposed pipeline (§4): overlap-optimized forest.
+        DBSCAN (K3-K5) and the overlap rates run on ``device`` (default
+        ``cuda``), where searches run too; the decision and the trees are
+        built on the host."""
+        dev = resolve_device(device)
+        cfg = _as_config(cfg)
+        x = _check_data(x)
+        forest, report = build_index_core(x, cfg.index, device=dev)
+        return cls._wire(x, forest, cfg, report, dev)
 
     @classmethod
     def baseline(

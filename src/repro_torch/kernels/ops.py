@@ -1,10 +1,10 @@
-"""The one dispatch layer for every distance on the search path.
+"""The one dispatch layer for every kernel of the port.
 
 Dispatch rule of each wrapper below, decided by where its tensors lie:
 
 * a CUDA tensor gets the hand-written kernel (``pairwise_l2.py``,
-  ``bucket_scan.py``), or the call raises: there is no fallback and no
-  switch that forces the plain version on the card;
+  ``bucket_scan.py``, ``eps_graph.py``), or the call raises: there is no
+  fallback and no switch that forces the plain version on the card;
 * a CPU tensor gets the plain version from ``ref.py`` (the same math; this
   is what the CPU tests run).
 
@@ -21,6 +21,11 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.bucket_scan import bucket_scan_topk_cuda
+from repro_torch.kernels.eps_graph import (
+    eps_count_cuda,
+    eps_min_label_cuda,
+    eps_nearest_core_cuda,
+)
 from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_cuda
 
 Tensor = torch.Tensor
@@ -28,6 +33,9 @@ Tensor = torch.Tensor
 KERNELS = {
     "pairwise_sq_l2": pairwise_sq_l2_cuda,
     "bucket_scan_topk": bucket_scan_topk_cuda,
+    "eps_count": eps_count_cuda,
+    "eps_min_label": eps_min_label_cuda,
+    "eps_nearest_core": eps_nearest_core_cuda,
 }
 
 
@@ -66,6 +74,27 @@ def bucket_scan_topk(
     if q.is_cuda:
         return bucket_scan_topk_cuda(q, bucket_x, bucket_ids, bsel, act, top_d, top_i, scale)
     return ref.bucket_scan_topk_ref(q, bucket_x, bucket_ids, bsel, act, top_d, top_i, scale)
+
+
+def eps_count(q: Tensor, x: Tensor, eps_sq) -> Tensor:
+    """DBSCAN core test: per-query count of eps-neighbours (K3)."""
+    if q.is_cuda:
+        return eps_count_cuda(q, x, eps_sq)
+    return ref.eps_count_ref(q, x, eps_sq)
+
+
+def eps_min_label(q: Tensor, x: Tensor, labels: Tensor, core: Tensor, eps_sq) -> Tensor:
+    """DBSCAN label sweep: min label over core eps-neighbours, N if none (K4)."""
+    if q.is_cuda:
+        return eps_min_label_cuda(q, x, labels, core, eps_sq)
+    return ref.eps_min_label_ref(q, x, labels, core, eps_sq)
+
+
+def eps_nearest_core(q: Tensor, x: Tensor, labels: Tensor, core: Tensor) -> tuple[Tensor, Tensor]:
+    """DBSCAN border pass: (d2, label) of each query's nearest core point (K5)."""
+    if q.is_cuda:
+        return eps_nearest_core_cuda(q, x, labels, core)
+    return ref.eps_nearest_core_ref(q, x, labels, core)
 
 
 # The delta phase dispatches through the identical kernel step, named so the

@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the search-path kernels.
+"""Plain PyTorch versions of the port's kernels.
 
-Each hand-written CUDA kernel (``pairwise_l2.py``, ``bucket_scan.py``) is held
-against the function here on the same inputs; on a CPU tensor the dispatch
-layer (``ops.py``) runs these directly.  The arithmetic follows the JAX
-package's ``repro.kernels.ref`` line for line: f32 throughout, the expansion
-``max(||q||^2 + ||x||^2 - 2 q.x, 0)``, and a top-k whose ties go to the lower
-position (``lax.top_k``'s order), taken here with a stable ascending sort.
+Each hand-written CUDA kernel (``pairwise_l2.py``, ``bucket_scan.py``,
+``eps_graph.py``) is held against the function here on the same inputs; on a
+CPU tensor the dispatch layer (``ops.py``) runs these directly.  The
+arithmetic follows the JAX package's ``repro.kernels.ref`` line for line:
+f32 throughout, the expansion ``max(||q||^2 + ||x||^2 - 2 q.x, 0)``, and a
+top-k whose ties go to the lower position (``lax.top_k``'s order), taken here
+with a stable ascending sort.
 """
 from __future__ import annotations
 
@@ -79,3 +80,37 @@ def bucket_scan_topk_ref(
     merged_i = torch.cat([top_i.to(torch.int32), cand_i], dim=1)
     vals, pos = topk_smallest(merged_d, kk)
     return vals, torch.gather(merged_i, 1, pos)
+
+
+# --- DBSCAN eps-graph reductions (the plain versions of K3-K5) --------------
+# Each reduces a row of the same expansion ``pairwise_sq_l2_ref`` gives; the
+# sentinel label is N = len(x), as in the JAX package.
+
+
+def eps_count_ref(q: Tensor, x: Tensor, eps_sq) -> Tensor:
+    """(Q,) i32 eps-neighbour counts, ``d2 <= eps_sq``: DBSCAN's core test."""
+    d2 = pairwise_sq_l2_ref(q, x)
+    return torch.sum(d2 <= eps_sq, dim=1).to(torch.int32)
+
+
+def eps_min_label_ref(q: Tensor, x: Tensor, labels: Tensor, core: Tensor, eps_sq) -> Tensor:
+    """(Q,) i32 min label over the core eps-neighbours; N (sentinel) if none."""
+    d2 = pairwise_sq_l2_ref(q, x)
+    adj = (d2 <= eps_sq) & (core != 0)[None, :]
+    sentinel = torch.tensor(x.shape[0], dtype=torch.int32, device=d2.device)
+    cand = torch.where(adj, labels[None, :].to(torch.int32), sentinel)
+    return torch.min(cand, dim=1).values
+
+
+def eps_nearest_core_ref(
+    q: Tensor, x: Tensor, labels: Tensor, core: Tensor
+) -> tuple[Tensor, Tensor]:
+    """Per query: (d2 to the nearest core point, its label), the first index
+    winning ties (``argmin``'s order); (+inf, N) when there is no core point."""
+    d2 = pairwise_sq_l2_ref(q, x)
+    d2 = torch.where((core != 0)[None, :], d2, float("inf"))
+    j = torch.argmin(d2, dim=1)
+    dmin = torch.gather(d2, 1, j[:, None])[:, 0]
+    sentinel = torch.tensor(x.shape[0], dtype=torch.int32, device=d2.device)
+    lab = torch.where(torch.isinf(dmin), sentinel, labels.to(torch.int32)[j])
+    return dmin, lab

@@ -105,3 +105,135 @@ def test_bucket_scan_kernel_ties_and_dry_pool(dev):
     torch.testing.assert_close(kd, rd, rtol=1e-5, atol=1e-5)
     assert torch.equal(ki, ri)
     assert torch.equal(ki[2], top_i[2])
+
+
+# --- K3, K4, K5: the DBSCAN eps-graph passes ---------------------------------
+
+
+def _grid(g, n, d):
+    """Rows on a 1/8 grid: the expansion is exact in f32, so the kernels and
+    the plain versions agree bit for bit and d2 == eps_sq really occurs."""
+    return (g.integers(-16, 17, size=(n, d)) / 8).astype(np.float32)
+
+
+def _eps_pair(q, x, labels, core, eps_sq):
+    kernel = (
+        ops.eps_count(q, x, eps_sq), ops.eps_min_label(q, x, labels, core, eps_sq),
+        *ops.eps_nearest_core(q, x, labels, core),
+    )
+    plain = (
+        ref.eps_count_ref(q, x, eps_sq), ref.eps_min_label_ref(q, x, labels, core, eps_sq),
+        *ref.eps_nearest_core_ref(q, x, labels, core),
+    )
+    torch.cuda.synchronize()
+    return kernel, plain
+
+
+@pytest.mark.parametrize("qn,n,d", [
+    (1, 1, 1), (63, 65, 5), (64, 129, 20), (65, 300, 33), (1000, 4097, 5),
+    (257, 1000, 20), (33, 130, 70), (17, 260, 200),
+])
+def test_eps_kernels_match_plain_exactly(dev, qn, n, d):
+    g = np.random.default_rng(qn + 7 * n + d)
+    q = torch.from_numpy(_grid(g, qn, d)).to(dev)
+    x = torch.from_numpy(_grid(g, n, d)).to(dev)
+    labels = torch.from_numpy(g.integers(0, n, n).astype(np.int32)).to(dev)
+    core = torch.from_numpy(g.random(n) < 0.5).to(dev)
+    eps_sq = float(torch.sort(ref.pairwise_sq_l2_ref(q, x).flatten()).values[qn * n // 2])
+    n0 = ops.launch_counts()
+    kernel, plain = _eps_pair(q, x, labels, core, eps_sq)
+    after = ops.launch_counts()
+    for name in ("eps_count", "eps_min_label", "eps_nearest_core"):
+        assert after[name] == n0[name] + 1
+    for a, b in zip(kernel, plain):
+        assert a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+def test_eps_kernels_sentinel_and_ties(dev):
+    """Tied core rows in three tiles (the first index wins K5), a non-core
+    row tied before them, a query with no core neighbour (K4's sentinel N),
+    and no core point at all ((+inf, N))."""
+    n, d = 300, 5
+    g = np.random.default_rng(5)
+    x = 40.0 + _grid(g, n, d)
+    x[2], x[5], x[140], x[290] = np.eye(d)[2], np.eye(d)[0], -np.eye(d)[0], np.eye(d)[1]
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    core = torch.ones(n, dtype=torch.bool, device=dev)
+    core[2] = False
+    labels = torch.arange(n, 0, -1, dtype=torch.int32, device=dev)
+    q = torch.zeros((3, d), device=dev)
+    q[2] = -3.0
+    kernel, plain = _eps_pair(q, x, labels, core, 1.0)
+    for a, b in zip(kernel, plain):
+        assert torch.equal(a, b)
+    assert kernel[3][:2].tolist() == [int(labels[5])] * 2
+    assert kernel[1].tolist() == [int(labels[290])] * 2 + [n]
+    none = torch.zeros(n, dtype=torch.bool, device=dev)
+    kernel, plain = _eps_pair(q, x, labels, none, 1.0)
+    assert (kernel[1] == n).all() and torch.isinf(kernel[2]).all() and (kernel[3] == n).all()
+    for a, b in zip(kernel, plain):
+        assert torch.equal(a, b)
+
+
+def test_eps_count_in_band_at_data_scale(dev):
+    """Tracking-like rows (||x||^2 ~ 10^4): a count may differ from the plain
+    one only by pairs whose d2 lies within 8 ulp of ||q||^2 + ||x||^2 of
+    eps_sq."""
+    from repro_torch.data.synthetic import tracking_like
+
+    x = torch.from_numpy(tracking_like(6000)).to(dev)
+    eps_sq = 36.0
+    got = ops.eps_count(x, x, eps_sq).long()
+    d2 = ref.pairwise_sq_l2_ref(x, x).double()
+    nn = (x.double() ** 2).sum(1)
+    band = 8 * 2.0 ** -23 * (nn[:, None] + nn[None, :])
+    lo = (d2 <= eps_sq - band).sum(1)
+    hi = (d2 <= eps_sq + band).sum(1)
+    assert bool(((got >= lo) & (got <= hi)).all())
+
+
+def test_overlap_build_on_the_card(dev, blob_data):
+    """OverlapIndex.build on the card: DBSCAN through K3-K5, a forest with
+    overlap indexes and links, and searches exact against a brute force:
+    mode 'all' over every row, mode 'forest' over the rows of each query's
+    closest index and its overlap neighbours (Alg. 2's routing)."""
+    from repro_torch.api import Config, IndexConfig, OverlapIndex
+    from repro_torch.core.knn import knn_exact
+
+    cfg = Config(index=IndexConfig(method="vbm", eps=1.5, min_pts=8, xi_min=0.1, xi_max=0.7))
+    n0 = ops.launch_counts()
+    ix = OverlapIndex.build(blob_data, cfg, device=dev)
+    launched = {k: v - n0[k] for k, v in ops.launch_counts().items()}
+    assert launched["eps_count"] == 1 and launched["eps_nearest_core"] == 1
+    assert launched["eps_min_label"] == ix.build_report.detail["dbscan_iterations"]
+    f = ix.forest
+    assert f.n_indexes > 2 and f.is_overlap_index.any() and (f.neighbors >= 0).any()
+    g = np.random.default_rng(3)
+    q = (blob_data[g.choice(len(blob_data), 64)] + 0.5 * g.normal(size=(64, 8))).astype(np.float32)
+    qt, xt = torch.from_numpy(q).to(dev), torch.from_numpy(blob_data).to(dev)
+    _, want = knn_exact(xt, qt, k=10, kernel=False)
+    for beam in (1, 4):
+        res = ix.search(q, k=10, beam=beam, mode="all")
+        _same_neighbours(q, blob_data, res.ids, want.cpu().numpy())
+        # forest mode: the brute force over the routed indexes' rows
+        res = ix.search(q, k=10, beam=beam)
+        closest = np.argmin(((q[:, None] - f.index_centers[None]) ** 2).sum(-1), 1)
+        owner = np.empty(len(blob_data), np.int64)
+        live = f.bucket_ids >= 0
+        owner[f.bucket_ids[live]] = np.broadcast_to(f.bucket_index[:, None], live.shape)[live]
+        for qi in range(len(q)):
+            ok = {int(closest[qi])} | {int(v) for v in f.neighbors[closest[qi]] if v >= 0}
+            rows = np.nonzero(np.isin(owner, list(ok)))[0]
+            d2 = ((blob_data[rows] - q[qi]) ** 2).sum(-1)
+            _same_neighbours(q[qi:qi + 1], blob_data, res.ids[qi:qi + 1],
+                             rows[np.argsort(d2, kind="stable")[:10]][None])
+
+
+def _same_neighbours(q, x, got, want):
+    """Equal neighbour sets up to ties within the expansion's rounding."""
+    for qi in range(len(q)):
+        dg = np.sort(((x[got[qi]] - q[qi]) ** 2).sum(-1))
+        dw = np.sort(((x[want[qi]] - q[qi]) ** 2).sum(-1))
+        tol = 1e-5 * (1 + (q[qi] ** 2).sum() + (x ** 2).sum(1).max())
+        np.testing.assert_allclose(dg, dw, rtol=0, atol=tol)

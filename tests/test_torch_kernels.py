@@ -244,7 +244,10 @@ def test_dispatch_on_cpu_runs_plain_and_counts_nothing():
     want = ref.bucket_scan_topk_ref(*args)
     np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
     np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
-    assert ops.launch_counts() == {"pairwise_sq_l2": 0, "bucket_scan_topk": 0}
+    assert ops.launch_counts() == {
+        "pairwise_sq_l2": 0, "bucket_scan_topk": 0,
+        "eps_count": 0, "eps_min_label": 0, "eps_nearest_core": 0,
+    }
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
