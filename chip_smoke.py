@@ -32,7 +32,22 @@ Phases, in order; any failure raises and the run exits non-zero:
 8. kernel times (CUDA events) beside the plain versions', the library
    yardstick and the bound (bytes over 3.35 TB/s, f32 flops over
    67 TFLOP/s, whichever is larger), then one ``torch.profiler`` pass per
-   baseline search for the device's busy share.
+   baseline search for the device's busy share;
+9. K6 (``knn_topk``) and K7 (``pairwise_sq_l2_int8``) against their plain
+   versions, bit-equal on grid rows (N < k, ragged N, D 5/64/896, k 1/8/16,
+   exact ties across pass-1 chunks);
+10. K6 and K7 at data scale: a 2^20 x 896 datastore drawn on the card from
+    ``embedding_datastore``'s recipe, Q = 8 and 1,024, under the in-band
+    rule against the plain versions and recall 1.0 up to ties against an
+    f64 brute force;
+11. kNN-LM serving: qwen2-0.5b at full width (seeded weights) in
+    ``ServeEngine(num_slots=8, max_len=256)``, 16 requests of 8-64 prompt
+    tokens and 32 new tokens, with retrieval off, on the f32 datastore (K6)
+    and on its int8 twin (K7): every request completes, the books balance,
+    K6/K7 launch once per decode step, three captured steps' top-k held to
+    the plain version; then the 2-slot vs 1-slot agreement (printed), a
+    profiled window of decode steps and K6/K7 times beside the plain
+    versions, ``cdist`` + ``topk`` and the bound, at Q = 8 and 1,024.
 
 The last lines are one JSON object of per-kernel numbers, then
 ``{"ok": true, "device": {...}}``; ``--json PATH`` also writes the full
@@ -840,7 +855,10 @@ def run_overlap(dev, built, base_results) -> dict:
     launches = ops.launch_counts()
     log(f"[overlap] launch counts over the {len(BUILDS) * 2} builds and "
         f"{len(searches)} searches: {launches}")
-    require(all(v > 0 for v in launches.values()), "a kernel of the overlap path never launched")
+    overlap_path = ("pairwise_sq_l2", "bucket_scan_topk", "eps_count", "eps_min_label",
+                    "eps_nearest_core")
+    require(all(launches[k] > 0 for k in overlap_path),
+            "a kernel of the overlap path never launched")
     return dict(builds=builds, searches=searches, launches=launches)
 
 
@@ -1281,6 +1299,450 @@ def profile_searches(built, results) -> list[dict]:
 
 
 # --------------------------------------------------------------------------
+# phases 9-11: kNN-LM serving (K6, K7, the model and the engine)
+# --------------------------------------------------------------------------
+
+SERVE_N = 1 << 20  # datastore rows: one chip's shard of a kNN-LM datastore
+SERVE_D = 896  # qwen2-0.5b's d_model: the keys are its hidden states
+SERVE_K = 8  # neighbours per query, as launch/serve.py uses
+SERVE_ARCH = "qwen2-0.5b"
+
+
+def check_k6_k7_unit(dev, gen) -> int:
+    """Phase 9: K6 and K7 against their plain versions on rows of a 1/8
+    grid (K7: int8 rows with power-of-two scales), where every product and
+    partial sum of the expansion is exact, so results must be bit-equal:
+    N < k, N not a multiple of any tile, D in {5, 64, 896}, k in {1, 8, 16},
+    and exact ties from rows duplicated into another pass-1 chunk."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_int8_cuda
+    from repro_torch.kernels.topk import chunking, knn_topk_cuda
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = 0
+    for d in (5, 64, 896):
+        for qn, n in ((3, 5), (8, 1000), (9, 3001), (1030, 2049), (8, 70_001)):
+            for k in (1, 8, 16):
+                q, x = grid_rows(gen, dev, qn, d), grid_rows(gen, dev, n, d)
+                chunk_rows, n_chunks = chunking(qn, n, sms)
+                if n_chunks > 1:  # a duplicate of row 1 in the last chunk
+                    x[n - 1] = x[1]
+                    q[0] = x[1]
+                kv, ki = knn_topk_cuda(q, x, k)
+                rv, ri = ref.knn_topk_ref(q, x, k)
+                torch.cuda.synchronize()
+                require(torch.equal(kv, rv) and torch.equal(ki, ri),
+                        f"K6 differs from its plain version at {(qn, n, d, k)}")
+                if n_chunks > 1 and k > 1:
+                    require(int(ki[0, 0]) == 1 and int(ki[0, 1]) == n - 1,
+                            f"K6 tie order across chunks at {(qn, n, d, k)}")
+                cases += 1
+            xq = torch.randint(-127, 128, (n, d), generator=gen, device=dev).to(torch.int8)
+            s = 2.0 ** -torch.randint(4, 8, (n,), generator=gen, device=dev).float()
+            got = pairwise_sq_l2_int8_cuda(q, xq, s)
+            want = ref.pairwise_sq_l2_int8_ref(q, xq, s)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"K7 differs from its plain version at {(qn, n, d)}")
+            cases += 1
+    log(f"[K6/K7] {cases} grid cases bit-equal to the plain versions (N < k, ragged N, "
+        "D 5/64/896, k 1/8/16, exact ties across pass-1 chunks)")
+    return cases
+
+
+def exact_topk(q, x, k: int, *, chunk: int = 1 << 16):
+    """f64 brute force: the exact k nearest rows of each query, (Q, k) f64
+    squared distances ascending and their ids (ties in any order)."""
+    import torch
+
+    qd = q.double()
+    qq = (qd ** 2).sum(1)[:, None]
+    best_d = torch.empty((q.shape[0], 0), dtype=torch.float64, device=q.device)
+    best_i = torch.empty((q.shape[0], 0), dtype=torch.int64, device=q.device)
+    for lo in range(0, x.shape[0], chunk):
+        xd = x[lo:lo + chunk].double()
+        d2 = (qq + (xd ** 2).sum(1)[None, :] - 2.0 * (qd @ xd.T)).clamp_min(0.0)
+        vd, vi = torch.topk(d2, min(k, d2.shape[1]), dim=1, largest=False)
+        best_d, pos = torch.topk(torch.cat([best_d, vd], 1), k, dim=1, largest=False)
+        best_i = torch.gather(torch.cat([best_i, vi + lo], 1), 1, pos)
+    return best_d, best_i
+
+
+def max_sq_norm(x, *, chunk: int = 1 << 16) -> float:
+    """max ||x_j||^2 over the rows (f32 sums, chunked): the scale of the band."""
+    return max(float((x[lo:lo + chunk].float() ** 2).sum(1).max())
+               for lo in range(0, x.shape[0], chunk))
+
+
+def hold_topk(kv, ki, rv, ri, r_next, q, xf, xx_max: float, what: str) -> dict:
+    """A kernel top-k (kv, ki) held to the exact values and to the plain
+    top-k (rv, ri; r_next the plain (k+1)-th value), with band = 8 ulp of
+    ||q||^2 + max ||x||^2 per query (the in-band rule):
+
+    * each returned value lies within the band of its row's exact (f64) d2;
+    * the returned rows are the exact k nearest up to ties: sorted, their
+      exact d2 lie within the band of the f64 brute force's, rank by rank
+      (recall 1.0 up to ties);
+    * ids equal the plain version's except at ranks whose plain d2 lies
+      within two bands of a neighbouring rank's: at D = 896 the plain
+      version's cuBLAS product itself strays up to ~9 ulp, so two correct
+      orders of near-equal rows may differ by both sides' rounding.
+
+    ``xf`` is the f32 (or dequantized) rows."""
+    import torch
+
+    bd = (8.0 * 2.0 ** -23 * ((q.double() ** 2).sum(1) + xx_max))[:, None]
+    got = ((xf[ki.long()].double() - q.double()[:, None, :]) ** 2).sum(-1)
+    require(bool(((got - kv.double()).abs() <= bd).all()), f"{what}: values off the exact d2")
+    td, _ = exact_topk(q, xf, kv.shape[1])
+    require(bool(((torch.sort(got, dim=1).values - td).abs() <= bd).all()),
+            f"{what}: not the exact k nearest up to ties")
+    recall = float((got <= td[:, -1:] + bd).double().mean())
+    ext = torch.cat([rv.double(), r_next.double()[:, None]], 1)
+    tied = torch.diff(ext, dim=1).abs() <= 2 * bd  # rank j near rank j + 1
+    tied[:, 1:] |= tied[:, :-1].clone()  # ... or rank j - 1
+    differ = ki != ri
+    require(bool((~differ | tied).all()), f"{what}: ids differ off the band")
+    return dict(max_abs_err=float((kv.double() - rv.double()).abs().max()),
+                max_exact_err=float((got - kv.double()).abs().max()),
+                ids_differ=int(differ.sum()), in_band_ranks=int(tied.sum()), recall=recall)
+
+
+def retrieval_problem(keys, nq: int, seed: int):
+    """Queries as the engine's hidden states would sit: a random stored key
+    plus N(0, 0.5^2) noise per feature, a fresh point of that key's cluster."""
+    import torch
+
+    g = torch.Generator(device=keys.device)
+    g.manual_seed(seed)
+    rows = torch.randint(0, keys.shape[0], (nq,), generator=g, device=keys.device)
+    return keys[rows] + 0.5 * torch.randn((nq, keys.shape[1]), generator=g, device=keys.device)
+
+
+def check_retrieval_scale(dev, keys, xq, scale) -> dict:
+    """Phase 10: K6 and K7 (+ the stable selection after it) at the data
+    scale of the serving path, 2^20 x 896, Q = 8 and 1024, against the plain
+    versions (in-band rule) and an f64 brute force (recall 1.0 up to ties).
+
+    K7's distances are held one by one to 8 ulp of ||q||^2 + ||x||^2 of the
+    exact (f64) value.  The plain version's own cuBLAS f32 product over
+    D = 896 strays up to ~9 ulp from it, so the kernel-vs-plain difference
+    is printed (with its count beyond 8 ulp) rather than held to 8 ulp."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_int8_cuda
+    from repro_torch.kernels.topk import knn_topk_cuda
+
+    xhat = xq.float() * scale[:, None]
+    xx_f32, xx_i8 = max_sq_norm(keys), max_sq_norm(xhat)
+    out = {}
+    for nq in (8, 1024):
+        q = retrieval_problem(keys, nq, SEED + nq)
+        kv, ki = knn_topk_cuda(q, keys, SERVE_K)
+        rv, ri = ref.knn_topk_ref(q, keys, SERVE_K + 1)
+        k6 = hold_topk(kv, ki, rv[:, :-1], ri[:, :-1], rv[:, -1], q, keys, xx_f32,
+                       f"K6 Q={nq}")
+        del rv, ri
+        d_k = pairwise_sq_l2_int8_cuda(q, xq, scale)
+        d_p = ref.pairwise_sq_l2_int8_ref(q, xq, scale)
+        qd = q.double()
+        qq = (qd ** 2).sum(1)[:, None]
+        err = dict(kernel=0.0, plain=0.0, differ=0.0, beyond=0)  # in ulp of the norms
+        for lo in range(0, SERVE_N, 1 << 16):  # f64 temporaries in row chunks
+            xd = xhat[lo:lo + (1 << 16)].double()
+            xxd = (xd ** 2).sum(1)[None, :]
+            exact = qq + xxd - 2.0 * (qd @ xd.T)
+            unit = 2.0 ** -23 * (qq + xxd)
+            kc, pc = d_k[:, lo:lo + (1 << 16)].double(), d_p[:, lo:lo + (1 << 16)].double()
+            ek = (kc - exact).abs() / unit
+            require(bool((ek <= 8.0).all()),
+                    f"K7 Q={nq}: a distance more than 8 ulp from the exact value")
+            dk = (kc - pc).abs() / unit
+            err["kernel"] = max(err["kernel"], float(ek.max()))
+            err["plain"] = max(err["plain"], float(((pc - exact).abs() / unit).max()))
+            err["differ"] = max(err["differ"], float(dk.max()))
+            err["beyond"] += int((dk > 8.0).sum())
+            del xd, exact, unit, kc, pc, ek, dk
+        rv7, ri7 = ref.topk_smallest(d_p, SERVE_K + 1)
+        worst = float((d_k - d_p).abs().max())
+        del d_p
+        kv7, ki7 = ref.topk_smallest(d_k, SERVE_K)
+        del d_k
+        k7 = hold_topk(kv7, ki7.to(torch.int32), rv7[:, :-1], ri7[:, :-1].to(torch.int32),
+                       rv7[:, -1], q, xhat, xx_i8, f"K7+selection Q={nq}")
+        k7.update(max_abs_err=worst, ulp=err)
+        out[nq] = dict(k6=k6, k7=k7)
+        torch.cuda.empty_cache()
+        log(f"[K6/K7] Q={nq} x {SERVE_N} x {SERVE_D}, k={SERVE_K}: K6 max |kernel - plain| "
+            f"{k6['max_abs_err']:.3e} (|kernel - exact| {k6['max_exact_err']:.3e}), ids differ "
+            f"at {k6['ids_differ']} of {k6['in_band_ranks']} in-band ranks, recall up to ties "
+            f"{k6['recall']:.4f}; K7 over all {nq * SERVE_N} "
+            f"distances: kernel within {err['kernel']:.2f} ulp of the exact value (held to 8), "
+            f"plain within {err['plain']:.2f}, |kernel - plain| up to {err['differ']:.2f} ulp "
+            f"({err['beyond']} beyond 8; max {worst:.3e}); its top-k ids differ at "
+            f"{k7['ids_differ']} of {k7['in_band_ranks']} in-band ranks, recall vs the "
+            f"dequantized rows {k7['recall']:.4f}")
+    return out
+
+
+class _TopkRecorder:
+    """Wraps ``serve.retrieval._local_topk`` to keep a few steps' queries."""
+
+    def __init__(self, fn, keep: tuple[int, ...]):
+        self.fn, self.keep, self.calls, self.kept = fn, keep, 0, []
+
+    def __call__(self, q, ds, k):
+        if self.calls in self.keep:
+            self.kept.append(q.clone())
+        self.calls += 1
+        return self.fn(q, ds, k)
+
+
+def serve_prompts(vocab: int, n: int, seed: int):
+    import numpy as np
+
+    g = np.random.default_rng(seed)
+    return [g.integers(0, vocab, int(g.integers(8, 65))).astype(np.int32) for _ in range(n)]
+
+
+def run_serving(dev, model, datastores) -> dict:
+    """Phase 11: qwen2-0.5b at full width serves 16 requests (prompts of 8 to
+    64 tokens, 32 new tokens each) on ServeEngine(num_slots=8, max_len=256),
+    once with retrieval off, once on the f32 datastore (K6), once on its int8
+    twin (K7).  The launch counters are reset just before each run and read
+    just after it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve import retrieval
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = model.cfg
+    prompts = serve_prompts(cfg.vocab_size, 16, SEED)
+    # warm-up, uncounted: cuBLAS handles, the kernels' first loads
+    for ds in datastores.values():
+        eng = ServeEngine(model, num_slots=8, max_len=256, datastore=ds)
+        eng.submit(Request(rid=0, prompt=prompts[0][:8], max_new_tokens=3))
+        eng.run()
+    torch.cuda.synchronize()
+    runs = {}
+    for name, ds in datastores.items():
+        eng = ServeEngine(model, num_slots=8, max_len=256, datastore=ds)
+        rec = _TopkRecorder(retrieval._local_topk, keep=(2, 20, 40))
+        retrieval._local_topk = rec
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=32) for i, p in enumerate(prompts)]
+        try:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            done = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+        finally:
+            retrieval._local_topk = rec.fn
+        reg = eng.obs
+        require(len(done) == 16 and all(r.done and len(r.out_tokens) == 32 for r in reqs),
+                f"serving {name}: a request did not complete")
+        require(reg.value("serve.submitted") == reg.value("serve.completed") + sum(
+            reg.value("serve.shed", reason=x) for x in
+            ("rejected", "expired_queue", "expired_flight", "early")) + len(eng.queue)
+            + sum(r is not None for r in eng.slot_req), f"serving {name}: books do not balance")
+        toks = np.concatenate([r.out_tokens for r in reqs])
+        require(bool(((toks >= 0) & (toks < cfg.padded_vocab)).all()), "a token off the vocab")
+        kname = {"f32": "knn_topk", "int8": "pairwise_sq_l2_int8"}.get(name)
+        for other in ("knn_topk", "pairwise_sq_l2_int8"):
+            want = eng.steps if other == kname else 0
+            require(launches[other] == want,
+                    f"serving {name}: {other} launched {launches[other]} times, want {want}")
+        checked = 0
+        if ds is not None:
+            xf = ds.keys if ds.scale is None else ds.keys.float() * ds.scale[:, None]
+            xx_max = max_sq_norm(xf)
+            for q in rec.kept:
+                if ds.scale is None:
+                    kv, ki = ops.knn_topk(q, ds.keys, k=cfg.retrieval.k)
+                    rv, ri = ref.knn_topk_ref(q, ds.keys, cfg.retrieval.k + 1)
+                else:
+                    kv, ki = ref.topk_smallest(ops.pairwise_sq_l2_int8(q, ds.keys, ds.scale),
+                                               cfg.retrieval.k)
+                    rv, ri = ref.topk_smallest(
+                        ref.pairwise_sq_l2_int8_ref(q, ds.keys, ds.scale), cfg.retrieval.k + 1)
+                hold_topk(kv, ki.to(torch.int32), rv[:, :-1], ri[:, :-1].to(torch.int32),
+                          rv[:, -1], q, xf, xx_max, f"serving {name} step")
+                checked += 1
+            require(checked == 3, f"serving {name}: {checked} steps captured, want 3")
+        hist = reg.snapshot()["histograms"]
+        lat = hist["serve.request_latency_s"]
+        step_ms = float(np.median(eng._step_times)) * 1e3
+        runs[name] = dict(steps=eng.steps, tokens=int(toks.size), wall_s=wall,
+                          tok_per_s=toks.size / wall, p50_s=lat["p50"], p99_s=lat["p99"],
+                          step_ms=step_ms, prefill_ms=hist["serve.prefill"]["p50"] * 1e3,
+                          launches={k: v for k, v in launches.items() if v},
+                          checked_steps=checked)
+        log(f"[serve] {SERVE_ARCH} full width, retrieval {name}: 16 requests x 32 tokens in "
+            f"{wall:.2f} s ({toks.size / wall:.1f} tok/s), {eng.steps} decode steps, median "
+            f"step {step_ms:.2f} ms, p50 prefill {runs[name]['prefill_ms']:.1f} ms, request "
+            f"latency p50 {lat['p50']:.3f} s p99 {lat['p99']:.3f} s; launches "
+            f"{runs[name]['launches']}; top-k of {checked} captured steps held to the plain "
+            "version")
+    return runs
+
+
+def slot_agreement(model, ds) -> float:
+    """Share of tokens a 2-slot engine and a 1-slot engine agree on, over 4
+    requests of 16 tokens (printed, not gated: cuBLAS may pick another bf16
+    product for another batch size; the CPU tests gate this oracle)."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    prompts = serve_prompts(model.cfg.vocab_size, 4, SEED + 1)
+    out = {}
+    for slots in (1, 2):
+        eng = ServeEngine(model, num_slots=slots, max_len=128, datastore=ds)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=16) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        out[slots] = np.concatenate([r.out_tokens for r in reqs])
+    share = float((out[1] == out[2]).mean())
+    log(f"[serve] 2-slot vs 1-slot engine (f32 datastore): {share:.3f} of {out[1].size} "
+        "tokens agree (not gated on the card)")
+    return share
+
+
+def profile_serving(model, ds, step_ms: float, *, steps: int = 6) -> dict:
+    """Device time per decode step of a full engine (8 slots, f32 datastore):
+    kernel time summed by torch.profiler over ``steps`` steps, and K6's
+    share of it; the busy share is taken against ``step_ms``, the median
+    unprofiled step of the serving run (the profiler's own host overhead
+    inflates the profiled wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(model, num_slots=8, max_len=256, datastore=ds)
+    for i, p in enumerate(serve_prompts(model.cfg.vocab_size, 8, SEED + 2)):
+        eng.submit(Request(rid=i, prompt=p, max_new_tokens=64))
+    eng.step()  # the refills (prefills) happen here, outside the window
+    eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    k6 = sum(e.self_device_time_total for e in kernels if "knn_topk" in e.key
+             or "query_norms" in e.key) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
+    out = dict(steps=steps, device_ms_per_step=dev_ms, step_ms=step_ms, k6_ms_per_step=k6,
+               launches_per_step=launches, busy=dev_ms / step_ms)
+    log(f"[profile] serving, 8 slots (f32 datastore), {steps} profiled decode steps: device "
+        f"time {dev_ms:.2f} ms per step against the run's median step of {step_ms:.2f} ms "
+        f"(busy {dev_ms / step_ms:.1%}); K6 {k6:.2f} ms per step; {launches:.0f} device "
+        "launches per step")
+    return out
+
+
+def time_retrieval(dev, keys, xq, scale) -> list[dict]:
+    """K6 and K7 at Q = 8 (the engine's decode batch) and Q = 1024, beside the
+    plain versions and, for K6, the library's two-pass plan
+    (torch.cdist(q, x).square_() + torch.topk(largest=False)).  Bounds: K6
+    reads q and x once and writes (Q, k) values and ids; 2QND + 2(Q+N)D f32
+    operations.  K7 reads q, the int8 rows and the scales once and writes
+    (Q, N) f32; the same operations plus N*D dequantizing multiplies."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_int8_cuda
+    from repro_torch.kernels.topk import knn_topk_cuda
+
+    n, d, k = SERVE_N, SERVE_D, SERVE_K
+    rows = []
+    for nq in (8, 1024):
+        q = retrieval_problem(keys, nq, SEED + nq)
+        reps = 7 if nq == 8 else 3
+        flops = 2.0 * nq * n * d + 2.0 * (nq + n) * d
+        ms = device_ms(lambda: knn_topk_cuda(q, keys, k), reps=reps)
+        plain = device_ms(lambda: ref.knn_topk_ref(q, keys, k), reps=reps)
+        lib = device_ms(lambda: torch.topk(torch.cdist(q, keys).square_(), k, dim=1,
+                                           largest=False), reps=reps)
+        nbytes = 4 * (nq * d + n * d) + 8 * nq * k
+        b_ms, by = bound(nbytes, flops)
+        rows.append(dict(name="knn_topk", shape=f"Q={nq} N={n} D={d} k={k}", nq=nq, ms=ms,
+                         plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by,
+                         bytes=nbytes, flops=flops))
+        log(f"[time] K6 knn_topk Q={nq} N={n} D={d} k={k}: kernel {ms:.3f} ms, plain "
+            f"{plain:.3f} ms, cdist+topk {lib:.3f} ms, bound {b_ms:.3f} ms by {by} "
+            f"({b_ms / ms:.1%} of it)")
+        ms = device_ms(lambda: pairwise_sq_l2_int8_cuda(q, xq, scale), reps=reps)
+        plain = device_ms(lambda: ref.pairwise_sq_l2_int8_ref(q, xq, scale), reps=reps)
+        nbytes = 4 * nq * d + n * d + 4 * n + 4 * nq * n
+        b_ms, by = bound(nbytes, flops + float(n) * d)
+        rows.append(dict(name="pairwise_sq_l2_int8", shape=f"Q={nq} N={n} D={d}", nq=nq,
+                         ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=by,
+                         bytes=nbytes, flops=flops + float(n) * d))
+        log(f"[time] K7 pairwise_sq_l2_int8 Q={nq} N={n} D={d}: kernel {ms:.3f} ms, plain "
+            f"{plain:.3f} ms, bound {b_ms:.3f} ms by {by} ({b_ms / ms:.1%} of it); no single "
+            "library call dequantizes and computes these distances")
+        del q
+        torch.cuda.empty_cache()
+    return rows
+
+
+def serve_phase(dev, gen) -> dict:
+    """Phases 9-11 together: the unit checks, the data-scale checks, serving
+    at full width, the 2-slot oracle (printed), the profile and the times."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RetrievalConfig
+    from repro_torch.data.synthetic import embedding_datastore_on
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, num_params
+    from repro_torch.serve.retrieval import build_flat_datastore
+
+    t0 = time.perf_counter()
+    unit_cases = check_k6_k7_unit(dev, gen)
+    keys, values = embedding_datastore_on(dev, SERVE_N, SERVE_D, seed=SEED)
+    xq, scale = ops.quantize_datastore(keys)
+    torch.cuda.synchronize()
+    log(f"[serve] datastore {SERVE_N} x {SERVE_D} drawn on the card: f32 "
+        f"{keys.numel() * 4 / 1e9:.2f} GB, int8 {xq.numel() / 1e9:.2f} GB + scales")
+    scale_chk = check_retrieval_scale(dev, keys, xq, scale)
+
+    cfg = get_config(SERVE_ARCH).replace(retrieval=RetrievalConfig(
+        enabled=True, k=SERVE_K, lam=0.25, datastore_size=SERVE_N))
+    t1 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    log(f"[serve] {SERVE_ARCH}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.padded_vocab}; {num_params(model) / 1e6:.1f} M f32 params, seeded init "
+        f"{time.perf_counter() - t1:.1f} s; compute {cfg.compute_dtype}")
+    vals = values % cfg.vocab_size
+    datastores = {
+        "off": None,
+        "f32": build_flat_datastore(keys, vals, device=dev),
+        "int8": build_flat_datastore(keys, vals, quantized=True, device=dev),
+    }
+    runs = run_serving(dev, model, datastores)
+    share = slot_agreement(model, datastores["f32"])
+    prof = profile_serving(model, datastores["f32"], runs["f32"]["step_ms"])
+    times = time_retrieval(dev, keys, xq, scale)
+    log(f"[serve] phases 9-11: {time.perf_counter() - t0:.1f} s")
+    return dict(unit_cases=unit_cases, scale=scale_chk, runs=runs, slot_share=share,
+                profile=prof, times=times)
+
+
+# --------------------------------------------------------------------------
 
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -1345,6 +1807,7 @@ def main(argv=None) -> int:
     k1_rows = time_k1(sl["built"])
     eps_rows = time_eps(sl["built"], ov)
     prof_rows = profile_searches(sl["built"], sl["results"])
+    sv = serve_phase(dev, gen)
 
     # how much of each search's wall time the K1 launches account for
     walls = {(n, qz, bm): w for n, qz, bm, _, w in sl["results"]}
@@ -1379,6 +1842,16 @@ def main(argv=None) -> int:
               eps_rows[1], float(max(v["k4_max"] for v in eps_data.values())), ov["launches"]),
         entry("eps_nearest_core", eps_src, "src/repro/kernels/pairwise_l2.py:270",
               eps_rows[2], eps_d2, ov["launches"]),
+        # K6/K7: launches of the serving runs on the f32 and the int8
+        # datastore (phase 11); times at the engine's decode batch, Q = 8
+        entry("knn_topk", "src/repro_torch/csrc/knn_topk.cu",
+              "src/repro/kernels/topk.py:103", sv["times"][0],
+              max(v["k6"]["max_abs_err"] for v in sv["scale"].values()),
+              {"knn_topk": sv["runs"]["f32"]["steps"]}),
+        entry("pairwise_sq_l2_int8", "src/repro_torch/csrc/pairwise_int8.cu",
+              "src/repro/kernels/pairwise_l2.py:310", sv["times"][1],
+              max(v["k7"]["max_abs_err"] for v in sv["scale"].values()),
+              {"pairwise_sq_l2_int8": sv["runs"]["int8"]["steps"]}),
     ]
     if args.json:
         builds = {f"{n} {m}": dict(structure=b["structure"], links=b["links"],
@@ -1386,7 +1859,7 @@ def main(argv=None) -> int:
                   for (n, m), b in ov["builds"].items()}
         detail = dict(card=smi, kernels=kernels, k1=k1_rows, k2=k2_rows, eps=eps_rows,
                       eps_data=eps_data, builds=builds, searches=ov["searches"],
-                      dbscan=db, profile=prof_rows, nvcc_s=t_build,
+                      dbscan=db, profile=prof_rows, serve=sv, nvcc_s=t_build,
                       seconds=time.perf_counter() - t_start)
         out = Path(args.json)
         out.parent.mkdir(parents=True, exist_ok=True)

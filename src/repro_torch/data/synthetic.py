@@ -6,13 +6,19 @@
 * ward_like — Wearable Action Recognition Database [paper DB2]:
   1,000,000 x 5 motion-sensor windows; a small number of dense activity
   clusters with heavy within-class concentration.
+* embedding_datastore — kNN-LM (key, next-token) pairs: clustered
+  hidden-state keys with token ids.
 
 Host numpy, the same generators as the JAX package's
 ``repro.data.synthetic``: the same seed gives the same array.
+``embedding_datastore_on`` draws the same recipe on a torch device from a
+``torch.Generator`` (other numbers than numpy's, the same distribution), for
+datastores too large to build through float64 numpy on the host.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def tracking_like(n: int = 62_702, dim: int = 20, seed: int = 0) -> np.ndarray:
@@ -51,3 +57,31 @@ def ward_like(n: int = 1_000_000, dim: int = 5, seed: int = 1) -> np.ndarray:
     if len(x) < n:
         x = np.concatenate([x, g.normal(size=(n - len(x), dim)) * 25.0])
     return x.astype(np.float32)
+
+
+def embedding_datastore(
+    n: int, dim: int, *, n_clusters: int = 32, seed: int = 0
+) -> tuple[np.ndarray, np.ndarray]:
+    """(keys, token_values) for the kNN-LM datastore: clustered hidden-state
+    keys with associated next-token ids."""
+    g = np.random.default_rng(seed)
+    centers = g.normal(size=(n_clusters, dim)) * 4.0
+    lab = g.integers(0, n_clusters, n)
+    keys = centers[lab] + g.normal(size=(n, dim)) * 0.5
+    tokens = (lab * 97 + g.integers(0, 13, n)) % 50_000
+    return keys.astype(np.float32), tokens.astype(np.int32)
+
+
+def embedding_datastore_on(
+    device, n: int, dim: int, *, n_clusters: int = 32, seed: int = 0
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``embedding_datastore``'s recipe drawn on ``device`` in f32: centres
+    N(0, 4^2), keys = centre + N(0, 0.5^2), tokens ``(label * 97 + U{0..12})
+    mod 50,000``; (N, dim) f32 keys and (N,) i32 tokens."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    centers = torch.randn((n_clusters, dim), generator=g, device=device) * 4.0
+    lab = torch.randint(0, n_clusters, (n,), generator=g, device=device)
+    keys = torch.randn((n, dim), generator=g, device=device).mul_(0.5).add_(centers[lab])
+    tokens = (lab * 97 + torch.randint(0, 13, (n,), generator=g, device=device)) % 50_000
+    return keys, tokens.to(torch.int32)

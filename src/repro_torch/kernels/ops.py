@@ -3,7 +3,7 @@
 Dispatch rule of each wrapper below, decided by where its tensors lie:
 
 * a CUDA tensor gets the hand-written kernel (``pairwise_l2.py``,
-  ``bucket_scan.py``, ``eps_graph.py``), or the call raises: there is no
+  ``bucket_scan.py``, ``eps_graph.py``, ``topk.py``), or the call raises: there is no
   fallback and no switch that forces the plain version on the card;
 * a CPU tensor gets the plain version from ``ref.py`` (the same math; this
   is what the CPU tests run).
@@ -26,7 +26,8 @@ from repro_torch.kernels.eps_graph import (
     eps_min_label_cuda,
     eps_nearest_core_cuda,
 )
-from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_cuda
+from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_cuda, pairwise_sq_l2_int8_cuda
+from repro_torch.kernels.topk import knn_topk_cuda
 
 Tensor = torch.Tensor
 
@@ -36,6 +37,8 @@ KERNELS = {
     "eps_count": eps_count_cuda,
     "eps_min_label": eps_min_label_cuda,
     "eps_nearest_core": eps_nearest_core_cuda,
+    "knn_topk": knn_topk_cuda,
+    "pairwise_sq_l2_int8": pairwise_sq_l2_int8_cuda,
 }
 
 
@@ -95,6 +98,21 @@ def eps_nearest_core(q: Tensor, x: Tensor, labels: Tensor, core: Tensor) -> tupl
     if q.is_cuda:
         return eps_nearest_core_cuda(q, x, labels, core)
     return ref.eps_nearest_core_ref(q, x, labels, core)
+
+
+def knn_topk(q: Tensor, x: Tensor, *, k: int) -> tuple[Tensor, Tensor]:
+    """Fused streaming distance + top-k over a flat datastore (K6): (Q, k)
+    ascending squared distances and i32 row indices, (+inf, -1) past N."""
+    if q.is_cuda:
+        return knn_topk_cuda(q, x, k)
+    return ref.knn_topk_ref(q, x, k)
+
+
+def pairwise_sq_l2_int8(q: Tensor, x_q: Tensor, scale: Tensor) -> Tensor:
+    """f32 queries against int8 per-row-quantized rows -> (Q, N) (K7)."""
+    if q.is_cuda:
+        return pairwise_sq_l2_int8_cuda(q, x_q, scale)
+    return ref.pairwise_sq_l2_int8_ref(q, x_q, scale)
 
 
 # The delta phase dispatches through the identical kernel step, named so the

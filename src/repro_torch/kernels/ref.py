@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the port's kernels.
 
 Each hand-written CUDA kernel (``pairwise_l2.py``, ``bucket_scan.py``,
-``eps_graph.py``) is held against the function here on the same inputs; on a
+``eps_graph.py``, ``topk.py``) is held against the function here on the same inputs; on a
 CPU tensor the dispatch layer (``ops.py``) runs these directly.  The
 arithmetic follows the JAX package's ``repro.kernels.ref`` line for line:
 f32 throughout, the expansion ``max(||q||^2 + ||x||^2 - 2 q.x, 0)``, and a
@@ -34,9 +34,33 @@ def pairwise_sq_l2_ref(q: Tensor, x: Tensor) -> Tensor:
 
 
 def topk_smallest(d: Tensor, k: int) -> tuple[Tensor, Tensor]:
-    """k smallest values per row, ascending, ties to the lower position."""
+    """k smallest values per row, ascending, ties to the lower position.
+
+    A row shorter than k is padded with (+inf, -1), as the fused top-k
+    kernel returns for a datastore of fewer than k rows."""
     vals, pos = torch.sort(d, dim=1, stable=True)
-    return vals[:, :k], pos[:, :k]
+    vals, pos = vals[:, :k], pos[:, :k]
+    short = k - vals.shape[1]
+    if short > 0:
+        vals = torch.nn.functional.pad(vals, (0, short), value=float("inf"))
+        pos = torch.nn.functional.pad(pos, (0, short), value=-1)
+    return vals, pos
+
+
+def knn_topk_ref(q: Tensor, x: Tensor, k: int) -> tuple[Tensor, Tensor]:
+    """Exact k smallest squared-L2 distances per query (plain K6):
+    (Q, k) f32 ascending and (Q, k) i32 row indices, ties to the lower row,
+    (+inf, -1) past the end of a datastore of fewer than k rows."""
+    vals, idx = topk_smallest(pairwise_sq_l2_ref(q, x), k)
+    return vals, idx.to(torch.int32)
+
+
+def pairwise_sq_l2_int8_ref(q: Tensor, x_q: Tensor, scale: Tensor) -> Tensor:
+    """(Q, N) squared L2 of f32 queries against int8 rows with per-row
+    scales (plain K7): row j dequantizes to ``x_q[j] * scale[j]``, then the
+    expansion of ``pairwise_sq_l2_ref``."""
+    x = x_q.float() * scale[:, None].float()
+    return pairwise_sq_l2_ref(q, x)
 
 
 def bucket_scan_topk_ref(

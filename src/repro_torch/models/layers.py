@@ -1,0 +1,166 @@
+"""Shared model layers of the port: RMSNorm, RoPE, the SwiGLU MLP, prefill
+(online-softmax) and decode attention, the embedding and the weight init.
+
+Each function mirrors the JAX package's ``repro/models/layers.py`` line for
+line in plain tensor ops: params may be f32 and are used in the compute
+dtype; norms, softmax and attention accumulate in f32.  The layouts are the
+JAX package's (activations (B, S, D), heads (B, S, H, hd), caches
+(B, S, KV, hd)), so the tests compare like with like.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+NEG_INF = -1e30
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# init: the JAX package's distributions, drawn from an explicit generator
+# ---------------------------------------------------------------------------
+
+
+def dense_init_(w: Tensor, g: torch.Generator, scale: float | None = None) -> Tensor:
+    """In place: N(0, 1) * scale, with ``dense_init``'s default scale
+    fan_in^-0.5, fan_in = shape[-2] (shape[-1] for a vector)."""
+    fan_in = w.shape[-2] if w.ndim > 1 else w.shape[-1]
+    scale = scale if scale is not None else fan_in**-0.5
+    return w.normal_(generator=g).mul_(scale)
+
+
+def embedding_init_(w: Tensor, g: torch.Generator) -> Tensor:
+    """In place: N(0, 1) * 0.02 (``init_embedding``)."""
+    return w.normal_(generator=g).mul_(0.02)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: Tensor, scale: Tensor, eps: float) -> Tensor:
+    """RMSNorm in f32 with the JAX package's ``1 + scale`` weight (norm
+    params start at zero)."""
+    dt = x.dtype
+    xf = x.float()
+    nrm = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (nrm * (1.0 + scale.float())).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_tables(positions: Tensor, head_dim: int, theta: float) -> tuple[Tensor, Tensor]:
+    """(cos, sin) of the rotary angles at integer ``positions`` (B, S), each
+    (B, S, 1, hd) with the halves laid out for ``rotate``: cos twice, and
+    sin negated for the first half.  One table serves q and k of every
+    layer of a step (the JAX package's ``apply_rope`` recomputes it)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
+    freqs = 1.0 / torch.pow(theta, exps)  # f32; a Python base needs no host copy
+    ang = positions.float()[..., None] * freqs
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    return torch.cat([cos, cos], -1)[:, :, None, :], torch.cat([-sin, sin], -1)[:, :, None, :]
+
+
+def rotate(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
+    """RoPE with tables from ``rope_tables``: [x1 cos - x2 sin, x2 cos + x1 sin]
+    in f32 (x1 * cos + x2 * (-sin) rounds as x1 * cos - x2 * sin), cast back."""
+    xf = x.float()
+    x1, x2 = torch.chunk(xf, 2, dim=-1)
+    return (xf * cos + torch.cat([x2, x1], -1) * sin).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_swiglu(w_gate_in: Tensor, w_out: Tensor, x: Tensor) -> Tensor:
+    """silu(x W_gate) * (x W_in) W_out, with W_gate and W_in side by side in
+    one (D, 2F) matrix, one product for both (each output column is the same
+    dot product); the weights already in x's dtype."""
+    gate, inp = torch.chunk(x @ w_gate_in, 2, dim=-1)
+    return (F.silu(gate) * inp) @ w_out
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def chunked_attention(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    *,
+    causal: bool,
+    q_offset: int = 0,
+    kv_block: int = 1024,
+) -> Tensor:
+    """Online-softmax (flash-style) attention over KV blocks.
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) with H % KV == 0 (GQA groups
+    of H / KV query heads per KV head).  The recurrence over blocks of
+    ``kv_block`` keys carries (max, denominator, accumulator) in f32, as the
+    JAX package's ``lax.scan`` does; ``q_offset`` is the absolute position
+    of q[:, 0] for the causal mask.  Padding keys are masked, not computed.
+    """
+    b, sq, h, hd = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    groups = h // kv
+    scale = hd**-0.5
+    qf = (q.float() * scale).reshape(b, sq, kv, groups, hd)
+    kf = k.float()
+    vf = v.float()
+    q_pos = (q_offset + torch.arange(sq, device=q.device))[None, :, None]  # (1, Sq, 1)
+
+    m = torch.full((b, sq, kv, groups), NEG_INF, dtype=torch.float32, device=q.device)
+    denom = torch.zeros((b, sq, kv, groups), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, kv, groups, hd), dtype=torch.float32, device=q.device)
+    for lo in range(0, skv, kv_block):
+        kb = kf[:, lo:lo + kv_block]
+        vb = vf[:, lo:lo + kv_block]
+        s = torch.einsum("bsvgh,bkvh->bsvgk", qf, kb)  # (B, Sq, KV, G, blk)
+        kv_pos = (lo + torch.arange(kb.shape[1], device=q.device))[None, None, :]
+        mask = kv_pos <= q_pos if causal else (kv_pos < skv).expand(1, sq, -1)
+        s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        denom = denom * corr + torch.sum(p, dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bsvgk,bkvh->bsvgh", p, vb)
+        m = m_new
+    out = acc / torch.clamp_min(denom, 1e-30)[..., None]
+    return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def decode_mask(cur_len: Tensor, s: int) -> Tensor:
+    """(B, 1, 1, S) True where a position lies below its row's live length."""
+    return (torch.arange(s, device=cur_len.device)[None, :] < cur_len.reshape(-1, 1))[:, None, None, :]
+
+
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor, mask: Tensor) -> Tensor:
+    """One query position against a (B, S, KV, hd) cache.
+
+    q: (B, 1, H, hd); ``mask`` (``decode_mask`` of each row's live length,
+    made once for all layers of a step) drops positions past it.
+    """
+    b, _, h, hd = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    groups = h // kv
+    qf = (q.float() * hd**-0.5).reshape(b, kv, groups, hd)
+    scores = torch.einsum("bvgh,bkvh->bvgk", qf, k_cache.float())  # (B, KV, G, S)
+    scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bvgk,bkvh->bvgh", p, v_cache.float())
+    return out.reshape(b, 1, h, hd).to(q.dtype)

@@ -237,3 +237,90 @@ def _same_neighbours(q, x, got, want):
         dw = np.sort(((x[want[qi]] - q[qi]) ** 2).sum(-1))
         tol = 1e-5 * (1 + (q[qi] ** 2).sum() + (x ** 2).sum(1).max())
         np.testing.assert_allclose(dg, dw, rtol=0, atol=tol)
+
+
+# --------------------------------------------------------------------------
+# K6 (knn_topk) and K7 (pairwise_sq_l2_int8): bit-equal on grid rows, where
+# the expansion is exact in any order; N < k; exact ties over two chunks
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("qn,n,d,k", [
+    (3, 5, 5, 8), (8, 1000, 64, 8), (9, 3000, 5, 1), (17, 2049, 896, 16),
+    (8, 700, 896, 64), (1, 1, 1, 1), (64, 5000, 20, 10), (1030, 300, 7, 5),
+])
+def test_knn_topk_kernel_equals_plain(dev, qn, n, d, k):
+    g = np.random.default_rng(qn + n + d + k)
+    q = torch.from_numpy(_grid(g, qn, d)).to(dev)
+    x = torch.from_numpy(_grid(g, n, d)).to(dev)
+    if n > 2:
+        x[n - 1] = x[1]  # an exact tie, far apart: the lower row wins
+    n0 = ops.launch_counts()["knn_topk"]
+    kv, ki = ops.knn_topk(q, x, k=k)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["knn_topk"] == n0 + 1
+    rv, ri = ref.knn_topk_ref(q, x, k)
+    assert torch.equal(kv, rv) and torch.equal(ki, ri)
+    if n < k:
+        assert bool(torch.isinf(kv[:, n:]).all()) and bool((ki[:, n:] == -1).all())
+
+
+def test_knn_topk_ties_across_chunks(dev):
+    """Duplicated rows 2^17 apart (different chunks of pass 1): the merge keeps
+    the lower row first."""
+    from repro_torch.kernels.topk import chunking
+
+    g = np.random.default_rng(1)
+    n, d = 1 << 18, 32
+    x = torch.from_numpy(_grid(g, n, d)).to(dev)
+    x[(1 << 17) + 5:(1 << 17) + 69] = x[5:69]
+    q = x[5:21].clone()
+    chunk_rows, n_chunks = chunking(q.shape[0], n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert n_chunks > 1 and chunk_rows < (1 << 17)
+    kv, ki = ops.knn_topk(q, x, k=4)
+    rv, ri = ref.knn_topk_ref(q, x, 4)
+    assert torch.equal(kv, rv) and torch.equal(ki, ri)
+    assert torch.equal(ki[:, 0].cpu(), torch.arange(5, 21, dtype=torch.int32))
+    assert torch.equal(ki[:, 1].cpu(), torch.arange(5, 21, dtype=torch.int32) + (1 << 17))
+
+
+@pytest.mark.parametrize("qn,n,d", [(3, 5, 5), (8, 1000, 64), (17, 2049, 896), (9, 300, 7),
+                                    (1, 1, 1), (70, 4097, 20)])
+def test_pairwise_int8_kernel_equals_plain(dev, qn, n, d):
+    """Power-of-two scales: the dequantized rows are exact, so is the result."""
+    g = np.random.default_rng(qn * 3 + n + d)
+    q = torch.from_numpy(_grid(g, qn, d)).to(dev)
+    xq = torch.from_numpy(g.integers(-127, 128, size=(n, d)).astype(np.int8)).to(dev)
+    s = torch.from_numpy((2.0 ** -g.integers(4, 8, size=n)).astype(np.float32)).to(dev)
+    n0 = ops.launch_counts()["pairwise_sq_l2_int8"]
+    got = ops.pairwise_sq_l2_int8(q, xq, s)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["pairwise_sq_l2_int8"] == n0 + 1
+    assert torch.equal(got, ref.pairwise_sq_l2_int8_ref(q, xq, s))
+
+
+def test_serving_on_the_card(dev):
+    """A smoke model served on the card through K6 and K7: every request
+    completes and each run launches its kernel once per decode step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RetrievalConfig
+    from repro_torch.data.synthetic import embedding_datastore_on
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.retrieval import build_flat_datastore
+
+    cfg = get_smoke_config("qwen2-0.5b").replace(
+        retrieval=RetrievalConfig(enabled=True, k=8, lam=0.25))
+    model = Model(cfg, device=dev, seed=0)
+    keys, values = embedding_datastore_on(dev, 5000, cfg.d_model)
+    g = np.random.default_rng(0)
+    for quantized, kname in ((False, "knn_topk"), (True, "pairwise_sq_l2_int8")):
+        ds = build_flat_datastore(keys, values % cfg.vocab_size, quantized=quantized, device=dev)
+        eng = ServeEngine(model, num_slots=3, max_len=32, datastore=ds)
+        for rid in range(5):
+            eng.submit(Request(rid=rid, prompt=g.integers(0, cfg.vocab_size, 4 + rid)
+                               .astype(np.int32), max_new_tokens=5))
+        n0 = ops.launch_counts()[kname]
+        done = eng.run()
+        assert len(done) == 5 and all(r.done and len(r.out_tokens) == 5 for r in done)
+        assert ops.launch_counts()[kname] - n0 == eng.steps

@@ -27,7 +27,10 @@ def _modules() -> list[str]:
 
 def test_import_loads_no_jax_and_no_repro():
     mods = _modules()
-    assert "repro_torch.core.knn" in mods and "repro_torch.api.index" in mods
+    for m in ("repro_torch.core.knn", "repro_torch.api.index", "repro_torch.models.model",
+              "repro_torch.serve.engine", "repro_torch.launch.serve", "repro_torch.obs.trace",
+              "repro_torch.configs.qwen2_0_5b", "repro_torch.kernels.topk"):
+        assert m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -68,3 +71,24 @@ def test_baseline_without_device_refuses_cpu(monkeypatch):
         OverlapIndex.baseline(x)
     ix = OverlapIndex.baseline(x, device="cpu")
     assert ix.search(x[:3], k=2).ids.shape == (3, 2)
+
+
+def test_serving_entry_points_refuse_cpu(monkeypatch):
+    """The model, the datastore builder and the launcher run on the card
+    unless told otherwise; without CUDA and without a device they raise."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.model import Model
+    from repro_torch.serve.retrieval import build_flat_datastore
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("smollm-135m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(cfg)
+    keys = np.zeros((4, cfg.d_model), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_flat_datastore(keys, np.zeros(4, np.int32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.main(["--requests", "1"])
+    assert Model(cfg, device="cpu").device.type == "cpu"
+    assert build_flat_datastore(keys, np.zeros(4, np.int32), device="cpu").keys.is_cpu

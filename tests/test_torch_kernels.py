@@ -247,6 +247,7 @@ def test_dispatch_on_cpu_runs_plain_and_counts_nothing():
     assert ops.launch_counts() == {
         "pairwise_sq_l2": 0, "bucket_scan_topk": 0,
         "eps_count": 0, "eps_min_label": 0, "eps_nearest_core": 0,
+        "knn_topk": 0, "pairwise_sq_l2_int8": 0,
     }
 
 
