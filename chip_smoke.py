@@ -12,8 +12,9 @@ Phases, in order; any failure raises and the run exits non-zero:
    int8, including exact ties, fewer than k reachable and a dry pool;
 4. K3, K4, K5 (the DBSCAN ``eps_*`` passes) against their plain versions:
    exact on unit-scale rows and on hand-made cases (ties, no core point, all
-   core, ragged tiles), and on 2,048 rows of each full dataset against the
-   whole dataset under the in-band rule (``check_eps_data``);
+   core, ragged tiles, K4/K5 ties across column chunks), and on 2,048 rows
+   of each full dataset against the whole dataset under the in-band rule
+   (``check_eps_data``);
 5. the baseline slice: ``OverlapIndex.baseline`` over WARD-like
    1,000,000 x 5 (c_max 1000) and Tracking-like 62,702 x 20, then ``search``
    of 1,024 queries at k=10, beam 1 and 4, f32 and int8 buckets, held
@@ -24,15 +25,18 @@ Phases, in order; any failure raises and the run exits non-zero:
    configurations (Tracking with VBM, DBM and OBM, WARD with VBM, and the
    tests' blob set with VBM, whose forest has overlap-neighbour links), each
    build's report and per-phase seconds printed, Tracking's structure held
-   to the JAX package's; Tracking's DBSCAN also run through the plain path
+   to the JAX package's and WARD's to an earlier card run's, K4 launched
+   once per DBSCAN sweep and K3/K5 once per build; Tracking's DBSCAN also
+   run through the plain path
    on the card, and both runs held to the whole-DBSCAN rule
    (``check_dbscan``);
 7. ``search`` on every overlap forest as in phase 5, beside the baseline's
    cost counters; K1-K5 must all launch across phases 6-7;
 8. kernel times (CUDA events) beside the plain versions', the library
    yardstick and the bound (bytes over 3.35 TB/s, f32 flops over
-   67 TFLOP/s, whichever is larger), then one ``torch.profiler`` pass per
-   baseline search for the device's busy share;
+   67 TFLOP/s, whichever is larger); K3-K5 also with their launch grid,
+   the earlier run's time and K3 as this run's control; then one
+   ``torch.profiler`` pass per baseline search for the device's busy share;
 9. K6 (``knn_topk``) and K7 (``pairwise_sq_l2_int8``) against their plain
    versions, bit-equal on grid rows (N < k, ragged N, D 5/64/896, k 1/8/16,
    exact ties across pass-1 chunks);
@@ -344,11 +348,37 @@ def check_eps_unit(dev, gen) -> float:
     kd, kn = eps_nearest_core_cuda(q, x, labels, torch.zeros(n, dtype=torch.bool, device=dev))
     require(bool(torch.isinf(kd).all()) and bool((kn == n).all()), "K5: (+inf, N) without core")
     n_cases += 4
+
+    from repro_torch.kernels.eps_graph import CHUNK
+
+    # K4/K5 merge column chunks of CHUNK compact core columns: core rows
+    # tied at d2 = 1 at compact positions 0, CHUNK and 2 CHUNK + 5, a
+    # non-core row tied ahead of them
+    for d in (5, 20):
+        n = 3 * CHUNK + 77
+        x = 40.0 + grid_rows(gen, dev, n, d)
+        unit = torch.eye(d, device=dev)
+        tied = [1, CHUNK + 1, 2 * CHUNK + 6]
+        x[0], x[tied[0]], x[tied[1]], x[tied[2]] = unit[2], unit[0], -unit[0], unit[1]
+        core = torch.ones(n, dtype=torch.bool, device=dev)
+        core[0] = False
+        labels = torch.arange(n, 0, -1, dtype=torch.int32, device=dev)
+        q = torch.zeros((3, d), device=dev)
+        q[2] = -3.0
+        worst = max(worst, compare_eps(q, x, labels, core, 1.0, f"ties across chunks D={d}"))
+        _, kn = eps_nearest_core_cuda(q, x, labels, core)
+        kl = eps_min_label_cuda(q, x, labels, core, 1.0)
+        require(kn[:2].tolist() == [labels[tied[0]].item()] * 2,
+                "K5: the first tied core index must win across column chunks")
+        require(kl.tolist() == [labels[tied[2]].item()] * 2 + [n],
+                "K4: min label over tied rows in three column chunks")
+        n_cases += 1
     log(f"[K3-K5] {n_cases} cases match the plain versions exactly on the card "
         f"(unit-scale rows on a 1/8 grid, Q and N in {sizes}, D in (1, 5, 20, 33, 70, "
         "200), eps_sq on a data value; exact d2 ties for K5's first-index rule; a "
         "query with no core neighbour; all core and no core; N = 300, not a multiple "
-        f"of the 128-row tile); max K5 |d2 kernel - plain| = {worst:.3e}")
+        f"of the 128-row tile; K4/K5 ties in three column chunks of {CHUNK} core "
+        f"columns at D = 5 and 20); max K5 |d2 kernel - plain| = {worst:.3e}")
     return worst
 
 
@@ -714,6 +744,10 @@ JAX_STRUCTURE = {
     ("Tracking", "obm"): (24, 3, 1, 0),
     ("Blob", "vbm"): (5, 4, 7, 3),
 }
+# WARD VBM's structure on the card, from an earlier chip_smoke.py run
+# recorded in PERF.md (the JAX package does not build WARD at this size on
+# the CPU): a change of the DBSCAN kernels must not move it.
+CARD_STRUCTURE = {("WARD", "vbm"): (13, 6, 12, 0)}
 
 
 def blob_rows():
@@ -790,6 +824,16 @@ def run_overlap(dev, built, base_results) -> dict:
             require(structure == want,
                     f"{name} {method}: structure {structure} differs from the JAX package's {want}")
             log(f"[build] {name} {method}: structure equals the JAX package's {want}")
+        want = CARD_STRUCTURE.get((name, method))
+        if want is not None:
+            require(structure == want,
+                    f"{name} {method}: structure {structure} differs from the earlier card run's {want}")
+            log(f"[build] {name} {method}: structure equals the earlier card run's {want}")
+        launched = r0["launched"]
+        require(launched["eps_count"] == 1 and launched["eps_nearest_core"] == 1
+                and launched["eps_min_label"] == rep.detail["dbscan_iterations"],
+                f"{name} {method}: K3/K4/K5 launches {launched} per build, want 1 / "
+                f"{rep.detail['dbscan_iterations']} (one per sweep) / 1")
         builds[(name, method)] = dict(idx=idx, rows=rows, structure=structure, links=links,
                                       decision=dict(rep.detail["decision"]))
 
@@ -1119,15 +1163,30 @@ def time_k2(built) -> list[dict]:
     return rows
 
 
-def time_eps(built, overlap) -> list[dict]:
+# Per-launch times of K3-K5 at the shapes time_eps uses, from an earlier
+# chip_smoke.py run (PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700.00 W)
+# with one thread per query for all three.  K4 and K5 were redesigned since;
+# K3 keeps that design, so its time in this run says whether this card runs
+# as that one did.
+EARLIER_EPS_MS = {
+    ("eps_count", "WARD"): 586.6, ("eps_min_label", "WARD"): 785.8,
+    ("eps_nearest_core", "WARD"): 783.7, ("eps_count", "Tracking"): 7.53,
+    ("eps_min_label", "Tracking"): 12.31, ("eps_nearest_core", "Tracking"): 11.50,
+}
+
+
+def time_eps(built, overlap, smi: str) -> list[dict]:
     """K3, K4, K5 at the shapes DBSCAN gives them: all N rows against all N,
     on each full dataset, with the core mask and labels of a first sweep.
     The plain versions run over blocks of 1,024 query rows (a whole (N, N)
     matrix does not fit), which is the plain path's own plan.  The bound
     counts what the pass must do: each of q and x read once, labels and the
-    core flag read once, the outputs written once; Q * N' * (3D + 2) f32
-    operations, N' the rows whose distance the pass needs (all N for K3,
-    the core rows for K4 and K5, which skip the rest)."""
+    core flag read once, the outputs written once; Q * N' * (2D + 3) f32
+    operations (2D for q.x, three for ||q||^2 + ||x||^2 - 2 q.x), N' the
+    rows whose distance the pass needs (all N for K3, the core rows for K4
+    and K5, which compute only those).  Each row also carries its launch
+    grid, its share of the bound, the earlier run's time and, for K4/K5,
+    K3's time in this run as the control."""
     import numpy as np
     import torch
 
@@ -1154,28 +1213,44 @@ def time_eps(built, overlap) -> list[dict]:
         def plain(fn):
             return lambda: [fn(x[lo:lo + blk]) for lo in range(0, n, blk)]
 
+        # K3's grid: one query per thread, 128 per block (eps_graph.cu's
+        # kQueries); K4/K5 report theirs (.grid)
         cases = [
             ("eps_count", lambda: eps_count_cuda(x, x, eps_sq),
-             plain(lambda qb: ref.eps_count_ref(qb, x, eps_sq)), n, 4 * n),
+             plain(lambda qb: ref.eps_count_ref(qb, x, eps_sq)), n, 4 * n,
+             lambda: (-(-n // 128), 1)),
             ("eps_min_label", lambda: eps_min_label_cuda(x, x, labels, core, eps_sq),
              plain(lambda qb: ref.eps_min_label_ref(qb, x, labels, core, eps_sq)),
-             n_core, 9 * n),
+             n_core, 9 * n, lambda: eps_min_label_cuda.grid),
             ("eps_nearest_core", lambda: eps_nearest_core_cuda(x, x, labels, core),
              plain(lambda qb: ref.eps_nearest_core_ref(qb, x, labels, core)),
-             n_core, 13 * n),
+             n_core, 13 * n, lambda: eps_nearest_core_cuda.grid),
         ]
-        for kname, kern, pl, cols, extra_bytes in cases:
+        control = None
+        for kname, kern, pl, cols, extra_bytes, used_grid in cases:
             ms = device_ms(kern, reps=3)
+            grid = used_grid()
             plain_ms = device_ms(pl, reps=1, warm=False, launches_hint=n // blk)
             nbytes = 4 * 2 * n * d + extra_bytes  # q and x once; labels, flags, outputs
-            b_ms, by = bound(nbytes, float(n) * cols * (3 * d + 2))
-            rows.append(dict(name=kname, shape=f"{name} Q=N={n} D={d}", dataset=name, ms=ms,
-                             plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=by,
-                             cols=cols, launches_per_build=per_build[kname]))
-            log(f"[time] {kname} {name} ({n} x {n} x {d}, {cols} columns computed): kernel "
-                f"{ms:.2f} ms, plain {plain_ms:.2f} ms (blocks of {blk} rows), bound "
-                f"{b_ms:.2f} ms by {by} ({b_ms / ms:.1%} of it); {per_build[kname]} "
-                "launches in the VBM build")
+            b_ms, by = bound(nbytes, float(n) * cols * (2 * d + 3))
+            earlier = EARLIER_EPS_MS[(kname, name)]
+            row = dict(name=kname, shape=f"{name} Q=N={n} D={d}", dataset=name, ms=ms,
+                       plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=by,
+                       share=b_ms / ms, cols=cols, grid=list(grid), earlier_ms=earlier,
+                       launches_per_build=per_build[kname], card=smi)
+            if kname == "eps_count":
+                control = ms
+            else:
+                row["k3_same_run_ms"] = control
+            rows.append(row)
+            what = (f"K3 (unchanged design) in this run {control:.2f} ms against the "
+                    f"earlier run's {EARLIER_EPS_MS[('eps_count', name)]:.2f} ms"
+                    if kname != "eps_count" else "the control of this run")
+            log(f"[time] {kname} {name} ({n} x {n} x {d}, {cols} columns computed) on {smi}: "
+                f"kernel {ms:.2f} ms, grid {tuple(grid)}, plain {plain_ms:.2f} ms (blocks "
+                f"of {blk} rows), bound {b_ms:.2f} ms by {by} ({b_ms / ms:.1%} of it); "
+                f"earlier run (previous design, PERF.md) {earlier:.2f} ms; {what}; "
+                f"{per_build[kname]} launches in the VBM build")
     return rows
 
 
@@ -1784,7 +1859,7 @@ def main(argv=None) -> int:
     log(f"[build] nvcc sm_90a, {len(_build.BUILD_LOG)} sources in parallel: {t_build:.1f} s")
     for src_name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "spill")):
                 log(f"[build] {src_name}: {line.strip()}")
 
     dev = torch.device("cuda")
@@ -1805,7 +1880,7 @@ def main(argv=None) -> int:
     db = check_dbscan(torch.from_numpy(data["Tracking"]).to(dev), cfg["eps"], cfg["min_pts"])
     k2_rows = time_k2(sl["built"])
     k1_rows = time_k1(sl["built"])
-    eps_rows = time_eps(sl["built"], ov)
+    eps_rows = time_eps(sl["built"], ov, smi)
     prof_rows = profile_searches(sl["built"], sl["results"])
     sv = serve_phase(dev, gen)
 

@@ -37,20 +37,7 @@ from repro_torch.core.pipeline import (
     build_index_core,
     default_delta_capacity,
 )
-
-
-def resolve_device(device=None) -> torch.device:
-    """The torch device an entry point runs on: ``cuda`` unless the caller
-    names one.  Without CUDA, an unnamed device is an error, never a quiet
-    fall back to the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; repro_torch runs on the card by "
-            "default — pass device='cpu' to run the plain versions on the host"
-        )
-    return torch.device("cuda")
+from repro_torch.device import resolve_device
 
 
 def _as_config(cfg: Config | _CoreIndexConfig | None) -> Config:

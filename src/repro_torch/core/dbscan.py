@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as kref
 
@@ -120,8 +121,10 @@ def dbscan(
     kernel: bool = True,
     device=None,
 ) -> DBSCANResult:
-    """Run DBSCAN on ``device`` (default: where ``x`` lies, the CPU for a
-    numpy array); returns contiguous labels (-1 = noise) on the host.
+    """Run DBSCAN on ``device``; returns contiguous labels (-1 = noise) on
+    the host.  Without ``device``, a tensor stays where it lies and a numpy
+    array goes to ``cuda`` (no CUDA: an error, never a quiet fall back to
+    the CPU; pass ``device="cpu"`` for the plain versions on the host).
 
     ``kernel=True`` (default) runs each pass through the dispatch layer
     (K3-K5 on the card); ``kernel=False`` keeps the in-place plain
@@ -130,7 +133,10 @@ def dbscan(
     ``(iterations + 2) * n_pad * n`` with ``n_pad`` = n rounded up to
     ``block``.
     """
-    if not isinstance(x, Tensor):
+    if isinstance(x, Tensor):
+        device = x.device if device is None else device
+    else:
+        device = resolve_device(device)
         x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
     x = x.to(device=device, dtype=torch.float32).contiguous()
     n = int(x.shape[0])

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import overlap as ovl
+from repro_torch.device import resolve_device
 
 
 @dataclass
@@ -108,11 +109,12 @@ def decide(
     ``method`` resolves through the overlap-method registry
     (``core.overlap.register_overlap_method``); unknown names fail fast with
     the registered list, before any work is done.  The rate matrices run on
-    ``device`` (default: the CPU), where ``x`` is uploaded once.
+    ``device`` (``cuda`` unless named; without CUDA an error), where ``x``
+    is uploaded once.
     """
     entry = ovl.get_overlap_method(method)
     x = np.asarray(x, np.float32)
-    x_dev = torch.from_numpy(x).to("cpu" if device is None else device)
+    x_dev = torch.from_numpy(x).to(resolve_device(device))
     c0 = len(radii)
     stats = DecisionStats(n_initial=c0)
     stats.distance_computations += c0 * c0  # pivot-pivot distances

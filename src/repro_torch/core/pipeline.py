@@ -22,6 +22,7 @@ import numpy as np
 from repro_torch.core.dbscan import dbscan, partitions_from_labels
 from repro_torch.core.decision import Partition, decide
 from repro_torch.core.forest import ForestArrays, build_forest
+from repro_torch.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -69,9 +70,11 @@ def default_delta_capacity(n: int) -> int:
 def build_index_core(x, cfg: IndexConfig, *, device=None) -> tuple[ForestArrays, BuildReport]:
     """The paper's pipeline: DBSCAN -> overlap -> decision -> forest.
 
-    DBSCAN and the overlap rates run on ``device`` (default: the CPU, with
-    the plain versions); the decision and the BCCF trees are host numpy.
+    DBSCAN and the overlap rates run on ``device`` (``cuda`` unless named;
+    without CUDA an error, ``device="cpu"`` runs the plain versions); the
+    decision and the BCCF trees are host numpy.
     """
+    device = resolve_device(device)
     t0 = time.perf_counter()
     x = np.asarray(x, np.float32)
     n = len(x)

@@ -6,9 +6,19 @@ they are held against are ``ref.eps_count_ref``, ``ref.eps_min_label_ref``
 and ``ref.eps_nearest_core_ref`` (imported below); the source's header says
 what bounds the kernels and what their design does about it.
 
-Each wrapper launches its kernel once over all queries, on the current
-stream, without synchronising, and counts the launch on itself
-(``.launches``).
+K4 and K5 compute only the core columns: the wrapper compacts them
+(``compact_core``), the kernel splits them into chunks of ``CHUNK`` over the
+grid, and the chunks merge by an atomic min; K5's merge key is
+``pack_nearest``'s and the wrapper maps it back with ``unpack_nearest``.
+These helpers are plain torch, so the CPU tests emulate the chunked merge
+with them.
+
+Each wrapper launches its kernel once over all queries (K4/K5: a pack of the
+core rows, then the main kernel), on the current stream, and counts the
+launch on itself (``.launches``); K4's and K5's also keep the launch grid the
+kernel chose, (query tiles, column chunks), on themselves (``.grid``).  K3
+does not synchronise; K4/K5's compaction reads the number of core rows back
+to the host.
 """
 from __future__ import annotations
 
@@ -29,17 +39,53 @@ Tensor = torch.Tensor
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_GRID = ctypes.c_int * 2  # the (x, y) launch grid a K4/K5 launch reports
+
+CHUNK = 4096  # compact core columns per block of K4/K5 (the grid's y axis)
+NO_KEY = 2**63 - 1  # K5's merge key before any core column is seen
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.library("eps_graph")
     if lib.eps_count_f32.argtypes is None:
         lib.eps_count_f32.argtypes = [_P, _P, _F, _P, _I, _I, _I, _P]
-        lib.eps_min_label_f32.argtypes = [_P, _P, _P, _P, _F, _P, _I, _I, _I, _P]
-        lib.eps_nearest_core_f32.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
-        for fn in (lib.eps_count_f32, lib.eps_min_label_f32, lib.eps_nearest_core_f32):
+        core_args = [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _GRID, _P]
+        lib.eps_min_label_f32.argtypes = core_args
+        lib.eps_nearest_core_f32.argtypes = core_args[:4] + core_args[5:]
+        for fn in (lib.eps_count_f32, lib.eps_min_label_f32, lib.eps_nearest_core_f32,
+                   lib.eps_packed_width):
             fn.restype = _I
+        lib.eps_packed_width.argtypes = [_I]
     return lib
+
+
+# --- the wrapper logic of K4/K5, plain torch (the CPU tests reach it) -------
+
+
+def compact_core(x: Tensor, labels: Tensor, core: Tensor) -> tuple[Tensor, Tensor]:
+    """The core rows of ``x`` in ascending index order, and their labels:
+    the only columns K4 and K5 compute.  Ascending order keeps K5's
+    first-index rule: compact index order is row order."""
+    idx = torch.nonzero(core != 0).squeeze(1)
+    return x.index_select(0, idx), labels.index_select(0, idx)
+
+
+def pack_nearest(d2: Tensor, j: Tensor) -> Tensor:
+    """(Q,) int64 keys ``(bits of d2) << 32 | j`` that order as (d2, j)
+    lexicographically (d2 >= +0, j < 2^31); ``NO_KEY`` where d2 is +inf
+    (no core column).  K5 merges its column chunks by the min of these."""
+    key = (d2.contiguous().view(torch.int32).to(torch.int64) << 32) | j.to(torch.int64)
+    return torch.where(torch.isinf(d2), NO_KEY, key)
+
+
+def unpack_nearest(key: Tensor, lab_core: Tensor, n: int) -> tuple[Tensor, Tensor]:
+    """K5's merged keys back to (f32 d2, i32 label of compact column j);
+    ``NO_KEY`` to (+inf, N), the plain version's answer without a core row."""
+    none = key == NO_KEY
+    d2 = (key >> 32).to(torch.int32).view(torch.float32)
+    j = torch.where(none, lab_core.shape[0], key & 0xFFFFFFFF)
+    ext = torch.cat([lab_core.to(torch.int32), lab_core.new_full((1,), n, dtype=torch.int32)])
+    return torch.where(none, float("inf"), d2), ext[j]
 
 
 def _rows(name: str, q: Tensor, x: Tensor) -> tuple[Tensor, Tensor]:
@@ -97,23 +143,37 @@ def eps_count_cuda(q: Tensor, x: Tensor, eps_sq) -> Tensor:
     return out
 
 
+def _core_operands(name: str, q: Tensor, x: Tensor, labels: Tensor, core: Tensor):
+    """Checked operands of K4/K5, the compacted core columns and the packed
+    rows' scratch."""
+    q, x = _rows(name, q, x)
+    labels, core = _graph(name, x, labels, core)
+    x_core, lab_core = compact_core(x, labels, core)
+    if -(-x_core.shape[0] // CHUNK) > 65535:
+        raise ValueError(f"{name}: {x_core.shape[0]} core rows exceed the grid's column chunks")
+    width = _lib().eps_packed_width(q.shape[1])
+    packed = torch.empty((x_core.shape[0], width), dtype=torch.float32, device=q.device)
+    return q, x, x_core, lab_core, packed
+
+
 def eps_min_label_cuda(q: Tensor, x: Tensor, labels: Tensor, core: Tensor, eps_sq) -> Tensor:
     """(Q,) i32: per query, the min label over the core rows within eps; N
     (= len(x)) when there is none (K4)."""
-    q, x = _rows("eps_min_label_cuda", q, x)
-    labels, core = _graph("eps_min_label_cuda", x, labels, core)
-    out = torch.empty((q.shape[0],), dtype=torch.int32, device=q.device)
+    q, x, x_core, lab_core, packed = _core_operands("eps_min_label_cuda", q, x, labels, core)
+    out = torch.full((q.shape[0],), x.shape[0], dtype=torch.int32, device=q.device)
     if q.shape[0] == 0:
         return out
     lib = _lib()
+    grid = _GRID()
     with torch.cuda.device(q.device):
         err = lib.eps_min_label_f32(
-            q.data_ptr(), x.data_ptr(), labels.data_ptr(), core.data_ptr(),
-            _eps_f32(eps_sq), out.data_ptr(), q.shape[0], x.shape[0], q.shape[1],
-            _stream(q.device),
+            q.data_ptr(), x_core.data_ptr(), lab_core.data_ptr(), packed.data_ptr(),
+            _eps_f32(eps_sq), out.data_ptr(), q.shape[0], x.shape[0], x_core.shape[0],
+            q.shape[1], CHUNK, grid, _stream(q.device),
         )
     _build.check(lib, err, "eps_min_label")
     eps_min_label_cuda.launches += 1
+    eps_min_label_cuda.grid = tuple(grid)
     return out
 
 
@@ -122,24 +182,26 @@ def eps_nearest_core_cuda(
 ) -> tuple[Tensor, Tensor]:
     """Per query: (f32 d2 to the nearest core row, its i32 label), the first
     index winning a tie; (+inf, N) when x has no core row (K5)."""
-    q, x = _rows("eps_nearest_core_cuda", q, x)
-    labels, core = _graph("eps_nearest_core_cuda", x, labels, core)
-    out_d = torch.empty((q.shape[0],), dtype=torch.float32, device=q.device)
-    out_l = torch.empty((q.shape[0],), dtype=torch.int32, device=q.device)
+    q, x, x_core, lab_core, packed = _core_operands("eps_nearest_core_cuda", q, x, labels, core)
+    keys = torch.full((q.shape[0],), NO_KEY, dtype=torch.int64, device=q.device)
     if q.shape[0] == 0:
-        return out_d, out_l
+        return unpack_nearest(keys, lab_core, x.shape[0])
     lib = _lib()
+    grid = _GRID()
     with torch.cuda.device(q.device):
         err = lib.eps_nearest_core_f32(
-            q.data_ptr(), x.data_ptr(), labels.data_ptr(), core.data_ptr(),
-            out_d.data_ptr(), out_l.data_ptr(), q.shape[0], x.shape[0], q.shape[1],
-            _stream(q.device),
+            q.data_ptr(), x_core.data_ptr(), lab_core.data_ptr(), packed.data_ptr(),
+            keys.data_ptr(), q.shape[0], x.shape[0], x_core.shape[0], q.shape[1], CHUNK,
+            grid, _stream(q.device),
         )
     _build.check(lib, err, "eps_nearest_core")
     eps_nearest_core_cuda.launches += 1
-    return out_d, out_l
+    eps_nearest_core_cuda.grid = tuple(grid)
+    return unpack_nearest(keys, lab_core, x.shape[0])
 
 
 eps_count_cuda.launches = 0  # kernel launches since the last reset
 eps_min_label_cuda.launches = 0
 eps_nearest_core_cuda.launches = 0
+eps_min_label_cuda.grid = None  # (query tiles, column chunks) of the last launch
+eps_nearest_core_cuda.grid = None

@@ -15,7 +15,7 @@ import time
 
 import numpy as np
 
-from repro_torch.api.index import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import RetrievalConfig
 from repro_torch.data.synthetic import embedding_datastore_on

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.api.index import resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ref import no_tf32
 from repro_torch.models.attention import DecodeStep

@@ -188,7 +188,7 @@ def test_registered_method_flows_through_config_and_decide(blob_data):
         res = j_dbscan(blob_data, 1.5, 8)
         pv, rd, asg = j_partitions(blob_data, res.labels, res.n_clusters)
         groups, stats = decide(blob_data, pv, rd, asg, method="half_dbm", xi_min=0.05,
-                               xi_max=0.35)
+                               xi_max=0.35, device="cpu")
         assert stats.n_final == len(groups) > 0
     finally:
         unregister_overlap_method("half_dbm")
@@ -218,7 +218,7 @@ def test_decide_matches_jax(blob_data, method, monkeypatch):
     assert seen
     for rates in seen:
         _assert_margins(rates, kw["xi_min"], kw["xi_max"])
-    got, gst = decide(blob_data, pivots, radii, assign, **kw)
+    got, gst = decide(blob_data, pivots, radii, assign, **kw, device="cpu")
     assert gst.__dict__ == wst.__dict__
     assert len(got) == len(want)
     for a, b in zip(got, want):

@@ -176,6 +176,58 @@ def test_eps_kernels_sentinel_and_ties(dev):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("d", [5, 20])
+def test_eps_core_ties_across_column_chunks(dev, d):
+    """K4/K5 over N several ``CHUNK``s of core columns: core rows tied at
+    d2 = 1 sit at compact positions in three different column chunks, a
+    non-core row is tied ahead of them; the first tied core row wins K5 and
+    the min label over them K4, exactly as the plain versions say."""
+    from repro_torch.kernels.eps_graph import CHUNK, compact_core
+
+    n = 3 * CHUNK + 77
+    g = np.random.default_rng(d)
+    x = 40.0 + _grid(g, n, d)
+    unit = np.eye(d, dtype=np.float32)
+    tied = [1, CHUNK + 1, 2 * CHUNK + 6]  # compact positions 0, CHUNK, 2 CHUNK + 5
+    x[0], x[tied[0]], x[tied[1]], x[tied[2]] = unit[2], unit[0], -unit[0], unit[1]
+    x = torch.from_numpy(x).to(dev)
+    core = torch.ones(n, dtype=torch.bool, device=dev)
+    core[0] = False
+    labels = torch.arange(n, 0, -1, dtype=torch.int32, device=dev)
+    q = torch.zeros((3, d), device=dev)
+    q[2] = -3.0
+    x_core, _ = compact_core(x, labels, core)
+    assert torch.equal(x_core[CHUNK], -torch.from_numpy(unit[0]).to(dev))
+    kernel, plain = _eps_pair(q, x, labels, core, 1.0)
+    for a, b in zip(kernel, plain):
+        assert torch.equal(a, b)
+    assert kernel[3][:2].tolist() == [int(labels[tied[0]])] * 2
+    assert kernel[2][:2].tolist() == [1.0, 1.0]
+    assert kernel[1].tolist() == [int(labels[tied[2]])] * 2 + [n]
+
+
+@pytest.mark.parametrize("d", [5, 20, 70])
+def test_eps_core_few_queries(dev, d):
+    """A Q far below one wave of blocks (one query tile, a few column
+    chunks): K4/K5 still equal the plain versions exactly."""
+    from repro_torch.kernels.eps_graph import eps_min_label_cuda, eps_nearest_core_cuda
+
+    g = np.random.default_rng(d + 1)
+    n = 10_000
+    x = torch.from_numpy(_grid(g, n, d)).to(dev)
+    q = x[:37].clone()
+    labels = torch.from_numpy(g.integers(0, n, n).astype(np.int32)).to(dev)
+    core = torch.from_numpy(g.random(n) < 0.7).to(dev)
+    eps_sq = float(torch.sort(ref.pairwise_sq_l2_ref(q, x).flatten()).values[37 * n // 100])
+    kernel, plain = _eps_pair(q, x, labels, core, eps_sq)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for wrapper in (eps_min_label_cuda, eps_nearest_core_cuda):
+        tiles, chunks = wrapper.grid
+        assert tiles == 1 and tiles * chunks < sms
+    for a, b in zip(kernel, plain):
+        assert torch.equal(a, b)
+
+
 def test_eps_count_in_band_at_data_scale(dev):
     """Tracking-like rows (||x||^2 ~ 10^4): a count may differ from the plain
     one only by pairs whose d2 lies within 8 ulp of ||q||^2 + ||x||^2 of

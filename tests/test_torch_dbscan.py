@@ -173,14 +173,14 @@ def _assert_same_dbscan(got, want):
 @pytest.mark.parametrize("seed,block", [(0, 64), (1, 1000), (2, 64), (2, 1000)])
 def test_dbscan_matches_jax(seed, block, kernel):
     x = _clusters(seed)
-    got = dbscan(x, 1.2, 6, block=block, kernel=kernel)
+    got = dbscan(x, 1.2, 6, block=block, kernel=kernel, device="cpu")
     want = j_dbscan(x, 1.2, 6, block=block, kernel=kernel)
     _assert_same_dbscan(got, want)
 
 
 @pytest.mark.parametrize("kernel", [True, False])
 def test_dbscan_blob_data_matches_jax(blob_data, kernel):
-    got = dbscan(blob_data, 1.5, 8, kernel=kernel)
+    got = dbscan(blob_data, 1.5, 8, kernel=kernel, device="cpu")
     want = j_dbscan(blob_data, 1.5, 8, kernel=kernel)
     _assert_same_dbscan(got, want)
     assert got.n_clusters > 1 and got.n_iterations > 1
@@ -197,7 +197,7 @@ def test_dbscan_edge_cases_match_jax(case):
     else:  # a chain whose labels need more sweeps than allowed
         x = np.stack([np.arange(300, dtype=np.float32), np.zeros(300, np.float32)], 1)
         args, kw = (1.0, 2), dict(max_iter=2)
-    got = dbscan(x, *args, **kw)
+    got = dbscan(x, *args, **kw, device="cpu")
     _assert_same_dbscan(got, j_dbscan(x, *args, **kw))
     if case == "max_iter":
         assert got.n_iterations == 2
@@ -205,14 +205,14 @@ def test_dbscan_edge_cases_match_jax(case):
 
 def test_dbscan_accepts_a_tensor_and_a_device(blob_data):
     got = dbscan(torch.from_numpy(blob_data), 1.5, 8, device="cpu")
-    _assert_same_dbscan(got, dbscan(blob_data, 1.5, 8))
+    _assert_same_dbscan(got, dbscan(blob_data, 1.5, 8, device="cpu"))
 
 
 @pytest.mark.parametrize("eps", [1.5, 0.01])
 def test_partitions_from_labels_bitwise(blob_data, eps):
     """Pivots, radii and the noise-assigned partition of every object, bit
     for bit (0.01: all noise, the degenerate single partition)."""
-    res = dbscan(blob_data, eps, 8)
+    res = dbscan(blob_data, eps, 8, device="cpu")
     got = partitions_from_labels(blob_data, res.labels, res.n_clusters)
     want = j_partitions(blob_data, res.labels, res.n_clusters)
     for a, b in zip(got, want):

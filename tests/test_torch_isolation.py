@@ -92,3 +92,33 @@ def test_serving_entry_points_refuse_cpu(monkeypatch):
         launch_serve.main(["--requests", "1"])
     assert Model(cfg, device="cpu").device.type == "cpu"
     assert build_flat_datastore(keys, np.zeros(4, np.int32), device="cpu").keys.is_cpu
+
+
+def test_build_stages_without_device_refuse_cpu(monkeypatch):
+    """``dbscan``, ``decide`` and ``build_index_core`` run on the card when no
+    device is named, as the facade does: without CUDA a numpy input raises,
+    ``device="cpu"`` runs, and a tensor handed to ``dbscan`` stays where it
+    lies."""
+    from repro_torch.core.dbscan import dbscan, partitions_from_labels
+    from repro_torch.core.decision import decide
+    from repro_torch.core.pipeline import IndexConfig, build_index_core
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = np.random.default_rng(1)
+    x = np.concatenate([c + g.normal(size=(40, 3)) for c in (0.0, 12.0)]).astype(np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dbscan(x, 1.5, 4)
+    res = dbscan(x, 1.5, 4, device="cpu")
+    assert res.n_clusters == 2
+    assert dbscan(torch.from_numpy(x), 1.5, 4).n_clusters == 2
+    pivots, radii, assign = partitions_from_labels(x, res.labels, res.n_clusters)
+    kw = dict(method="vbm", xi_min=0.4, xi_max=0.8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        decide(x, pivots, radii, assign, **kw)
+    groups, _ = decide(x, pivots, radii, assign, **kw, device="cpu")
+    assert len(groups) == 2
+    cfg = IndexConfig(eps=1.5, min_pts=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_index_core(x, cfg)
+    forest, report = build_index_core(x, cfg, device="cpu")
+    assert report.n_clusters == 2 and forest.n_indexes == 2
