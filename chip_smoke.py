@@ -12,7 +12,7 @@ Phases, in order; any failure raises and the run exits non-zero:
    int8, including exact ties, fewer than k reachable and a dry pool;
 4. K3, K4, K5 (the DBSCAN ``eps_*`` passes) against their plain versions:
    exact on unit-scale rows and on hand-made cases (ties, no core point, all
-   core, ragged tiles, K4/K5 ties across column chunks), and on 2,048 rows
+   core, ragged tiles, K3-K5 ties across column chunks), and on 2,048 rows
    of each full dataset against the whole dataset under the in-band rule
    (``check_eps_data``);
 5. the baseline slice: ``OverlapIndex.baseline`` over WARD-like
@@ -35,7 +35,7 @@ Phases, in order; any failure raises and the run exits non-zero:
 8. kernel times (CUDA events) beside the plain versions', the library
    yardstick and the bound (bytes over 3.35 TB/s, f32 flops over
    67 TFLOP/s, whichever is larger); K3-K5 also with their launch grid,
-   the earlier run's time and K3 as this run's control; then one
+   the earlier run's time and K6 at Q = 8 as this run's control; then one
    ``torch.profiler`` pass per baseline search for the device's busy share;
 9. K6 (``knn_topk``) and K7 (``pairwise_sq_l2_int8``) against their plain
    versions, bit-equal on grid rows (N < k, ragged N, D 5/64/896, k 1/8/16,
@@ -349,11 +349,11 @@ def check_eps_unit(dev, gen) -> float:
     require(bool(torch.isinf(kd).all()) and bool((kn == n).all()), "K5: (+inf, N) without core")
     n_cases += 4
 
-    from repro_torch.kernels.eps_graph import CHUNK
+    from repro_torch.kernels.eps_graph import CHUNK, eps_count_cuda
 
-    # K4/K5 merge column chunks of CHUNK compact core columns: core rows
-    # tied at d2 = 1 at compact positions 0, CHUNK and 2 CHUNK + 5, a
-    # non-core row tied ahead of them
+    # K3-K5 merge column chunks of CHUNK columns: core rows tied at d2 = 1
+    # at compact positions 0, CHUNK and 2 CHUNK + 5 (K4/K5) and rows 0, 1,
+    # CHUNK + 1 and 2 CHUNK + 6 (K3), a non-core row tied ahead of them
     for d in (5, 20):
         n = 3 * CHUNK + 77
         x = 40.0 + grid_rows(gen, dev, n, d)
@@ -372,12 +372,15 @@ def check_eps_unit(dev, gen) -> float:
                 "K5: the first tied core index must win across column chunks")
         require(kl.tolist() == [labels[tied[2]].item()] * 2 + [n],
                 "K4: min label over tied rows in three column chunks")
+        kc = eps_count_cuda(q, x, 1.0)
+        require(kc.tolist() == [4, 4, 0] and eps_count_cuda.grid == (1, 4),
+                "K3: the four rows on the threshold in three column chunks, grid (1, 4)")
         n_cases += 1
     log(f"[K3-K5] {n_cases} cases match the plain versions exactly on the card "
         f"(unit-scale rows on a 1/8 grid, Q and N in {sizes}, D in (1, 5, 20, 33, 70, "
         "200), eps_sq on a data value; exact d2 ties for K5's first-index rule; a "
         "query with no core neighbour; all core and no core; N = 300, not a multiple "
-        f"of the 128-row tile; K4/K5 ties in three column chunks of {CHUNK} core "
+        f"of the 128-row tile; K3-K5 ties in three column chunks of {CHUNK} "
         f"columns at D = 5 and 20); max K5 |d2 kernel - plain| = {worst:.3e}")
     return worst
 
@@ -1163,19 +1166,34 @@ def time_k2(built) -> list[dict]:
     return rows
 
 
-# Per-launch times of K3-K5 at the shapes time_eps uses, from an earlier
-# chip_smoke.py run (PERF.md's kernel table; NVIDIA H100 80GB HBM3, 700.00 W)
-# with one thread per query for all three.  K4 and K5 were redesigned since;
-# K3 keeps that design, so its time in this run says whether this card runs
-# as that one did.
+# Per-launch times of K3-K5 at the shapes time_eps uses, and of K6/K7 at
+# Q = 8 and 1,024, from an earlier chip_smoke.py run (PERF.md's kernel table;
+# NVIDIA H100 80GB HBM3, 700.00 W), each with the design it had then: K3 and
+# K7 were redesigned since.  K6's code has not changed, so its time in this
+# run (the control) says whether this card runs as that one did.
 EARLIER_EPS_MS = {
-    ("eps_count", "WARD"): 586.6, ("eps_min_label", "WARD"): 785.8,
-    ("eps_nearest_core", "WARD"): 783.7, ("eps_count", "Tracking"): 7.53,
-    ("eps_min_label", "Tracking"): 12.31, ("eps_nearest_core", "Tracking"): 11.50,
+    ("eps_count", "WARD"): 586.7, ("eps_min_label", "WARD"): 382.6,
+    ("eps_nearest_core", "WARD"): 460.5, ("eps_count", "Tracking"): 7.66,
+    ("eps_min_label", "Tracking"): 4.09, ("eps_nearest_core", "Tracking"): 4.62,
 }
+EARLIER_SERVE_MS = {("knn_topk", 8): 1.564, ("knn_topk", 1024): 117.9,
+                    ("pairwise_sq_l2_int8", 8): 1.041, ("pairwise_sq_l2_int8", 1024): 113.3}
 
 
-def time_eps(built, overlap, smi: str) -> list[dict]:
+def k6_control(keys) -> float:
+    """K6 at Q = 8 on the serving datastore, ms: the same-run control."""
+    from repro_torch.kernels.topk import knn_topk_cuda
+
+    q = retrieval_problem(keys, 8, SEED + 8)
+    return device_ms(lambda: knn_topk_cuda(q, keys, SERVE_K), reps=21)
+
+
+def control_text(k6_ms: float) -> str:
+    return (f"control K6 Q=8 {k6_ms:.3f} ms in this run against "
+            f"{EARLIER_SERVE_MS[('knn_topk', 8)]:.3f} ms earlier")
+
+
+def time_eps(built, overlap, smi: str, k6_ms: float) -> list[dict]:
     """K3, K4, K5 at the shapes DBSCAN gives them: all N rows against all N,
     on each full dataset, with the core mask and labels of a first sweep.
     The plain versions run over blocks of 1,024 query rows (a whole (N, N)
@@ -1184,9 +1202,9 @@ def time_eps(built, overlap, smi: str) -> list[dict]:
     core flag read once, the outputs written once; Q * N' * (2D + 3) f32
     operations (2D for q.x, three for ||q||^2 + ||x||^2 - 2 q.x), N' the
     rows whose distance the pass needs (all N for K3, the core rows for K4
-    and K5, which compute only those).  Each row also carries its launch
-    grid, its share of the bound, the earlier run's time and, for K4/K5,
-    K3's time in this run as the control."""
+    and K5, which compute only those).  Each row also carries the launch
+    grid the kernel reports, its share of the bound, the earlier run's time
+    and K6's time in this run (``k6_ms``) as the control."""
     import numpy as np
     import torch
 
@@ -1213,45 +1231,136 @@ def time_eps(built, overlap, smi: str) -> list[dict]:
         def plain(fn):
             return lambda: [fn(x[lo:lo + blk]) for lo in range(0, n, blk)]
 
-        # K3's grid: one query per thread, 128 per block (eps_graph.cu's
-        # kQueries); K4/K5 report theirs (.grid)
         cases = [
             ("eps_count", lambda: eps_count_cuda(x, x, eps_sq),
-             plain(lambda qb: ref.eps_count_ref(qb, x, eps_sq)), n, 4 * n,
-             lambda: (-(-n // 128), 1)),
+             plain(lambda qb: ref.eps_count_ref(qb, x, eps_sq)), n, 4 * n, eps_count_cuda),
             ("eps_min_label", lambda: eps_min_label_cuda(x, x, labels, core, eps_sq),
              plain(lambda qb: ref.eps_min_label_ref(qb, x, labels, core, eps_sq)),
-             n_core, 9 * n, lambda: eps_min_label_cuda.grid),
+             n_core, 9 * n, eps_min_label_cuda),
             ("eps_nearest_core", lambda: eps_nearest_core_cuda(x, x, labels, core),
              plain(lambda qb: ref.eps_nearest_core_ref(qb, x, labels, core)),
-             n_core, 13 * n, lambda: eps_nearest_core_cuda.grid),
+             n_core, 13 * n, eps_nearest_core_cuda),
         ]
-        control = None
-        for kname, kern, pl, cols, extra_bytes, used_grid in cases:
+        for kname, kern, pl, cols, extra_bytes, wrapper in cases:
             ms = device_ms(kern, reps=3)
-            grid = used_grid()
+            grid = wrapper.grid
             plain_ms = device_ms(pl, reps=1, warm=False, launches_hint=n // blk)
             nbytes = 4 * 2 * n * d + extra_bytes  # q and x once; labels, flags, outputs
             b_ms, by = bound(nbytes, float(n) * cols * (2 * d + 3))
             earlier = EARLIER_EPS_MS[(kname, name)]
-            row = dict(name=kname, shape=f"{name} Q=N={n} D={d}", dataset=name, ms=ms,
-                       plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=by,
-                       share=b_ms / ms, cols=cols, grid=list(grid), earlier_ms=earlier,
-                       launches_per_build=per_build[kname], card=smi)
-            if kname == "eps_count":
-                control = ms
-            else:
-                row["k3_same_run_ms"] = control
-            rows.append(row)
-            what = (f"K3 (unchanged design) in this run {control:.2f} ms against the "
-                    f"earlier run's {EARLIER_EPS_MS[('eps_count', name)]:.2f} ms"
-                    if kname != "eps_count" else "the control of this run")
+            rows.append(dict(name=kname, shape=f"{name} Q=N={n} D={d}", dataset=name, ms=ms,
+                             plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=by,
+                             share=b_ms / ms, cols=cols, grid=list(grid), earlier_ms=earlier,
+                             launches_per_build=per_build[kname], k6_control_ms=k6_ms,
+                             card=smi))
             log(f"[time] {kname} {name} ({n} x {n} x {d}, {cols} columns computed) on {smi}: "
                 f"kernel {ms:.2f} ms, grid {tuple(grid)}, plain {plain_ms:.2f} ms (blocks "
                 f"of {blk} rows), bound {b_ms:.2f} ms by {by} ({b_ms / ms:.1%} of it); "
-                f"earlier run (previous design, PERF.md) {earlier:.2f} ms; {what}; "
+                f"earlier run (PERF.md) {earlier:.2f} ms; {control_text(k6_ms)}; "
                 f"{per_build[kname]} launches in the VBM build")
     return rows
+
+
+def compare_previous(prev: Path, data, keys, values, xq, scale) -> dict:
+    """With ``--previous DIR``: the earlier K3 and K7 (``DIR/eps_graph.cu``,
+    ``DIR/pairwise_int8.cu`` and the ``row_tile.cuh`` beside them, e.g. from
+    ``git show <commit>:src/repro_torch/csrc/...``) built with the same nvcc
+    flags into ``DIR/_build`` and loaded in this process beside this
+    checkout's kernels.  K3 at full WARD and Tracking size must give the same
+    counts bit for bit; K7's gap to the earlier kernel at 2^20 x 896 is
+    printed in ulp of ||q||^2 + ||x||^2.  Times alternate earlier, now, now,
+    earlier; each is the median of its two runs."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.eps_graph import eps_count_cuda
+    from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_int8_cuda
+
+    out_dir = prev / "_build"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = [(name, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(prev), "-o",
+         str(out_dir / f"lib{name}.so"), str(prev / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name in ("eps_graph", "pairwise_int8")]
+    libs = {}
+    for name, proc in procs:
+        text, _ = proc.communicate()
+        require(proc.returncode == 0, f"the earlier {name}.cu does not build:\n{text}")
+        libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    old_count = libs["eps_graph"].eps_count_f32
+    old_count.argtypes, old_count.restype = [P, P, F, P, I, I, I, P], I
+    old_int8 = libs["pairwise_int8"].pairwise_sq_l2_int8
+    old_int8.argtypes, old_int8.restype = [P, P, P, P, P, I, I, I, I, P], I
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def k3_old(x, eps_sq):
+        o = torch.empty((x.shape[0],), dtype=torch.int32, device=x.device)
+        err = old_count(x.data_ptr(), x.data_ptr(), eps_sq, o.data_ptr(), x.shape[0],
+                        x.shape[0], x.shape[1], stream())
+        require(err == 0, f"the earlier K3 did not launch ({err})")
+        return o
+
+    def k7_old(q):
+        nq, d = q.shape
+        o = torch.empty((nq, xq.shape[0]), dtype=torch.float32, device=q.device)
+        qn = torch.empty((nq,), dtype=torch.float32, device=q.device)
+        vec = int(d % 4 == 0 and xq.data_ptr() % 4 == 0)
+        err = old_int8(q.data_ptr(), xq.data_ptr(), scale.data_ptr(), qn.data_ptr(),
+                       o.data_ptr(), nq, xq.shape[0], d, vec, stream())
+        require(err == 0, f"the earlier K7 did not launch ({err})")
+        return o
+
+    def alternate(before, now, reps):
+        t = [device_ms(f, reps=reps) for f in (before, now, now, before)]
+        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+    res = {}
+    for name in ("WARD", "Tracking"):
+        x = torch.from_numpy(data[name]).to("cuda")
+        eps_sq = float(np.float32(BUILD_CFG[name]["eps"]) ** 2)
+        a, b = k3_old(x, eps_sq), eps_count_cuda(x, x, eps_sq)
+        torch.cuda.synchronize()
+        require(torch.equal(a, b), f"K3 {name}: counts differ from the earlier kernel's")
+        t_old, t_new = alternate(lambda: k3_old(x, eps_sq), lambda: eps_count_cuda(x, x, eps_sq),
+                                 3)
+        res[f"eps_count {name}"] = dict(identical=True, earlier_ms=t_old, ms=t_new,
+                                        grid=list(eps_count_cuda.grid))
+        log(f"[previous] K3 {name} {tuple(x.shape)}: counts bit-identical to the earlier "
+            f"kernel's ({int(b.sum())} pairs); earlier {t_old:.2f} ms, now {t_new:.2f} ms "
+            f"({t_old / t_new:.2f}x), grid now {eps_count_cuda.grid}")
+        del x, a, b
+    xhat = xq.float() * scale[:, None]
+    for nq in (8, 1024):
+        q = retrieval_problem(keys, nq, SEED + nq)
+        a, b = k7_old(q), pairwise_sq_l2_int8_cuda(q, xq, scale)
+        torch.cuda.synchronize()
+        qq = (q.double() ** 2).sum(1)[:, None]
+        gap, differ = 0.0, 0
+        for lo in range(0, SERVE_N, 1 << 16):
+            xx = (xhat[lo:lo + (1 << 16)].double() ** 2).sum(1)[None, :]
+            da, db = a[:, lo:lo + (1 << 16)], b[:, lo:lo + (1 << 16)]
+            gap = max(gap, float(((da.double() - db.double()).abs() / (2.0 ** -23 * (qq + xx)))
+                                 .max()))
+            differ += int((da != db).sum())
+        del a, b
+        t_old, t_new = alternate(lambda: k7_old(q), lambda: pairwise_sq_l2_int8_cuda(q, xq, scale),
+                                 21 if nq == 8 else 3)
+        res[f"pairwise_sq_l2_int8 Q={nq}"] = dict(max_ulp=gap, differ=differ, earlier_ms=t_old,
+                                                  ms=t_new)
+        log(f"[previous] K7 Q={nq} x {SERVE_N} x {SERVE_D}: {differ} of {nq * SERVE_N} "
+            f"distances differ from the earlier kernel's, by up to {gap:.2f} ulp of "
+            f"||q||^2 + ||x||^2; earlier {t_old:.3f} ms, now {t_new:.3f} ms "
+            f"({t_old / t_new:.2f}x)")
+        del q
+        torch.cuda.empty_cache()
+    return res
 
 
 class _Recorder:
@@ -1727,12 +1836,16 @@ def profile_serving(model, ds, step_ms: float, *, steps: int = 6) -> dict:
 
 
 def time_retrieval(dev, keys, xq, scale) -> list[dict]:
-    """K6 and K7 at Q = 8 (the engine's decode batch) and Q = 1024, beside the
-    plain versions and, for K6, the library's two-pass plan
-    (torch.cdist(q, x).square_() + torch.topk(largest=False)).  Bounds: K6
-    reads q and x once and writes (Q, k) values and ids; 2QND + 2(Q+N)D f32
-    operations.  K7 reads q, the int8 rows and the scales once and writes
-    (Q, N) f32; the same operations plus N*D dequantizing multiplies."""
+    """K6 and K7 at Q = 8 (the engine's decode batch) and Q = 1024 (a probe
+    shape), beside the plain versions and, for K6, the library's two-pass
+    plan (torch.cdist(q, x).square_() + torch.topk(largest=False)).  Bounds:
+    K6 reads q and x once and writes (Q, k) values and ids; 2QND + 2(Q+N)D
+    f32 operations.  K7 reads q, the int8 rows and the scales once and writes
+    (Q, N) f32; the same operations plus N*D dequantizing multiplies.  At
+    Q = 8 the stable selection that follows K7 on the int8 serving path
+    (``ref.topk_smallest``, a torch sort) is also timed alone on K7's
+    output and after K7, as the decode step runs them (printed, not held to
+    anything).  K6 at Q = 8 is the same-run control of K3's and K7's times."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1741,56 +1854,83 @@ def time_retrieval(dev, keys, xq, scale) -> list[dict]:
 
     n, d, k = SERVE_N, SERVE_D, SERVE_K
     rows = []
+    k6_ms = None
     for nq in (8, 1024):
         q = retrieval_problem(keys, nq, SEED + nq)
-        reps = 7 if nq == 8 else 3
+        reps = 21 if nq == 8 else 3  # Q = 8 times move a few % between reps
         flops = 2.0 * nq * n * d + 2.0 * (nq + n) * d
         ms = device_ms(lambda: knn_topk_cuda(q, keys, k), reps=reps)
+        k6_ms = ms if nq == 8 else k6_ms
         plain = device_ms(lambda: ref.knn_topk_ref(q, keys, k), reps=reps)
         lib = device_ms(lambda: torch.topk(torch.cdist(q, keys).square_(), k, dim=1,
                                            largest=False), reps=reps)
         nbytes = 4 * (nq * d + n * d) + 8 * nq * k
         b_ms, by = bound(nbytes, flops)
+        earlier = EARLIER_SERVE_MS[("knn_topk", nq)]
         rows.append(dict(name="knn_topk", shape=f"Q={nq} N={n} D={d} k={k}", nq=nq, ms=ms,
                          plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by,
-                         bytes=nbytes, flops=flops))
+                         bytes=nbytes, flops=flops, earlier_ms=earlier))
         log(f"[time] K6 knn_topk Q={nq} N={n} D={d} k={k}: kernel {ms:.3f} ms, plain "
             f"{plain:.3f} ms, cdist+topk {lib:.3f} ms, bound {b_ms:.3f} ms by {by} "
-            f"({b_ms / ms:.1%} of it)")
+            f"({b_ms / ms:.1%} of it); earlier run (PERF.md, same code) {earlier:.3f} ms")
         ms = device_ms(lambda: pairwise_sq_l2_int8_cuda(q, xq, scale), reps=reps)
         plain = device_ms(lambda: ref.pairwise_sq_l2_int8_ref(q, xq, scale), reps=reps)
         nbytes = 4 * nq * d + n * d + 4 * n + 4 * nq * n
         b_ms, by = bound(nbytes, flops + float(n) * d)
-        rows.append(dict(name="pairwise_sq_l2_int8", shape=f"Q={nq} N={n} D={d}", nq=nq,
-                         ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=by,
-                         bytes=nbytes, flops=flops + float(n) * d))
+        earlier = EARLIER_SERVE_MS[("pairwise_sq_l2_int8", nq)]
+        row = dict(name="pairwise_sq_l2_int8", shape=f"Q={nq} N={n} D={d}", nq=nq,
+                   ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=by,
+                   bytes=nbytes, flops=flops + float(n) * d, earlier_ms=earlier,
+                   k6_control_ms=k6_ms)
+        sort_text = ""
+        if nq == 8:
+            d2 = pairwise_sq_l2_int8_cuda(q, xq, scale)
+            row["sort_ms"] = device_ms(lambda: ref.topk_smallest(d2, k), reps=reps)
+            row["k7_sort_ms"] = device_ms(
+                lambda: ref.topk_smallest(pairwise_sq_l2_int8_cuda(q, xq, scale), k), reps=reps)
+            del d2
+            sort_text = (f"; the stable selection after it (ref.topk_smallest, k={k}) "
+                         f"{row['sort_ms']:.3f} ms alone, K7 + selection "
+                         f"{row['k7_sort_ms']:.3f} ms")
+        rows.append(row)
         log(f"[time] K7 pairwise_sq_l2_int8 Q={nq} N={n} D={d}: kernel {ms:.3f} ms, plain "
-            f"{plain:.3f} ms, bound {b_ms:.3f} ms by {by} ({b_ms / ms:.1%} of it); no single "
-            "library call dequantizes and computes these distances")
+            f"{plain:.3f} ms, bound {b_ms:.3f} ms by {by} ({b_ms / ms:.1%} of it); earlier "
+            f"run (PERF.md, previous design) {earlier:.3f} ms; {control_text(k6_ms)}"
+            f"{sort_text}; no single library call dequantizes and computes these distances")
         del q
         torch.cuda.empty_cache()
     return rows
 
 
-def serve_phase(dev, gen) -> dict:
-    """Phases 9-11 together: the unit checks, the data-scale checks, serving
-    at full width, the 2-slot oracle (printed), the profile and the times."""
+def serving_datastore(dev):
+    """The 2^20 x 896 kNN-LM datastore drawn on the card from
+    ``embedding_datastore``'s recipe: keys, values and the int8 twin."""
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.configs.base import RetrievalConfig
     from repro_torch.data.synthetic import embedding_datastore_on
     from repro_torch.kernels import ops
-    from repro_torch.models.model import Model, num_params
-    from repro_torch.serve.retrieval import build_flat_datastore
 
-    t0 = time.perf_counter()
-    unit_cases = check_k6_k7_unit(dev, gen)
     keys, values = embedding_datastore_on(dev, SERVE_N, SERVE_D, seed=SEED)
     xq, scale = ops.quantize_datastore(keys)
     torch.cuda.synchronize()
     log(f"[serve] datastore {SERVE_N} x {SERVE_D} drawn on the card: f32 "
         f"{keys.numel() * 4 / 1e9:.2f} GB, int8 {xq.numel() / 1e9:.2f} GB + scales")
+    return keys, values, xq, scale
+
+
+def serve_phase(dev, gen, keys, values, xq, scale) -> dict:
+    """Phases 9-11 together on the datastore ``serving_datastore`` drew: the
+    unit checks, the data-scale checks, serving at full width, the 2-slot
+    oracle (printed), the profile and the times."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RetrievalConfig
+    from repro_torch.models.model import Model, num_params
+    from repro_torch.serve.retrieval import build_flat_datastore
+
+    t0 = time.perf_counter()
+    unit_cases = check_k6_k7_unit(dev, gen)
     scale_chk = check_retrieval_scale(dev, keys, xq, scale)
 
     cfg = get_config(SERVE_ARCH).replace(retrieval=RetrievalConfig(
@@ -1834,6 +1974,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of repro_torch on one NVIDIA GPU")
     ap.add_argument("--json", help="also write the per-kernel detail to this JSON file")
+    ap.add_argument("--previous", help="a directory holding earlier eps_graph.cu, "
+                    "pairwise_int8.cu and row_tile.cuh: build them and hold this checkout's "
+                    "K3 and K7 to them at full size (compare_previous)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1880,9 +2023,12 @@ def main(argv=None) -> int:
     db = check_dbscan(torch.from_numpy(data["Tracking"]).to(dev), cfg["eps"], cfg["min_pts"])
     k2_rows = time_k2(sl["built"])
     k1_rows = time_k1(sl["built"])
-    eps_rows = time_eps(sl["built"], ov, smi)
+    store = serving_datastore(dev)
+    k6_ms = k6_control(store[0])
+    eps_rows = time_eps(sl["built"], ov, smi, k6_ms)
     prof_rows = profile_searches(sl["built"], sl["results"])
-    sv = serve_phase(dev, gen)
+    sv = serve_phase(dev, gen, *store)
+    prev = compare_previous(Path(args.previous), data, *store) if args.previous else None
 
     # how much of each search's wall time the K1 launches account for
     walls = {(n, qz, bm): w for n, qz, bm, _, w in sl["results"]}
@@ -1934,7 +2080,7 @@ def main(argv=None) -> int:
                   for (n, m), b in ov["builds"].items()}
         detail = dict(card=smi, kernels=kernels, k1=k1_rows, k2=k2_rows, eps=eps_rows,
                       eps_data=eps_data, builds=builds, searches=ov["searches"],
-                      dbscan=db, profile=prof_rows, serve=sv, nvcc_s=t_build,
+                      dbscan=db, profile=prof_rows, serve=sv, previous=prev, nvcc_s=t_build,
                       seconds=time.perf_counter() - t_start)
         out = Path(args.json)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -20,29 +20,32 @@
 // 67 TFLOP/s f32 rate is the roofline, far above what the bytes need; at
 // D = 5 what the f32 pipe can issue per pair is what counts.
 //
-// K3: one thread per query, 128 queries per block, one launch over all N
-// queries (the TPU's lax.scan over blocks of 1,024 rows was its memory plan,
-// not the function).  The query row lives in registers; x is streamed through
-// shared memory in tiles of 128 rows, each row read by all 128 threads of the
-// block as a broadcast.
+// K3, K4, K5 share one design.  K3 counts over all N columns; K4 and K5 need
+// only core columns, so their wrapper compacts them first (the core rows of
+// x in ascending index order, and their labels).  eps_core_pack writes each
+// column as one aligned row {x_0 .. x_{DC-1}, ||x||^2, label bits (K3: 0),
+// 0 ...} of a multiple of 4 floats, with ||x||^2 summed once per call, so
+// the main loop has no flag load, no per-column branch, and loads a row with
+// float4 reads (two at D = 5).
 //
-// K4, K5: only core columns matter, so the wrapper compacts them first (the
-// core rows of x in ascending index order, and their labels), and
-// eps_core_pack writes each as one aligned row {x_0 .. x_{DC-1}, ||x||^2,
-// label bits, 0 ...} of a multiple of 4 floats, so the main loop has no flag
-// load, no per-column branch, and loads a row with float4 reads (two at
-// D = 5).  Each thread keeps R queries in registers (at D = 5, 16 for K4
+// Each thread keeps R queries in registers (at D = 5, 16 for K3 and K4
 // and 8 for K5, which keeps a d2 and an index per query; 8 at D = 8, 4 at
 // D <= 20, fewer above) and reads each staged row once for all R, which cuts
 // the shared loads per pair R-fold; the column loop is unrolled 8 deep.  At
 // D = 5 a pair costs 11 issue slots in K4 (5 FFMA, FADD, FMUL, FADD and
 // FMNMX for the distance, then a compare and a predicated min, written in
-// PTX: the compiler's own form adds an integer compare) and 12 in K5 (a
-// compare and two selects), against the 6.5 that the f32 rate's bound
-// counts (2D + 3 = 13 flops, two to an FFMA).  The grid is two-dimensional: query tiles of 128 R on
-// x, chunks of `chunk` compact columns on y, so even a few hundred query
-// tiles fill the card.  Chunks merge exactly and in any order through one
-// atomic per query and chunk:
+// PTX: the compiler's own form adds an integer compare), 12 in K5 (a
+// compare and two selects) and 9 in K3 (5 FFMA, FADD, one FFMA for the
+// expansion, a compare and a predicated add; see ``within``), against the
+// 6.5 that the f32 rate's bound counts (2D + 3 = 13 flops, two to an FFMA).
+// At D = 20 (4 queries per thread) K3 takes ~25.5 slots a pair (24 and
+// six shared float4 loads a column for 4 queries) against the bound's 21.5.
+// The grid is two-dimensional: query tiles of 128 R on x, chunks of `chunk`
+// columns on y, so even a few hundred query tiles fill the card.  Chunks
+// merge exactly and in any order through one atomic per query and chunk:
+//   K3  atomicAdd of the chunk's count on the int32 output, which starts at
+//       0, skipped where the count is 0 (integer sums are exact in any
+//       order);
 //   K4  atomicMin on the int32 output, which starts at the sentinel N;
 //   K5  atomicMin on a 64-bit key (bits of d2) << 32 | compact index, which
 //       starts at INT64_MAX.  d2 = max(., +0) is finite and never -0 here,
@@ -64,99 +67,36 @@
 // ||q||^2, ||x||^2 and q.x are separate fmaf chains in feature order; the
 // epilogue max(||q||^2 + ||x||^2 - 2 q.x, 0) uses round-to-nearest intrinsics
 // so the compiler cannot contract it.  Every pair's d2 is therefore the same
-// bits in every kernel here, whatever the grid.  Indices and counts are int32
-// (N < 2^31); addresses are computed in 64 bits.
+// bits in every kernel here, whatever the grid.  K3 decides with the
+// expansion fused into one FFMA, !(fmaf(-2, q.x, ||q||^2 + ||x||^2) > eps_sq)
+// (``within``): 2 q.x is exact, so the FFMA rounds once to the value the
+// subtraction gives; eps_sq >= 0 makes the clamp at 0 irrelevant to the
+// decision, and a NaN passes both forms (fmaxf maps it to 0).  The build
+// keeps denormals (no -ftz, no --use_fast_math), so both forms see the same
+// values.  Indices and counts are int32 (N < 2^31); addresses are computed
+// in 64 bits.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kQueries = 128;  // K3: queries per block, one per thread
-constexpr int kTile = 128;     // K3: x rows staged in shared memory per pass
-constexpr int kThreads = 128;  // K4/K5: threads per block
+constexpr int kThreads = 128;  // threads per block
 
-enum Mode { kMinLabel = 1, kNearestCore = 2 };
+enum Mode { kMinLabel = 1, kNearestCore = 2, kCount = 3 };
 
 __device__ __forceinline__ float sq_l2(float qn, float xn, float dot) {
   return fmaxf(__fsub_rn(__fadd_rn(qn, xn), __fmul_rn(2.f, dot)), 0.f);
 }
 
-// ---------------------------------------------------------------------------
-// K3: eps_count
-// ---------------------------------------------------------------------------
-
-// DC > 0: rows padded to DC features, query in registers, x tile in shared
-// memory.  DC == 0: any width, both rows read from global memory.
-template <int DC>
-__global__ void __launch_bounds__(kQueries)
-eps_count_kernel(const float* __restrict__ q, const float* __restrict__ x, float eps_sq,
-                 int nq, int nx, int dim, int* __restrict__ out) {
-  constexpr int kStride = DC > 0 ? DC : 1;
-  __shared__ __align__(16) float xs[kTile * kStride];
-  __shared__ float xn[kTile];
-
-  const int tid = threadIdx.x;
-  const int i = blockIdx.x * kQueries + tid;
-  const bool live = i < nq;
-  const float* qrow = q + (int64_t)(live ? i : 0) * dim;
-
-  float qr[kStride];
-  float qn = 0.f;
-  if (DC > 0) {
-#pragma unroll
-    for (int d = 0; d < kStride; ++d) qr[d] = (live && d < dim) ? qrow[d] : 0.f;
-#pragma unroll
-    for (int d = 0; d < kStride; ++d) qn = fmaf(qr[d], qr[d], qn);
-    // the padding columns stay zero: staging below writes only d < dim
-    if (dim < DC)
-      for (int e = tid; e < kTile * DC; e += kQueries) xs[e] = 0.f;
-  } else {
-    for (int d = 0; d < dim; ++d) qn = fmaf(qrow[d], qrow[d], qn);
-  }
-
-  int count = 0;
-  for (int t0 = 0; t0 < nx; t0 += kTile) {
-    const int rows = min(kTile, nx - t0);
-    const float* xt = x + (int64_t)t0 * dim;
-    __syncthreads();  // the previous tile is consumed
-    if (DC > 0) {
-      for (int e = tid; e < rows * dim; e += kQueries) {
-        const int r = e / dim;
-        xs[r * DC + (e - r * dim)] = xt[e];
-      }
-    }
-    __syncthreads();
-    if (tid < rows) {
-      float n = 0.f;
-      if (DC > 0) {
-        for (int d = 0; d < dim; ++d) n = fmaf(xs[tid * DC + d], xs[tid * DC + d], n);
-      } else {
-        const float* xr = xt + (int64_t)tid * dim;
-        for (int d = 0; d < dim; ++d) n = fmaf(xr[d], xr[d], n);
-      }
-      xn[tid] = n;
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < rows; ++j) {
-      float dot = 0.f;
-      if (DC > 0) {
-        const float* xr = xs + j * DC;
-#pragma unroll
-        for (int d = 0; d < kStride; ++d) dot = fmaf(qr[d], xr[d], dot);
-      } else {
-        const float* xr = xt + (int64_t)j * dim;
-        for (int d = 0; d < dim; ++d) dot = fmaf(qrow[d], __ldg(xr + d), dot);
-      }
-      count += sq_l2(qn, xn[j], dot) <= eps_sq;
-    }
-  }
-  if (live) out[i] = count;
+// K3's decision sq_l2(qn, xn, dot) <= eps_sq, with the expansion as one FFMA
+// (the header says why the decisions are the same); 1 or 0.
+__device__ __forceinline__ int within(float qn, float xn, float dot, float eps_sq) {
+  return !(fmaf(-2.f, dot, __fadd_rn(qn, xn)) > eps_sq);
 }
 
 // ---------------------------------------------------------------------------
-// K4, K5: over the packed core columns
+// K3, K4, K5: over the packed columns
 // ---------------------------------------------------------------------------
 
 // Features a packed row holds: the padded width, or the width itself above 64.
@@ -167,14 +107,16 @@ __host__ __device__ constexpr int padded_dim(int dim) {
 // Floats per packed row: the features, ||x||^2 and the label, to a multiple of 4.
 __host__ __device__ constexpr int packed_width(int dc) { return (dc + 2 + 3) / 4 * 4; }
 
-// Queries per thread: as many as the registers allow at each width (K4,
-// which keeps one int per query, takes 16 at D = 5; K5 keeps two values).
+// Queries per thread: as many as the registers allow at each width (K3 and
+// K4, which keep one int per query, take 16 at D = 5; K5 keeps two values).
 __host__ __device__ constexpr int queries_per_thread(int mode, int dc) {
-  return dc == 5 && mode == kMinLabel ? 16 : dc <= 8 ? 8 : dc <= 20 ? 4 : dc <= 32 ? 2 : 1;
+  return dc == 5 && mode != kNearestCore ? 16 : dc <= 8 ? 8 : dc <= 20 ? 4 : dc <= 32 ? 2 : 1;
 }
 
-// One thread per core row: copy its features (zero padded to dc), its
-// ||x||^2 summed by fmaf in feature order, and its label into the packed row.
+// One thread per row: copy its features (zero padded to dc), its ||x||^2
+// summed by fmaf in feature order, and its label (kLabels; else 0) into the
+// packed row.
+template <bool kLabels>
 __global__ void eps_core_pack(const float* __restrict__ x_core, const int* __restrict__ lab_core,
                               int n_core, int dim, int dc, int width,
                               float* __restrict__ packed) {
@@ -190,15 +132,18 @@ __global__ void eps_core_pack(const float* __restrict__ x_core, const int* __res
   }
   for (int d = dim; d < dc; ++d) out[d] = 0.f;
   out[dc] = n;
-  out[dc + 1] = __int_as_float(lab_core[i]);
+  out[dc + 1] = kLabels ? __int_as_float(lab_core[i]) : 0.f;
   for (int d = dc + 2; d < width; ++d) out[d] = 0.f;
 }
 
+// out_label is K3's count or K4's label.
 template <int MODE>
 __device__ __forceinline__ void merge_result(int i, int best_label, float best_d2, int best_j,
                                              int nx, int* out_label,
                                              unsigned long long* out_key) {
-  if (MODE == kMinLabel) {
+  if (MODE == kCount) {
+    if (best_label > 0) atomicAdd(out_label + i, best_label);
+  } else if (MODE == kMinLabel) {
     if (best_label < nx && best_label < __ldcg(out_label + i)) atomicMin(out_label + i, best_label);
   } else if (best_j >= 0) {
     const unsigned long long key =
@@ -207,8 +152,9 @@ __device__ __forceinline__ void merge_result(int i, int best_label, float best_d
   }
 }
 
-// Block (query tile of kThreads * R, chunk of compact columns [c0, c1)).
-// Thread t holds queries q0 + r * kThreads + t, r < R.
+// Block (query tile of kThreads * R, chunk of packed columns [c0, c1)).
+// Thread t holds queries q0 + r * kThreads + t, r < R.  K3 keeps its count
+// in best_label.
 template <int MODE, int DC>
 __global__ void __launch_bounds__(kThreads)
 eps_core_kernel(const float* __restrict__ q, const float4* __restrict__ packed,
@@ -243,7 +189,7 @@ eps_core_kernel(const float* __restrict__ q, const float4* __restrict__ packed,
   int best_j[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    best_label[r] = nx;  // the sentinel
+    best_label[r] = MODE == kCount ? 0 : nx;  // K4: the sentinel
     best_d2[r] = CUDART_INF_F;
     best_j[r] = -1;
   }
@@ -272,6 +218,15 @@ eps_core_kernel(const float* __restrict__ q, const float4* __restrict__ packed,
         float dot = 0.f;
 #pragma unroll
         for (int d = 0; d < DC; ++d) dot = fmaf(qr[r][d], xr[d], dot);
+        if (MODE == kCount) {
+          // if !(fmaf(-2, dot, qn + xn) > eps_sq) ++count, as one compare
+          // (unordered or <=) and one predicated add
+          const float v = fmaf(-2.f, dot, __fadd_rn(qn[r], xn));
+          asm("{\n\t.reg .pred p;\n\tsetp.leu.f32 p, %1, %2;\n\t@p add.s32 %0, %0, 1;\n\t}"
+              : "+r"(best_label[r])
+              : "f"(v), "f"(eps_sq));
+          continue;
+        }
         const float d2 = sq_l2(qn[r], xn, dot);
         if (MODE == kMinLabel) {
           // if (d2 <= eps_sq) best = min(best, lab), as one compare and one
@@ -309,13 +264,17 @@ eps_core_kernel_any(const float* __restrict__ q, const float* __restrict__ packe
   const float* qrow = q + (int64_t)i * dim;
   float qn = 0.f;
   for (int d = 0; d < dim; ++d) qn = fmaf(qrow[d], qrow[d], qn);
-  int best_label = nx;
+  int best_label = MODE == kCount ? 0 : nx;
   float best_d2 = CUDART_INF_F;
   int best_j = -1;
   for (int j = c0; j < c1; ++j) {
     const float* xr = packed + (int64_t)j * width;
     float dot = 0.f;
     for (int d = 0; d < dim; ++d) dot = fmaf(qrow[d], __ldg(xr + d), dot);
+    if (MODE == kCount) {
+      best_label += within(qn, __ldg(xr + dim), dot, eps_sq);
+      continue;
+    }
     const float d2 = sq_l2(qn, __ldg(xr + dim), dot);
     if (MODE == kMinLabel) {
       if (d2 <= eps_sq) best_label = min(best_label, __float_as_int(__ldg(xr + dim + 1)));
@@ -327,21 +286,6 @@ eps_core_kernel_any(const float* __restrict__ q, const float* __restrict__ packe
   merge_result<MODE>(i, best_label, best_d2, best_j, nx, out_label, out_key);
 }
 
-int launch_count(const float* q, const float* x, float eps_sq, int nq, int nx, int dim,
-                 int* out, cudaStream_t s) {
-  const dim3 grid((nq + kQueries - 1) / kQueries);
-#define EPS_LAUNCH(DC) \
-  eps_count_kernel<DC><<<grid, kQueries, 0, s>>>(q, x, eps_sq, nq, nx, dim, out)
-  if (dim <= 5) EPS_LAUNCH(5);
-  else if (dim <= 8) EPS_LAUNCH(8);
-  else if (dim <= 20) EPS_LAUNCH(20);
-  else if (dim <= 32) EPS_LAUNCH(32);
-  else if (dim <= 64) EPS_LAUNCH(64);
-  else EPS_LAUNCH(0);
-#undef EPS_LAUNCH
-  return (int)cudaGetLastError();
-}
-
 // The pack, then the main kernel over grid (query tiles, column chunks), which
 // it writes to grid_used.
 template <int MODE>
@@ -350,8 +294,12 @@ int launch_core(const float* q, const float* x_core, const int* lab_core, float*
                 int* out_label, unsigned long long* out_key, int* grid_used, cudaStream_t s) {
   const int dc = padded_dim(dim);
   if (n_core > 0) {
-    eps_core_pack<<<(n_core + 255) / 256, 256, 0, s>>>(x_core, lab_core, n_core, dim, dc,
-                                                       packed_width(dc), packed);
+    if (MODE == kCount)
+      eps_core_pack<false><<<(n_core + 255) / 256, 256, 0, s>>>(x_core, lab_core, n_core, dim,
+                                                                dc, packed_width(dc), packed);
+    else
+      eps_core_pack<true><<<(n_core + 255) / 256, 256, 0, s>>>(x_core, lab_core, n_core, dim,
+                                                               dc, packed_width(dc), packed);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
@@ -378,12 +326,15 @@ int launch_core(const float* q, const float* x_core, const int* lab_core, float*
 
 }  // namespace
 
-extern "C" int eps_count_f32(const float* q, const float* x, float eps_sq, int* out, int nq,
-                             int nx, int dim, void* stream) {
-  return launch_count(q, x, eps_sq, nq, nx, dim, out, (cudaStream_t)stream);
+// out starts at 0; the wrapper fills it.  All nx rows of x are packed.
+extern "C" int eps_count_f32(const float* q, const float* x, float* packed, float eps_sq,
+                             int* out, int nq, int nx, int dim, int chunk, int* grid_used,
+                             void* stream) {
+  return launch_core<kCount>(q, x, nullptr, packed, eps_sq, nq, nx, nx, dim, chunk, out,
+                             nullptr, grid_used, (cudaStream_t)stream);
 }
 
-// Floats per packed core row at width dim (the wrapper allocates the scratch).
+// Floats per packed row at width dim (the wrapper allocates the scratch).
 extern "C" int eps_packed_width(int dim) { return packed_width(padded_dim(dim)); }
 
 // out starts at nx (the sentinel); the wrapper fills it.

@@ -6,19 +6,19 @@ they are held against are ``ref.eps_count_ref``, ``ref.eps_min_label_ref``
 and ``ref.eps_nearest_core_ref`` (imported below); the source's header says
 what bounds the kernels and what their design does about it.
 
-K4 and K5 compute only the core columns: the wrapper compacts them
-(``compact_core``), the kernel splits them into chunks of ``CHUNK`` over the
-grid, and the chunks merge by an atomic min; K5's merge key is
-``pack_nearest``'s and the wrapper maps it back with ``unpack_nearest``.
-These helpers are plain torch, so the CPU tests emulate the chunked merge
-with them.
+All three run one design: the columns (all N rows for K3; for K4 and K5
+only the core rows, which the wrapper compacts with ``compact_core``) are
+packed once per call, split into chunks of ``CHUNK`` over the grid, and the
+chunks merge by an atomic: K3 adds its counts, K4 takes the min label, K5 the
+min of ``pack_nearest``'s key, which the wrapper maps back with
+``unpack_nearest``.  These helpers are plain torch, so the CPU tests emulate
+the chunked merge with them.
 
-Each wrapper launches its kernel once over all queries (K4/K5: a pack of the
-core rows, then the main kernel), on the current stream, and counts the
-launch on itself (``.launches``); K4's and K5's also keep the launch grid the
-kernel chose, (query tiles, column chunks), on themselves (``.grid``).  K3
-does not synchronise; K4/K5's compaction reads the number of core rows back
-to the host.
+Each wrapper launches its kernel once over all queries (a pack of the
+columns, then the main kernel), on the current stream, counts the launch on
+itself (``.launches``) and keeps the launch grid the kernel chose, (query
+tiles, column chunks), on itself (``.grid``).  K3 does not synchronise;
+K4/K5's compaction reads the number of core rows back to the host.
 """
 from __future__ import annotations
 
@@ -39,16 +39,16 @@ Tensor = torch.Tensor
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_GRID = ctypes.c_int * 2  # the (x, y) launch grid a K4/K5 launch reports
+_GRID = ctypes.c_int * 2  # the (x, y) launch grid a K3-K5 launch reports
 
-CHUNK = 4096  # compact core columns per block of K4/K5 (the grid's y axis)
+CHUNK = 4096  # packed columns per block of K3-K5 (the grid's y axis)
 NO_KEY = 2**63 - 1  # K5's merge key before any core column is seen
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.library("eps_graph")
     if lib.eps_count_f32.argtypes is None:
-        lib.eps_count_f32.argtypes = [_P, _P, _F, _P, _I, _I, _I, _P]
+        lib.eps_count_f32.argtypes = [_P, _P, _P, _F, _P, _I, _I, _I, _I, _GRID, _P]
         core_args = [_P, _P, _P, _P, _F, _P, _I, _I, _I, _I, _I, _GRID, _P]
         lib.eps_min_label_f32.argtypes = core_args
         lib.eps_nearest_core_f32.argtypes = core_args[:4] + core_args[5:]
@@ -126,20 +126,31 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _packed(name: str, q: Tensor, n_cols: int) -> Tensor:
+    """Scratch for ``n_cols`` packed rows at q's width."""
+    if -(-n_cols // CHUNK) > 65535:
+        raise ValueError(f"{name}: {n_cols} columns exceed the grid's column chunks")
+    width = _lib().eps_packed_width(q.shape[1])
+    return torch.empty((n_cols, width), dtype=torch.float32, device=q.device)
+
+
 def eps_count_cuda(q: Tensor, x: Tensor, eps_sq) -> Tensor:
     """(Q,) i32: per query, the number of rows of x with d2 <= eps_sq (K3)."""
     q, x = _rows("eps_count_cuda", q, x)
-    out = torch.empty((q.shape[0],), dtype=torch.int32, device=q.device)
+    packed = _packed("eps_count_cuda", q, x.shape[0])
+    out = torch.zeros((q.shape[0],), dtype=torch.int32, device=q.device)
     if q.shape[0] == 0:
         return out
     lib = _lib()
+    grid = _GRID()
     with torch.cuda.device(q.device):
         err = lib.eps_count_f32(
-            q.data_ptr(), x.data_ptr(), _eps_f32(eps_sq), out.data_ptr(),
-            q.shape[0], x.shape[0], q.shape[1], _stream(q.device),
+            q.data_ptr(), x.data_ptr(), packed.data_ptr(), _eps_f32(eps_sq), out.data_ptr(),
+            q.shape[0], x.shape[0], q.shape[1], CHUNK, grid, _stream(q.device),
         )
     _build.check(lib, err, "eps_count")
     eps_count_cuda.launches += 1
+    eps_count_cuda.grid = tuple(grid)
     return out
 
 
@@ -149,10 +160,7 @@ def _core_operands(name: str, q: Tensor, x: Tensor, labels: Tensor, core: Tensor
     q, x = _rows(name, q, x)
     labels, core = _graph(name, x, labels, core)
     x_core, lab_core = compact_core(x, labels, core)
-    if -(-x_core.shape[0] // CHUNK) > 65535:
-        raise ValueError(f"{name}: {x_core.shape[0]} core rows exceed the grid's column chunks")
-    width = _lib().eps_packed_width(q.shape[1])
-    packed = torch.empty((x_core.shape[0], width), dtype=torch.float32, device=q.device)
+    packed = _packed(name, q, x_core.shape[0])
     return q, x, x_core, lab_core, packed
 
 
@@ -203,5 +211,6 @@ def eps_nearest_core_cuda(
 eps_count_cuda.launches = 0  # kernel launches since the last reset
 eps_min_label_cuda.launches = 0
 eps_nearest_core_cuda.launches = 0
-eps_min_label_cuda.grid = None  # (query tiles, column chunks) of the last launch
+eps_count_cuda.grid = None  # (query tiles, column chunks) of the last launch
+eps_min_label_cuda.grid = None
 eps_nearest_core_cuda.grid = None

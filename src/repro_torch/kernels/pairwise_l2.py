@@ -118,7 +118,7 @@ def pairwise_sq_l2_int8_cuda(q: Tensor, x_q: Tensor, scale: Tensor) -> Tensor:
     out = torch.empty((nq, nx), dtype=torch.float32, device=q.device)
     if nq == 0 or nx == 0:
         return out
-    vec = int(dim % 4 == 0 and x_q.data_ptr() % 4 == 0)
+    vec = int(dim % 16 == 0 and x_q.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
     qnorm = torch.empty((nq,), dtype=torch.float32, device=q.device)
     lib = _lib_int8()
     with torch.cuda.device(q.device):

@@ -228,6 +228,34 @@ def test_eps_core_few_queries(dev, d):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("d", [5, 20, 70])
+def test_eps_count_chunks_few_queries(dev, d):
+    """K3 over N = 2 CHUNK + 5 columns with a Q far below one wave: rows on
+    the threshold sit on both sides of each column-chunk edge, the counts
+    equal the plain version's bit for bit, and the launch reports its grid
+    (one query tile, three column chunks) and counts once."""
+    from repro_torch.kernels.eps_graph import CHUNK, eps_count_cuda
+
+    g = np.random.default_rng(d + 11)
+    n = 2 * CHUNK + 5
+    x = _grid(g, n, d)
+    q = _grid(g, 37, d)
+    unit = np.eye(d, dtype=np.float32)
+    edges = [CHUNK - 1, CHUNK, 2 * CHUNK - 1, 2 * CHUNK, 2 * CHUNK + 4]
+    for k, row in enumerate(edges):
+        x[row] = q[0] + unit[k % d]  # d2 = 1 from query 0, exactly
+    q, x = torch.from_numpy(q).to(dev), torch.from_numpy(x).to(dev)
+    n0 = eps_count_cuda.launches
+    got = ops.eps_count(q, x, 1.0)
+    torch.cuda.synchronize()
+    assert eps_count_cuda.launches == n0 + 1
+    assert eps_count_cuda.grid == (1, 3)
+    want = ref.eps_count_ref(q, x, 1.0)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    d2 = ref.pairwise_sq_l2_ref(q[:1], x)[0]
+    assert bool((d2[edges] == 1.0).all()) and int(got[0]) >= len(edges)
+
+
 def test_eps_count_in_band_at_data_scale(dev):
     """Tracking-like rows (||x||^2 ~ 10^4): a count may differ from the plain
     one only by pairs whose d2 lies within 8 ulp of ||q||^2 + ||x||^2 of
@@ -376,3 +404,27 @@ def test_serving_on_the_card(dev):
         done = eng.run()
         assert len(done) == 5 and all(r.done and len(r.out_tokens) == 5 for r in done)
         assert ops.launch_counts()[kname] - n0 == eng.steps
+
+
+@pytest.mark.parametrize("qn", [1, 8, 9, 17])
+@pytest.mark.parametrize("d", [5, 64, 896, 900])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_pairwise_int8_ragged_shapes(dev, qn, d, offset):
+    """K7 on grid queries, int8 rows and power-of-two scales, bit-equal to the
+    plain version: Q below and across the 8-query tile, N not a multiple of
+    the 512-row tile, D not a multiple of the 32-feature stage (5, 900) or of
+    the 16-byte copy (5, 900), and rows that start one byte off alignment
+    (offset 1: the plain-load path)."""
+    g = np.random.default_rng(qn * 1000 + d + offset)
+    n = 1537 + 3 * qn
+    q = torch.from_numpy(_grid(g, qn, d)).to(dev)
+    rows = torch.from_numpy(g.integers(-127, 128, size=n * d + offset).astype(np.int8)).to(dev)
+    xq = rows[offset:].view(n, d)
+    assert xq.is_contiguous() and xq.data_ptr() % 16 == offset
+    s = torch.from_numpy((2.0 ** -g.integers(4, 8, size=n)).astype(np.float32)).to(dev)
+    n0 = ops.launch_counts()["pairwise_sq_l2_int8"]
+    got = ops.pairwise_sq_l2_int8(q, xq, s)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["pairwise_sq_l2_int8"] == n0 + 1
+    assert got.shape == (qn, n)
+    assert torch.equal(got, ref.pairwise_sq_l2_int8_ref(q, xq, s))

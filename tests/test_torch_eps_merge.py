@@ -1,6 +1,7 @@
-"""K4/K5's chunked merge, emulated on the CPU with the plain versions.
+"""K3-K5's chunked merge, emulated on the CPU with the plain versions.
 
-On the card K4 (``eps_min_label``) and K5 (``eps_nearest_core``) compute only
+On the card K3 (``eps_count``) splits all N columns into chunks of
+``eps_graph.CHUNK`` over the grid and adds the chunks' counts; K4 (``eps_min_label``) and K5 (``eps_nearest_core``) compute only
 the core columns, compacted in ascending index order
 (``eps_graph.compact_core``), split them into chunks of ``eps_graph.CHUNK``
 columns over the grid, and merge the chunks by an atomic min: K4 on the
@@ -20,7 +21,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro.kernels.pairwise_l2 import eps_min_label_pallas, eps_nearest_core_pallas
+from repro.kernels.pairwise_l2 import (
+    eps_count_pallas,
+    eps_min_label_pallas,
+    eps_nearest_core_pallas,
+)
 from repro_torch.kernels import ref
 from repro_torch.kernels.eps_graph import (
     CHUNK,
@@ -33,6 +38,14 @@ from repro_torch.kernels.eps_graph import (
 
 def _grid(g, n, d):
     return torch.from_numpy((g.integers(-16, 17, size=(n, d)) / 8).astype(np.float32))
+
+
+def chunked_count(q, x, eps_sq, chunk):
+    """K3's merge: per chunk of columns the plain count, summed from 0."""
+    out = torch.zeros((q.shape[0],), dtype=torch.int32)
+    for lo in range(0, x.shape[0], chunk):
+        out += ref.eps_count_ref(q, x[lo:lo + chunk], eps_sq)
+    return out
 
 
 def chunked_min_label(q, x, labels, core, eps_sq, chunk):
@@ -172,3 +185,30 @@ def test_compact_core_keeps_row_order():
     assert torch.equal(xc, x[[1, 2, 5, 7]]) and lc.tolist() == [81, 82, 85, 87]
     xc, lc = compact_core(x, labels, torch.zeros(8, dtype=torch.bool))
     assert xc.shape == (0, 3) and lc.shape == (0,)
+
+
+@pytest.mark.parametrize("d", [5, 20])
+def test_chunked_count_matches_plain_and_jax(d):
+    """K3's merge over chunks of ``CHUNK`` columns, N = 2 CHUNK + 5: rows
+    exactly on the threshold on both sides of each chunk edge, and exact d2
+    ties (a query's duplicate rows in different chunks); the summed counts
+    equal the plain version on the full operands and the JAX package's
+    Pallas kernel in interpret mode exactly."""
+    g = np.random.default_rng(d + 40)
+    n = 2 * CHUNK + 5
+    q, x = _grid(g, 12, d), _grid(g, n, d)
+    unit = torch.eye(d)
+    edges = [CHUNK - 1, CHUNK, 2 * CHUNK - 1, 2 * CHUNK, n - 1]
+    for k, row in enumerate(edges):
+        x[row] = q[0] + unit[k % d]  # d2 = 1 from query 0, exactly
+    x[CHUNK + 7] = x[CHUNK - 1]  # a tie on the threshold across the first edge
+    eps_sq = 1.0
+    d2 = ref.pairwise_sq_l2_ref(q, x)
+    assert bool((d2[0, edges + [CHUNK + 7]] == eps_sq).all())
+    got = chunked_count(q, x, eps_sq, CHUNK)
+    want = ref.eps_count_ref(q, x, eps_sq)
+    assert got.dtype == want.dtype == torch.int32 and torch.equal(got, want)
+    assert int(got[0]) >= len(edges) + 1
+    jax_counts = eps_count_pallas(jnp.asarray(q.numpy()), jnp.asarray(x.numpy()),
+                                  jnp.float32(eps_sq), bq=16, bn=1024, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_counts))

@@ -1,4 +1,5 @@
-"""The port's plain K1/K2 (``repro_torch.kernels``) against the JAX package.
+"""The port's plain K1/K2, and K7 at D = 900 (``repro_torch.kernels``), against
+the JAX package.
 
 Each case feeds the same numpy-seeded inputs to the port's plain version, to
 ``repro.kernels.ref`` and to the Pallas kernel in interpret mode.  On a CPU
@@ -22,7 +23,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.bucket_scan import bucket_scan_topk_pallas
 from repro.kernels.ops import quantize_datastore as j_quantize
-from repro.kernels.pairwise_l2 import pairwise_sq_l2_pallas
+from repro.kernels.pairwise_l2 import pairwise_sq_l2_int8_pallas, pairwise_sq_l2_pallas
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bucket_scan import bucket_scan_topk_cuda
 from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_cuda
@@ -214,6 +215,39 @@ def test_bucket_scan_int8_matches_jax():
     np.testing.assert_allclose(pd, rd, rtol=TOL_INT8, atol=TOL_INT8)
     np.testing.assert_allclose(pd, kd, rtol=TOL_INT8, atol=TOL_INT8)
     _ids_achieve_values(q, bxq, ids, pd, pi, bscale)
+
+
+@pytest.mark.parametrize("rows", ["normal", "grid"])
+def test_pairwise_int8_width_900_matches_jax(rows):
+    """K7's plain version at D = 900, not a multiple of the kernel's 16-byte
+    copy or 32-feature stage, on rows that start one byte off alignment:
+    quantized normal rows agree with the JAX reference and the interpret-mode
+    Pallas kernel to ``TOL_INT8``; grid queries with power-of-two scales
+    (an exact expansion) equal the JAX reference bit for bit."""
+    g = np.random.default_rng(900 + len(rows))
+    qn, n, d = 9, 37, 900
+    if rows == "normal":
+        q = g.normal(size=(qn, d)).astype(np.float32)
+        jq, js = j_quantize(jnp.asarray(g.normal(size=(n, d)).astype(np.float32)))
+        xq, s = np.array(jq), np.array(js)
+    else:
+        q = (g.integers(-16, 17, size=(qn, d)) / 8).astype(np.float32)
+        xq = g.integers(-127, 128, size=(n, d)).astype(np.int8)
+        s = (2.0 ** -g.integers(4, 8, size=n)).astype(np.float32)
+    buf = torch.empty(n * d + 1, dtype=torch.int8)
+    buf[1:] = _t(xq.reshape(-1))
+    txq = buf[1:].view(n, d)  # a contiguous view one byte into its storage
+    got = ops.pairwise_sq_l2_int8(_t(q), txq, _t(s)).numpy()
+    want = np.asarray(jref.pairwise_sq_l2_int8_ref(jnp.asarray(q), jnp.asarray(xq),
+                                                   jnp.asarray(s)))
+    assert got.shape == (qn, n) and got.dtype == np.float32
+    if rows == "grid":
+        np.testing.assert_array_equal(got, want)
+        return
+    pallas = np.asarray(pairwise_sq_l2_int8_pallas(
+        jnp.asarray(q), jnp.asarray(xq), jnp.asarray(s), bq=16, bn=32, bd=64, interpret=True))
+    np.testing.assert_allclose(got, want, rtol=TOL_INT8, atol=TOL_INT8)
+    np.testing.assert_allclose(got, pallas, rtol=TOL_INT8, atol=TOL_INT8)
 
 
 @pytest.mark.parametrize("shape", [(40, 7), (130, 20), (9, 5)])
