@@ -1261,108 +1261,6 @@ def time_eps(built, overlap, smi: str, k6_ms: float) -> list[dict]:
     return rows
 
 
-def compare_previous(prev: Path, data, keys, values, xq, scale) -> dict:
-    """With ``--previous DIR``: the earlier K3 and K7 (``DIR/eps_graph.cu``,
-    ``DIR/pairwise_int8.cu`` and the ``row_tile.cuh`` beside them, e.g. from
-    ``git show <commit>:src/repro_torch/csrc/...``) built with the same nvcc
-    flags into ``DIR/_build`` and loaded in this process beside this
-    checkout's kernels.  K3 at full WARD and Tracking size must give the same
-    counts bit for bit; K7's gap to the earlier kernel at 2^20 x 896 is
-    printed in ulp of ||q||^2 + ||x||^2.  Times alternate earlier, now, now,
-    earlier; each is the median of its two runs."""
-    import ctypes
-
-    import numpy as np
-    import torch
-
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.eps_graph import eps_count_cuda
-    from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_int8_cuda
-
-    out_dir = prev / "_build"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = [(name, subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(prev), "-o",
-         str(out_dir / f"lib{name}.so"), str(prev / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name in ("eps_graph", "pairwise_int8")]
-    libs = {}
-    for name, proc in procs:
-        text, _ = proc.communicate()
-        require(proc.returncode == 0, f"the earlier {name}.cu does not build:\n{text}")
-        libs[name] = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    old_count = libs["eps_graph"].eps_count_f32
-    old_count.argtypes, old_count.restype = [P, P, F, P, I, I, I, P], I
-    old_int8 = libs["pairwise_int8"].pairwise_sq_l2_int8
-    old_int8.argtypes, old_int8.restype = [P, P, P, P, P, I, I, I, I, P], I
-
-    def stream():
-        return torch.cuda.current_stream().cuda_stream
-
-    def k3_old(x, eps_sq):
-        o = torch.empty((x.shape[0],), dtype=torch.int32, device=x.device)
-        err = old_count(x.data_ptr(), x.data_ptr(), eps_sq, o.data_ptr(), x.shape[0],
-                        x.shape[0], x.shape[1], stream())
-        require(err == 0, f"the earlier K3 did not launch ({err})")
-        return o
-
-    def k7_old(q):
-        nq, d = q.shape
-        o = torch.empty((nq, xq.shape[0]), dtype=torch.float32, device=q.device)
-        qn = torch.empty((nq,), dtype=torch.float32, device=q.device)
-        vec = int(d % 4 == 0 and xq.data_ptr() % 4 == 0)
-        err = old_int8(q.data_ptr(), xq.data_ptr(), scale.data_ptr(), qn.data_ptr(),
-                       o.data_ptr(), nq, xq.shape[0], d, vec, stream())
-        require(err == 0, f"the earlier K7 did not launch ({err})")
-        return o
-
-    def alternate(before, now, reps):
-        t = [device_ms(f, reps=reps) for f in (before, now, now, before)]
-        return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
-
-    res = {}
-    for name in ("WARD", "Tracking"):
-        x = torch.from_numpy(data[name]).to("cuda")
-        eps_sq = float(np.float32(BUILD_CFG[name]["eps"]) ** 2)
-        a, b = k3_old(x, eps_sq), eps_count_cuda(x, x, eps_sq)
-        torch.cuda.synchronize()
-        require(torch.equal(a, b), f"K3 {name}: counts differ from the earlier kernel's")
-        t_old, t_new = alternate(lambda: k3_old(x, eps_sq), lambda: eps_count_cuda(x, x, eps_sq),
-                                 3)
-        res[f"eps_count {name}"] = dict(identical=True, earlier_ms=t_old, ms=t_new,
-                                        grid=list(eps_count_cuda.grid))
-        log(f"[previous] K3 {name} {tuple(x.shape)}: counts bit-identical to the earlier "
-            f"kernel's ({int(b.sum())} pairs); earlier {t_old:.2f} ms, now {t_new:.2f} ms "
-            f"({t_old / t_new:.2f}x), grid now {eps_count_cuda.grid}")
-        del x, a, b
-    xhat = xq.float() * scale[:, None]
-    for nq in (8, 1024):
-        q = retrieval_problem(keys, nq, SEED + nq)
-        a, b = k7_old(q), pairwise_sq_l2_int8_cuda(q, xq, scale)
-        torch.cuda.synchronize()
-        qq = (q.double() ** 2).sum(1)[:, None]
-        gap, differ = 0.0, 0
-        for lo in range(0, SERVE_N, 1 << 16):
-            xx = (xhat[lo:lo + (1 << 16)].double() ** 2).sum(1)[None, :]
-            da, db = a[:, lo:lo + (1 << 16)], b[:, lo:lo + (1 << 16)]
-            gap = max(gap, float(((da.double() - db.double()).abs() / (2.0 ** -23 * (qq + xx)))
-                                 .max()))
-            differ += int((da != db).sum())
-        del a, b
-        t_old, t_new = alternate(lambda: k7_old(q), lambda: pairwise_sq_l2_int8_cuda(q, xq, scale),
-                                 21 if nq == 8 else 3)
-        res[f"pairwise_sq_l2_int8 Q={nq}"] = dict(max_ulp=gap, differ=differ, earlier_ms=t_old,
-                                                  ms=t_new)
-        log(f"[previous] K7 Q={nq} x {SERVE_N} x {SERVE_D}: {differ} of {nq * SERVE_N} "
-            f"distances differ from the earlier kernel's, by up to {gap:.2f} ulp of "
-            f"||q||^2 + ||x||^2; earlier {t_old:.3f} ms, now {t_new:.3f} ms "
-            f"({t_old / t_new:.2f}x)")
-        del q
-        torch.cuda.empty_cache()
-    return res
-
-
 class _Recorder:
     """Wraps the dispatch layer's scan step to keep each step's operands."""
 
@@ -1974,9 +1872,6 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of repro_torch on one NVIDIA GPU")
     ap.add_argument("--json", help="also write the per-kernel detail to this JSON file")
-    ap.add_argument("--previous", help="a directory holding earlier eps_graph.cu, "
-                    "pairwise_int8.cu and row_tile.cuh: build them and hold this checkout's "
-                    "K3 and K7 to them at full size (compare_previous)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2028,7 +1923,6 @@ def main(argv=None) -> int:
     eps_rows = time_eps(sl["built"], ov, smi, k6_ms)
     prof_rows = profile_searches(sl["built"], sl["results"])
     sv = serve_phase(dev, gen, *store)
-    prev = compare_previous(Path(args.previous), data, *store) if args.previous else None
 
     # how much of each search's wall time the K1 launches account for
     walls = {(n, qz, bm): w for n, qz, bm, _, w in sl["results"]}
@@ -2080,7 +1974,7 @@ def main(argv=None) -> int:
                   for (n, m), b in ov["builds"].items()}
         detail = dict(card=smi, kernels=kernels, k1=k1_rows, k2=k2_rows, eps=eps_rows,
                       eps_data=eps_data, builds=builds, searches=ov["searches"],
-                      dbscan=db, profile=prof_rows, serve=sv, previous=prev, nvcc_s=t_build,
+                      dbscan=db, profile=prof_rows, serve=sv, nvcc_s=t_build,
                       seconds=time.perf_counter() - t_start)
         out = Path(args.json)
         out.parent.mkdir(parents=True, exist_ok=True)

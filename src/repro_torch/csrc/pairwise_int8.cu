@@ -81,7 +81,7 @@ __device__ __forceinline__ void wait_pending() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Features [d0, d0 + 32) of the warp's rows [r0, r0 + 64) and of queries
+// Features [d0, d0 + 32) of the warp's rows [r0, r0 + 128) and of queries
 // [q0, q0 + 8) into one stage buffer, zeros past nx, nq and dim.  With kVec,
 // lane copies the 16-byte unit lane & 1 of rows lane / 2 + 16 j, from
 // ``src`` (that unit of its first row, feature 0) on; ``left`` is the number

@@ -412,7 +412,7 @@ def test_serving_on_the_card(dev):
 def test_pairwise_int8_ragged_shapes(dev, qn, d, offset):
     """K7 on grid queries, int8 rows and power-of-two scales, bit-equal to the
     plain version: Q below and across the 8-query tile, N not a multiple of
-    the 512-row tile, D not a multiple of the 32-feature stage (5, 900) or of
+    the 256-row block, D not a multiple of the 32-feature stage (5, 900) or of
     the 16-byte copy (5, 900), and rows that start one byte off alignment
     (offset 1: the plain-load path)."""
     g = np.random.default_rng(qn * 1000 + d + offset)
