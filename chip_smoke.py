@@ -8,8 +8,10 @@ Phases, in order; any failure raises and the run exits non-zero:
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
    (``nvcc`` on ``src/repro_torch/csrc``, one process per source);
 2. K2 (``pairwise_sq_l2``) against its plain version on the card;
-3. K1 (``bucket_scan_topk``) against its plain version on the card, f32 and
-   int8, including exact ties, fewer than k reachable and a dry pool;
+3. K1 (``bucket_scan_topk``, one launch per scan phase) against the plain
+   lockstep phase on the card, bit for bit on grid rows: f32 and int8, beam
+   1/3/4, main-path widths, several tiles a bucket, kk = 300, exact ties,
+   fewer than k reachable and a delta phase seeded with the main carry;
 4. K3, K4, K5 (the DBSCAN ``eps_*`` passes) against their plain versions:
    exact on unit-scale rows and on hand-made cases (ties, no core point, all
    core, ragged tiles, K3-K5 ties across column chunks), and on 2,048 rows
@@ -20,7 +22,9 @@ Phases, in order; any failure raises and the run exits non-zero:
    of 1,024 queries at k=10, beam 1 and 4, f32 and int8 buckets, held
    against a brute force on the card (f32: exact up to ties; int8: against
    the dequantized rows the index stores, at least 0.99, with the recall
-   against the f32 rows printed); K1 and K2 must launch in this phase;
+   against the f32 rows printed); K1 must launch exactly once per search
+   and K2 must launch; each search's host-device synchronisations are
+   counted (torch's sync debug mode) and may be at most 2;
 6. the overlap build: ``OverlapIndex.build`` at the repo's full-size
    configurations (Tracking with VBM, DBM and OBM, WARD with VBM, and the
    tests' blob set with VBM, whose forest has overlap-neighbour links), each
@@ -34,9 +38,11 @@ Phases, in order; any failure raises and the run exits non-zero:
    cost counters; K1-K5 must all launch across phases 6-7;
 8. kernel times (CUDA events) beside the plain versions', the library
    yardstick and the bound (bytes over 3.35 TB/s, f32 flops over
-   67 TFLOP/s, whichever is larger); K3-K5 also with their launch grid,
-   the earlier run's time and K6 at Q = 8 as this run's control; then one
-   ``torch.profiler`` pass per baseline search for the device's busy share;
+   67 TFLOP/s, whichever is larger): K2 at the bounds and routing shapes
+   and its launch floor, K1 one phase a search with its steps; K3-K5 also
+   with their launch grid, the earlier run's time and K6 at Q = 8 as this
+   run's control; then one ``torch.profiler`` pass per baseline search for
+   the device's busy share and launches;
 9. K6 (``knn_topk``) and K7 (``pairwise_sq_l2_int8``) against their plain
    versions, bit-equal on grid rows (N < k, ragged N, D 5/64/896, k 1/8/16,
    exact ties across pass-1 chunks);
@@ -160,103 +166,91 @@ def check_k2(dev, gen) -> float:
 # phase 3: K1 against its plain version
 # --------------------------------------------------------------------------
 
-def scan_problem(gen, dev, qn, nb, cap, dim, beam, kk, *, pad=0.3, seeded=True, int8=False):
+def phase_problem(gen, dev, qn, nb, cap, dim, beam, kk, *, pad=0.3, inf_frac=0.2,
+                  int8=False):
+    """A K1 scan phase on 1/8-grid rows (int8: integers with scale 1/8), so
+    the expansion is exact and the kernel must equal the plain phase bit for
+    bit; bounds per bucket with a share of +inf rows, sorted and padded to a
+    beam multiple by the search's own ``_sorted_bounds``."""
     import torch
 
-    from repro_torch.kernels import ops
+    from repro_torch.core.knn import _sorted_bounds
 
-    q = torch.randn((qn, dim), generator=gen, device=dev)
-    bx = torch.randn((nb, cap, dim), generator=gen, device=dev)
-    ids = torch.arange(nb * cap, device=dev, dtype=torch.int32).reshape(nb, cap)
-    ids = torch.where(torch.rand((nb, cap), generator=gen, device=dev) < pad, -1, ids)
-    bsel = torch.randint(0, nb, (qn, beam), generator=gen, device=dev, dtype=torch.int32)
-    act = torch.rand((qn, beam), generator=gen, device=dev) < 0.75
-    if seeded:
-        top_d = torch.sort(torch.rand((qn, kk), generator=gen, device=dev) * 40, dim=1).values
-        top_d[:, kk // 2:] = float("inf")
-        top_i = torch.randint(10_000_000, 20_000_000, (qn, kk), generator=gen,
-                              device=dev, dtype=torch.int32)
-        top_i = torch.where(torch.isinf(top_d), -1, top_i)
-    else:
-        top_d = torch.full((qn, kk), float("inf"), device=dev)
-        top_i = torch.full((qn, kk), -1, device=dev, dtype=torch.int32)
+    def grid(*shape):
+        return torch.randint(-16, 17, shape, generator=gen, device=dev).float() / 8
+
+    q = grid(qn, dim)
     scale = None
     if int8:
-        xq, s = ops.quantize_datastore(bx.reshape(nb * cap, dim))
-        bx, scale = xq.reshape(nb, cap, dim).contiguous(), s.reshape(nb, cap).contiguous()
-    return [q, bx, ids, bsel, act, top_d, top_i, scale]
+        bx = torch.randint(-127, 128, (nb, cap, dim), generator=gen, device=dev).to(torch.int8)
+        scale = torch.full((nb, cap), 0.125, device=dev)
+    else:
+        bx = grid(nb, cap, dim)
+    ids = torch.arange(nb * cap, device=dev, dtype=torch.int32).reshape(nb, cap)
+    ids = torch.where(torch.rand((nb, cap), generator=gen, device=dev) < pad, -1, ids)
+    count = (ids >= 0).sum(1, dtype=torch.int32)
+    lb = torch.rand((qn, nb), generator=gen, device=dev) * 1.5 * dim ** 0.5 * (8 if int8 else 1)
+    lb = torch.where(torch.rand((qn, nb), generator=gen, device=dev) < inf_frac, float("inf"), lb)
+    order, lb_sorted, _ = _sorted_bounds(lb, beam)
+    top_d = torch.full((qn, kk), float("inf"), device=dev)
+    top_i = torch.full((qn, kk), -1, device=dev, dtype=torch.int32)
+    return [q, bx, ids, count, order, lb_sorted, beam, top_d, top_i, scale]
 
 
-def compare_k1(args, *, tol: float, exact_ids: bool, what: str) -> float:
+def compare_phase(args, what: str):
+    """The K1 phase kernel against the plain phase on the same operands:
+    bit for bit in top_d, top_i, visits, ndist, npad and qsteps."""
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bucket_scan import bucket_scan_topk_cuda
+    from repro_torch.kernels.bucket_scan import bucket_scan_phase_cuda
 
-    kd, ki = bucket_scan_topk_cuda(*args)
-    rd, ri = ref.bucket_scan_topk_ref(*args)
+    got = bucket_scan_phase_cuda(*args)
+    want = ref.bucket_scan_phase_ref(*args)
     torch.cuda.synchronize()
-    fin = torch.isfinite(rd)
-    require(torch.equal(fin, torch.isfinite(kd)), f"K1 {what}: different fill")
-    err = (kd[fin] - rd[fin]).abs()
-    require(bool((err <= tol * (1 + rd[fin].abs())).all()), f"K1 {what}: values disagree")
-    require(torch.equal(~fin, ki == -1), f"K1 {what}: inf without id -1")
-    if exact_ids:
-        require(torch.equal(ki, ri), f"K1 {what}: ids differ")
-    else:
-        # ids agree wherever the plain top-k has no near tie around the rank
-        close = (torch.diff(rd, dim=1).abs() <= tol * (1 + rd[:, 1:].abs())) & fin[:, 1:]
-        tied = torch.zeros_like(fin)
-        tied[:, 1:] |= close
-        tied[:, :-1] |= close
-        require(torch.equal(ki[~tied], ri[~tied]), f"K1 {what}: ids differ off ties")
-    return float(err.max()) if err.numel() else 0.0
+    for name, a, b in zip(("top_d", "top_i", "visits", "ndist", "npad", "qsteps"), got, want):
+        require(a.dtype == b.dtype and torch.equal(a, b), f"K1 {what}: {name} differs")
+    return got
 
 
 def check_k1(dev, gen) -> float:
     import torch
 
-    worst = 0.0
     n = 0
-    sweep = [(4, 7, 5, 6, 3, 4), (2, 9, 8, 16, 4, 7), (1, 3, 2, 33, 2, 5),
-             (5, 6, 4, 8, 6, 11), (4, 6, 5, 12, 3, 6),
-             # main-path shapes: WARD (C=1000, D=5) and Tracking (C=250, D=20)
+    sweep = [(4, 7, 5, 6, 3, 4), (2, 9, 8, 16, 4, 7), (1, 3, 2, 33, 1, 5),
+             (5, 13, 4, 8, 4, 11),
+             # main-path widths: WARD (C=1000, D=5) and Tracking (C=250, D=20)
              (NQ, 1498, 1000, 5, 1, K), (NQ, 1498, 1000, 5, 4, K),
              (NQ, 841, 250, 20, 1, K), (NQ, 841, 250, 20, 4, K),
-             # a bucket wider than one shared-memory chunk, and a large k
-             (64, 12, 2500, 20, 2, K), (32, 20, 300, 8, 3, 300)]
+             # a bucket of several shared-memory tiles, and a large k
+             (64, 12, 2500, 20, 3, K), (32, 20, 300, 8, 3, 300)]
+    steps = []
     for shape in sweep:
         for int8 in (False, True):
-            args = scan_problem(gen, dev, *shape, int8=int8)
-            tol = 1e-4 if int8 else 1e-5
-            worst = max(worst, compare_k1(args, tol=tol, exact_ids=False,
-                                          what=f"{shape} int8={int8}"))
+            got = compare_phase(phase_problem(gen, dev, *shape, int8=int8),
+                                f"{shape} int8={int8}")
+            steps.append(int(got[5].max()))
             n += 1
-    # fewer than k reachable: heavy padding, empty running top-k
+    # exact ties across the slots of a step: one row in every bucket
+    args = phase_problem(gen, dev, 5, 6, 4, 5, 3, 7, pad=0.0, inf_frac=0.0)
+    args[1][:] = args[1][0, 0]
+    compare_phase(args, "exact ties")
+    # fewer than k reachable: kth stays +inf, pad slots re-scan bucket 0
     for int8 in (False, True):
-        args = scan_problem(gen, dev, 3, 4, 3, 5, 2, 9, pad=0.8, seeded=False, int8=int8)
-        worst = max(worst, compare_k1(args, tol=1e-4, exact_ids=True, what="fewer-than-k"))
-        n += 1
-    # exact ties: one member row copied into every slot of two buckets
-    q, bx, ids, bsel, act, top_d, top_i, _ = scan_problem(
-        gen, dev, 3, 5, 4, 6, 3, 6, pad=0.0, seeded=False)
-    bx[:2] = bx[0, 0]
-    bsel = torch.tensor([[0, 1, 2], [1, 0, 3], [0, 0, 4]], device=dev, dtype=torch.int32)
-    act = torch.ones_like(act)
-    worst = max(worst, compare_k1([q, bx, ids, bsel, act, top_d, top_i, None],
-                                  tol=1e-5, exact_ids=True, what="exact ties"))
-    # dry pool: a partly filled top-k, nothing live in the step
-    q, bx, ids, bsel, act, _, _, _ = scan_problem(gen, dev, 2, 3, 4, 5, 2, 5)
-    ids = torch.full_like(ids, -1)
-    top_d = torch.tensor([[1.0, 2.5] + [float("inf")] * 3] * 2, device=dev)
-    top_i = torch.tensor([[42, 7, -1, -1, -1]] * 2, device=dev, dtype=torch.int32)
-    worst = max(worst, compare_k1([q, bx, ids, bsel, act, top_d, top_i, None],
-                                  tol=1e-5, exact_ids=True, what="dry pool"))
-    log(f"[K1] {n + 2} cases match the plain version on the card (f32 and int8; "
-        f"main-path shapes; exact ties, fewer than k, dry pool); max |kernel - "
-        f"plain| = {worst:.3e} (tolerance 1e-5 relative f32, 1e-4 int8: FMA "
-        "contraction against the plain order)")
-    return worst
+        args = phase_problem(gen, dev, 4, 5, 3, 3, 4, 40, pad=0.5, int8=int8)
+        got = compare_phase(args, "fewer-than-k")
+        require(bool(torch.isinf(got[0]).any()), "K1 fewer-than-k: the top-k filled")
+    # a delta phase seeded with the main phase's carry
+    main = phase_problem(gen, dev, 256, 40, 64, 5, 2, K)
+    carry = compare_phase(main, "main phase")
+    delta = phase_problem(gen, dev, 256, 8, 50, 5, 2, K, pad=0.5)
+    delta[0], delta[7], delta[8] = main[0], carry[0], carry[1]
+    compare_phase(delta, "delta phase seeded with the main carry")
+    n += 5
+    log(f"[K1] {n} phases equal the plain phase bit for bit on the card (grid rows; "
+        f"f32 and int8, beam 1/3/4, main-path widths, C = 2500, kk = 300, exact ties, "
+        f"fewer than k, a delta-seeded carry); steps per phase {min(steps)}-{max(steps)}")
+    return 0.0
 
 
 # --------------------------------------------------------------------------
@@ -652,8 +646,12 @@ def run_slice(dev, data) -> dict:
                 results.append((name, quantize, beam, res, wall))
     launches = ops.launch_counts()
     log(f"[slice] launch counts over the {len(results)} searches: {launches}")
-    require(launches["bucket_scan_topk"] > 0 and launches["pairwise_sq_l2"] > 0,
-            "a kernel of the search path never launched")
+    require(launches["bucket_scan_topk"] == len(results),
+            "K1 must launch once per scan phase: once per search without a delta")
+    require(launches["pairwise_sq_l2"] > 0, "K2 never launched in the searches")
+    syncs = {(name, quantize, beam): count_syncs(
+        lambda: built[name]["idx"][quantize].search(built[name]["q"], k=K, beam=beam))
+        for name, quantize, beam, _, _ in results}
 
     for name, quantize, beam, res, wall in results:
         b = built[name]
@@ -670,8 +668,30 @@ def run_slice(dev, data) -> dict:
             f"{wall / NQ * 1e6:.1f} us/query ({wall * 1e3:.1f} ms for {NQ}), "
             f"steps={st['steps']}, mean buckets_visited="
             f"{st['buckets_visited'].mean():.2f}, mean distances="
-            f"{st['distances'].mean():.1f}, host syncs={st['steps'] + 1}, {what}")
-    return dict(built=built, launches=launches, results=results)
+            f"{st['distances'].mean():.1f}, host syncs per search="
+            f"{syncs[(name, quantize, beam)]}, {what}")
+        require(syncs[(name, quantize, beam)] <= 2,
+                "a search synchronises more than to copy its queries in and results out")
+    return dict(built=built, launches=launches, results=results, syncs=syncs)
+
+
+def count_syncs(fn) -> int:
+    """Host-device synchronisations of one call of ``fn``: the operations
+    that torch's sync debug mode reports (copies to and from pageable host
+    memory, ``.item()``, ``nonzero``, ...)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught)
 
 
 def check_kernel_vs_plain_search(built) -> None:
@@ -1135,35 +1155,44 @@ def check_dbscan(x, eps: float, min_pts: int) -> dict:
 
 def time_k2(built) -> list[dict]:
     """K2 at the shapes the main path gives it: queries against the bucket
-    pivots (bucket_bounds) of each dataset."""
+    pivots (bucket_bounds) and against the index centers (routing) of each
+    dataset, and at Q = N = 1, whose time is the event-timed floor of a
+    launch: the share of each time that the floor accounts for is printed."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_cuda
 
-    rows = []
+    cases = []
     for name, b in built.items():
-        dev_forest = b["idx"][False].device
-        q = torch.from_numpy(b["q"]).to(dev_forest.bucket_pivot.device)
-        x = dev_forest.bucket_pivot
+        df = b["idx"][False].device
+        q = torch.from_numpy(b["q"]).to(df.bucket_pivot.device)
+        cases += [(f"{name} bounds", q, df.bucket_pivot), (f"{name} routing", q, df.index_centers)]
+    one = cases[0][1][:1]
+    cases.append(("floor", one, one))
+    rows = []
+    floor = None
+    for what, q, x in reversed(cases):  # the floor first
         got, want = pairwise_sq_l2_cuda(q, x), ref.pairwise_sq_l2_ref(q, x)
         err = (got.double() - want.double()).abs()
-        require(bool((err <= k2_tol(q, x)).all()), f"K2 disagrees on {name} pivots")
+        require(bool((err <= k2_tol(q, x)).all()), f"K2 disagrees at {what}")
         qn, d = q.shape
         n = x.shape[0]
-        ms = device_ms(lambda: pairwise_sq_l2_cuda(q, x))
-        plain = device_ms(lambda: ref.pairwise_sq_l2_ref(q, x))
-        lib = device_ms(lambda: torch.cdist(q, x).square_())
+        ms = device_ms(lambda: pairwise_sq_l2_cuda(q, x), reps=21)
+        floor = ms if floor is None else floor
+        plain = device_ms(lambda: ref.pairwise_sq_l2_ref(q, x), reps=21)
+        lib = device_ms(lambda: torch.cdist(q, x).square_(), reps=21)
         nbytes = 4 * (qn * d + n * d + qn * n)
         b_ms, by = bound(nbytes, 2.0 * qn * n * d)
-        rows.append(dict(shape=f"{name} Q={qn} N={n} D={d}", ms=ms, plain_ms=plain,
+        rows.append(dict(shape=f"{what} Q={qn} N={n} D={d}", ms=ms, plain_ms=plain,
                          library_ms=lib, bound_ms=b_ms, bound_by=by, bytes=nbytes,
-                         max_abs_err=float(err.max())))
-        log(f"[time] K2 {name} ({qn} x {n} x {d}): kernel {ms * 1e3:.1f} us, plain "
-            f"{plain * 1e3:.1f} us, torch.cdist {lib * 1e3:.1f} us, bound "
-            f"{b_ms * 1e3:.2f} us by {by} ({nbytes} B: q, pivots read once, "
-            f"(Q, N) f32 written once)")
-    return rows
+                         share=b_ms / ms, floor_ms=floor, max_abs_err=float(err.max())))
+        log(f"[time] K2 {what} ({qn} x {n} x {d}): kernel {ms * 1e3:.2f} us ({b_ms / ms:.1%} "
+            f"of the bound; the {floor * 1e3:.2f} us launch floor is {floor / ms:.0%} of it), "
+            f"plain {plain * 1e3:.1f} us, torch.cdist {lib * 1e3:.1f} us, bound "
+            f"{b_ms * 1e3:.2f} us by {by} ({nbytes} B: q, x read once, (Q, N) f32 "
+            f"written once)")
+    return rows[::-1]
 
 
 # Per-launch times of K3-K5 at the shapes time_eps uses, and of K6/K7 at
@@ -1261,92 +1290,115 @@ def time_eps(built, overlap, smi: str, k6_ms: float) -> list[dict]:
     return rows
 
 
-class _Recorder:
-    """Wraps the dispatch layer's scan step to keep each step's operands."""
+def phase_operands(ix, q, beam: int):
+    """The operands the search gives K1's main phase: its route, bounds
+    and sorted visit order, computed by the search's own stages."""
+    import torch
 
-    def __init__(self, fn):
-        self.fn = fn
-        self.steps = []
+    from repro_torch.core.knn import bucket_bounds, route_select
 
-    def __call__(self, q, bx, ids, bsel, act, top_d, top_i, scale=None):
-        self.steps.append((bsel.clone(), act.clone(), top_d.clone(), top_i.clone()))
-        return self.fn(q, bx, ids, bsel, act, top_d, top_i, scale)
+    df = ix.device
+    qt = torch.from_numpy(q).to(df.bucket_x.device)
+    sel, _, _ = route_select(df, qt)
+    bounds = bucket_bounds(df, qt, sel, beam=beam)
+    count = torch.sum(df.bucket_mask, dim=1, dtype=torch.int32)
+    kk = min(K, df.bucket_ids.numel())
+    top_d = torch.full((qt.shape[0], kk), float("inf"), device=qt.device)
+    top_i = torch.full((qt.shape[0], kk), -1, dtype=torch.int32, device=qt.device)
+    return [qt, df.bucket_x, df.bucket_ids, count, bounds.order, bounds.lb_sorted, beam,
+            top_d, top_i, df.bucket_scale]
+
+
+def touched_buckets(args):
+    """Buckets the lockstep plain phase makes active (each once), and the
+    slots it reads: replays ``ref.bucket_scan_phase_ref`` step by step."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    q, bx, ids, count, order, lb, beam, top_d, top_i, scale = args
+    touched = torch.zeros(bx.shape[0], dtype=torch.bool, device=q.device)
+    for t in range(order.shape[1] // beam):
+        lo = t * beam
+        act = lb[:, lo:lo + beam] <= torch.sqrt(top_d[:, -1])[:, None]
+        if not bool(act.any()):
+            break
+        bsel = order[:, lo:lo + beam]
+        touched[bsel[act].long()] = True
+        top_d, top_i = ref.bucket_scan_topk_ref(q, bx, ids, bsel, act, top_d, top_i, scale)
+    return touched
 
 
 def time_k1(built) -> list[dict]:
-    """K1 replayed over the exact steps of one real search (recorded
-    operands), per launch.  The bound counts what each launch must move: the
-    queries, selections (4-byte bucket, 1-byte flag) and top-k in and out
-    once per query, and the ids and live members' rows (and scales) of each
-    distinct active bucket once, since the queries of a launch share
-    buckets.  ``gathered`` counts member bytes once per (query, bucket) pair
-    instead: what the kernel loads, most of it from L2."""
+    """K1, one launch per search's main phase, on the operands the search
+    gives it (WARD and Tracking; f32 beam 1 and 4, int8 beam 1), against the
+    plain lockstep phase on the same operands.  The bound counts what the
+    phase must move: each distinct bucket it makes active read once (C ids,
+    the live members' rows and int8 scales), each query's row, the order
+    and bound slots it reads (its steps and the one that stops it), the
+    carry in and the outputs; 4 D flops per scored (query, member) pair.
+    ``touched_buckets`` replays the plain phase for that set, so the bytes
+    are those of the plain phase's data, which the kernel's equals up to
+    rounding at the k-th distance."""
+    import numpy as np
     import torch
 
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.bucket_scan import bucket_scan_topk_cuda
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bucket_scan import bucket_scan_phase_cuda
 
     rows = []
     for name, b in built.items():
+        tol = 1e-5 * (1 + float((b["x"].astype(np.float64) ** 2).sum(1).max()))
         for quantize, beam in ((False, 1), (False, 4), (True, 1)):
-            ix = b["idx"][quantize]
-            rec = _Recorder(ops.bucket_scan_topk)
-            ops.bucket_scan_topk = rec
-            try:
-                ix.search(b["q"], k=K, beam=beam)
-            finally:
-                ops.bucket_scan_topk = rec.fn
-            steps = rec.steps
-            require(len(steps) > 0, f"K1 replay {name}: no scan step was recorded")
-            df = ix.device
-            q = torch.from_numpy(b["q"]).to(df.bucket_x.device)
-            nb, cap, d = df.bucket_x.shape
-            count = df.bucket_mask.sum(1)
+            args = phase_operands(b["idx"][quantize], b["q"], beam)
+            q, bx, ids, count, order, lb = args[:6]
+            qn, kk = args[7].shape
+            nb, cap, d = bx.shape
+            got = bucket_scan_phase_cuda(*args)
+            want = ref.bucket_scan_phase_ref(*args)
+            fin = torch.isfinite(want[0])
+            require(torch.equal(fin, torch.isfinite(got[0])), f"K1 {name}: different fill")
+            err = float(torch.where(fin, (got[0] - want[0]).abs(), 0.0).max())
+            qq = (q.double() ** 2).sum(1)
+            require(bool(((got[0] - want[0]).abs().double()[fin]
+                          <= (tol + 1e-5 * qq[:, None].expand_as(fin)[fin])).all()),
+                    f"K1 {name}: distances disagree beyond the expansion's rounding")
+            differ = torch.zeros(qn, dtype=torch.bool, device=q.device)
+            for j in (2, 3, 4):
+                differ |= got[j] != want[j]
+            require(float(differ.float().mean()) <= 0.01,
+                    f"K1 {name}: counters differ on {int(differ.sum())} queries")
+            qsteps = got[5]
+            touched = touched_buckets(args)
             row_bytes = d * (1 if quantize else 4) + (4 if quantize else 0)
-            nbytes = 0
-            gathered = 0
-            flops = 0
-            for bsel, act, _, _ in steps:
-                picked = bsel[act].long()
-                picked = picked[(picked >= 0) & (picked < nb)]
-                uniq = torch.unique(picked)
-                live = int(count[picked].sum())
-                nbytes += uniq.numel() * cap * 4 + int(count[uniq].sum()) * row_bytes
-                nbytes += q.shape[0] * (d * 4 + beam * 5 + 4 * K * 4)
-                gathered += picked.numel() * cap * 4 + live * row_bytes
-                flops += live * 4 * d
-            args = lambda s: (q, df.bucket_x, df.bucket_ids, s[0], s[1], s[2], s[3],  # noqa: E731
-                              df.bucket_scale)
-            # the replayed steps are held to the plain version too, at the
-            # data's own scale: 1e-5 * (1 + ||q||^2 + max ||x||^2)
-            tol = 1e-5 * (1 + (q.double() ** 2).sum(1) + float((b["x"].astype("float64") ** 2).sum(1).max()))
-            worst = 0.0
-            for s in steps:
-                kd, ki = bucket_scan_topk_cuda(*args(s))
-                rd, ri = ref.bucket_scan_topk_ref(*args(s))
-                fin = torch.isfinite(rd)
-                require(torch.equal(fin, torch.isfinite(kd)), f"K1 replay {name}: fill")
-                err = torch.where(fin, (kd - rd).abs(), 0.0).double()
-                require(bool((err <= tol[:, None]).all()), f"K1 replay {name}: values disagree")
-                worst = max(worst, float(err.max()))
-            n = len(steps)
-            ms = device_ms(lambda: [bucket_scan_topk_cuda(*args(s)) for s in steps],
-                           launches_hint=n) / n
-            plain = device_ms(lambda: [ref.bucket_scan_topk_ref(*args(s)) for s in steps],
-                              launches_hint=4 * n) / n
-            b_ms, by = bound(nbytes / n, flops / n)
+            slots = torch.clamp((qsteps + 1) * beam, max=order.shape[1])
+            nbytes = (int(touched.sum()) * cap * 4 + int(count[touched].sum()) * row_bytes
+                      + qn * d * 4 + int(slots.sum()) * 8 + qn * kk * 16 + qn * 16)
+            flops = 4.0 * d * float(got[3].sum())
+            # what the kernel copies through L2: the whole bucket (ids, rows,
+            # scales) for every (query, active in-range slot) visit
+            gathered = float(got[2].sum()) * cap * (4 + row_bytes)
+            ms = device_ms(lambda: bucket_scan_phase_cuda(*args), reps=21)
+            plain = device_ms(lambda: ref.bucket_scan_phase_ref(*args), reps=3,
+                              launches_hint=int(qsteps.max()) * 12)
+            b_ms, by = bound(nbytes, flops)
             kind = "int8" if quantize else "f32"
+            st = qsteps.float()
             rows.append(dict(shape=f"{name} {kind} beam={beam} C={cap} D={d}",
                              dataset=name, quantize=quantize, beam=beam, ms=ms,
                              plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=by,
-                             steps=n, bytes_per_launch=nbytes / n,
-                             gathered_per_launch=gathered / n, max_abs_err=worst))
-            log(f"[time] K1 {name} {kind} beam={beam} (Q={q.shape[0]}, C={cap}, D={d}), "
-                f"{n} recorded steps: kernel {ms * 1e3:.1f} us/launch, plain "
-                f"{plain * 1e3:.1f} us/launch, bound {b_ms * 1e3:.2f} us by {by} "
-                f"({nbytes / n:.0f} B/launch with each distinct bucket once; "
-                f"{gathered / n:.0f} B/launch gathered per (query, bucket) pair), "
-                f"max |kernel - plain| {worst:.2e}")
+                             share=b_ms / ms, bytes=nbytes, touched=int(touched.sum()),
+                             gathered=gathered,
+                             qsteps_max=int(qsteps.max()), qsteps_mean=float(st.mean()),
+                             max_abs_err=err, counters_differ=int(differ.sum())))
+            log(f"[time] K1 {name} {kind} beam={beam} (Q={qn}, C={cap}, D={d}), one phase: "
+                f"kernel {ms * 1e3:.1f} us/launch, plain {plain:.2f} ms, bound "
+                f"{b_ms * 1e3:.2f} us by {by} ({b_ms / ms:.1%} of it; {nbytes} B: "
+                f"{int(touched.sum())} distinct buckets once, queries, visited slots, "
+                f"carry and outputs); {gathered / 1e9:.3f} GB copied through L2, "
+                f"{gathered / ms / 1e9:.2f} TB/s; "
+                f"qsteps max {int(qsteps.max())} mean {float(st.mean()):.2f}; "
+                f"max |kernel - plain| {err:.2e}, counters differ on {int(differ.sum())} queries")
     return rows
 
 
@@ -1368,8 +1420,9 @@ def profile_searches(built, results) -> list[dict]:
             kernels = [e for e in prof.key_averages()
                        if e.device_type == torch.autograd.DeviceType.CUDA]
             dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-            k1 = sum(e.self_device_time_total for e in kernels if "bucket_scan" in e.key) / 1e3
-            k2 = sum(e.self_device_time_total for e in kernels if "pairwise_sq_l2" in e.key) / 1e3
+            k1 = sum(e.self_device_time_total for e in kernels if "scan_phase_kernel" in e.key) / 1e3
+            k2 = sum(e.self_device_time_total for e in kernels
+                     if "pairwise_small" in e.key or "pairwise_tiled" in e.key) / 1e3
             wall_ms = walls[(name, False, beam)] * 1e3
             rows.append(dict(dataset=name, beam=beam, device_ms=dev_ms, k1_ms=k1, k2_ms=k2,
                              wall_ms=wall_ms, kernel_launches=sum(e.count for e in kernels)))
@@ -1924,12 +1977,12 @@ def main(argv=None) -> int:
     prof_rows = profile_searches(sl["built"], sl["results"])
     sv = serve_phase(dev, gen, *store)
 
-    # how much of each search's wall time the K1 launches account for
+    # how much of each search's wall time its one K1 launch accounts for
     walls = {(n, qz, bm): w for n, qz, bm, _, w in sl["results"]}
     for r in k1_rows:
         wall_ms = walls[(r["dataset"], r["quantize"], r["beam"])] * 1e3
-        log(f"[time] {r['shape']}: K1 device time {r['ms'] * r['steps']:.2f} ms of "
-            f"the search's {wall_ms:.2f} ms wall ({r['ms'] * r['steps'] / wall_ms:.1%})")
+        log(f"[time] {r['shape']}: K1 device time {r['ms']:.3f} ms of "
+            f"the search's {wall_ms:.2f} ms wall ({r['ms'] / wall_ms:.1%})")
 
     def entry(kname, src_file, replaces, row, err, launches):
         return dict(

@@ -27,7 +27,7 @@ from repro_torch.api.config import (
     as_index_config,
 )
 from repro_torch.api.executor import SingleDeviceBackend
-from repro_torch.api.plan import PlanCache, PlanKey, SearchResult, stats_to_host
+from repro_torch.api.plan import PlanCache, PlanKey, SearchResult, results_to_host
 from repro_torch.core.forest import ForestArrays
 from repro_torch.core.knn import DeviceForest
 from repro_torch.core.pipeline import (
@@ -173,8 +173,7 @@ class OverlapIndex:
         plan.calls += 1
         qt = torch.as_tensor(np.asarray(q, np.float32), device=self.backend.device)
         d, i, s = plan.executor(self.backend.search_operands(self.device), qt, None)
-        d, i = d.cpu().numpy(), i.cpu().numpy()
-        stats = stats_to_host(s)
+        d, i, stats = results_to_host(d, i, s)
         kk = min(key.k, self.n_total)  # Def. 4: |X| <= k -> whole set
         if d.shape[1] > kk:
             d, i = d[:, :kk], i[:, :kk]

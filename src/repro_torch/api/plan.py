@@ -18,6 +18,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.knn import SearchStats
 
@@ -104,14 +105,23 @@ class SearchResult:
         return int(self.dists.shape[1])
 
 
-def stats_to_host(s: SearchStats) -> dict[str, Any]:
-    """SearchStats tensors -> the host dict the JAX package reports
-    (numpy int32 per-query arrays and an int ``steps``)."""
-    return {
-        "buckets_visited": s.buckets_visited.cpu().numpy(),
-        "distances": s.distances.cpu().numpy(),
-        "bound_distances": s.bound_distances.cpu().numpy(),
-        "padded_distances": s.padded_distances.cpu().numpy(),
-        "comparisons": s.comparisons.cpu().numpy(),
-        "steps": int(s.steps),
-    }
+_STAT_FIELDS = ("buckets_visited", "distances", "bound_distances",
+                "padded_distances", "comparisons")
+
+
+def results_to_host(
+    d: torch.Tensor, i: torch.Tensor, s: SearchStats
+) -> tuple[np.ndarray, np.ndarray, dict[str, Any]]:
+    """A search's (dists, ids, SearchStats) -> host arrays and the stats dict
+    the JAX package reports (numpy int32 per-query arrays and an int
+    ``steps``), in one device-to-host copy: the search's only sync."""
+    qn, kk = d.shape
+    packed = torch.cat([
+        d.to(torch.float32).view(torch.int32).reshape(-1), i.to(torch.int32).reshape(-1),
+        *(getattr(s, f).to(torch.int32).reshape(-1) for f in _STAT_FIELDS),
+        s.steps.to(torch.int32).reshape(1),
+    ]).cpu().numpy()
+    n = qn * kk
+    stats = {f: packed[2 * n + j * qn: 2 * n + (j + 1) * qn] for j, f in enumerate(_STAT_FIELDS)}
+    stats["steps"] = int(packed[-1])
+    return packed[:n].view(np.float32).reshape(qn, kk), packed[n:2 * n].reshape(qn, kk), stats

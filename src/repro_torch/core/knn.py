@@ -14,13 +14,15 @@ flattened buckets:
               eligible buckets (one K2 distance matrix), +inf elsewhere,
               then a stable sort.
   3. scan:    visit buckets in ascending-lb order; each step evaluates the
-              next ``beam`` buckets per query (one K1 launch: gather, distance,
-              top-k merge) and the scan stops once lb > kth-best for every
-              query (exact: lb is sorted and kth-best is non-increasing).
+              next ``beam`` buckets per query (gather, distance, top-k merge)
+              and the scan stops once lb > kth-best for every query (exact:
+              lb is sorted and kth-best is non-increasing).
 
-The JAX package runs step 3 as a ``lax.while_loop``; here it is a Python loop
-that reads one flag from the device per step (``any`` query still active),
-so a phase of ``s`` steps costs ``s + 1`` host synchronisations.
+The JAX package runs step 3 as a ``lax.while_loop`` of kernel steps.  Here a
+whole phase is one K1 launch: each query walks its own steps until its first
+inactive one, and the phase's trip count (``steps``) is the most steps any
+query took, which is the while_loop's.  Nothing is read back to the host
+until the search returns.
 
 ``delta`` (a DeltaView) adds the streaming delta buckets as a second scan
 phase over the per-index append buffers, seeded with the main phase's top-k
@@ -30,7 +32,7 @@ from __future__ import annotations
 
 import math
 from collections.abc import Mapping
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -161,15 +163,6 @@ def route_eligibility(closest: Tensor, neighbors: Tensor) -> Tensor:
     return sel.reshape(qn, n_idx) > 0
 
 
-class _Carry(NamedTuple):
-    top_d: Tensor  # (Q, kk) ascending squared dists
-    top_i: Tensor  # (Q, kk) ids
-    t: int  # steps taken in this phase
-    visits: Tensor
-    ndist: Tensor
-    npad: Tensor
-
-
 class ScanOut(NamedTuple):
     """One executor's bounded-scan result before the stats rollup."""
 
@@ -178,7 +171,7 @@ class ScanOut(NamedTuple):
     visits: Tensor  # (Q,) i32
     ndist: Tensor  # (Q,) i32
     npad: Tensor  # (Q,) i32
-    steps: int
+    steps: Tensor  # () i32 scan-loop trip count over both phases
     n_elig: Tensor  # (Q,) i32 eligible main buckets
     n_elig_d: Tensor  # (Q,) i32 eligible delta buckets
 
@@ -208,52 +201,31 @@ def _sorted_bounds(lb: Tensor, beam: int) -> tuple[Tensor, Tensor, int]:
     return order, lb_sorted, n_steps
 
 
-ScanStep = Callable[..., tuple[Tensor, Tensor]]
-
-
 def _scan_phase(
-    carry: _Carry,
+    phase,
     q: Tensor,
-    order: Tensor,
-    lb_sorted: Tensor,
-    n_steps: int,
+    bounds: PhaseBounds,
     beam: int,
-    scan_step: ScanStep,
+    top_d: Tensor,
+    top_i: Tensor,
     scan_x: Tensor,
     scan_ids: Tensor,
     scan_scale: Tensor | None,
     bucket_count: Tensor,
-    cap: int,
-) -> _Carry:
-    """One bounded best-first scan phase (main buckets or delta buckets).
+) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """One bounded best-first scan phase (main buckets or delta buckets) by
+    ``phase``: a K1 dispatcher of ``kernels.ops`` or its plain version.
 
-    Visits buckets in ascending-lb order until lb > kth-best for every query.
     The carry's top-k streams through phases: the delta phase starts from
-    the main phase's result.  Each step reads one flag from the device (is
-    any query still active?) to decide whether to continue.
+    the main phase's result.  Returns (top_d, top_i, visits, ndist, npad,
+    steps), the counters of this phase only and ``steps`` a () tensor.
     """
-    c = carry
-    while c.t < n_steps:
-        lo = c.t * beam
-        kth = torch.sqrt(c.top_d[:, -1])  # inf until kk found
-        act = lb_sorted[:, lo : lo + beam] <= kth[:, None]  # (Q, beam)
-        if not bool(act.any()):
-            break
-        bsel = order[:, lo : lo + beam]
-        new_d, new_i = scan_step(
-            q, scan_x, scan_ids, bsel, act, c.top_d, c.top_i, scan_scale
-        )
-        n_act = torch.sum(act, dim=1, dtype=torch.int32)
-        n_members = torch.where(act, bucket_count[bsel], 0)  # (Q, beam)
-        c = _Carry(
-            top_d=new_d,
-            top_i=new_i,
-            t=c.t + 1,
-            visits=c.visits + n_act,
-            ndist=c.ndist + torch.sum(n_members, dim=1, dtype=torch.int32),
-            npad=c.npad + n_act * cap,
-        )
-    return c
+    top_d, top_i, visits, ndist, npad, qsteps = phase(
+        q, scan_x, scan_ids, bucket_count, bounds.order, bounds.lb_sorted, beam,
+        top_d, top_i, scan_scale,
+    )
+    steps = qsteps.max() if qsteps.numel() else qsteps.new_zeros(())
+    return top_d, top_i, visits, ndist, npad, steps
 
 
 def route_select(
@@ -336,47 +308,34 @@ def scan_sorted(
     order."""
     qn = q.shape[0]
     dev = q.device
-    _, cap, _ = forest.bucket_x.shape
-    zeros = torch.zeros((qn,), dtype=torch.int32, device=dev)
-    init = _Carry(
-        top_d=torch.full((qn, kk), float("inf"), device=dev),
-        top_i=torch.full((qn, kk), -1, dtype=torch.int32, device=dev),
-        t=0,
-        visits=zeros,
-        ndist=zeros,
-        npad=zeros,
-    )
+    top_d = torch.full((qn, kk), float("inf"), device=dev)
+    top_i = torch.full((qn, kk), -1, dtype=torch.int32, device=dev)
     # real (unpadded) member count per bucket, for the cost instrumentation
     bucket_count = torch.sum(forest.bucket_mask, dim=1, dtype=torch.int32)  # (NB,)
-    scan_step = kops.bucket_scan_topk if kernel else kref.bucket_scan_topk_ref
-    n_steps = bounds.order.shape[1] // beam
-    out = _scan_phase(
-        init, q, bounds.order, bounds.lb_sorted, n_steps, beam,
-        scan_step, forest.bucket_x, forest.bucket_ids, forest.bucket_scale,
-        bucket_count, cap,
+    top_d, top_i, visits, ndist, npad, steps = _scan_phase(
+        kops.bucket_scan_phase if kernel else kref.bucket_scan_phase_ref,
+        q, bounds, beam, top_d, top_i, forest.bucket_x, forest.bucket_ids,
+        forest.bucket_scale, bucket_count,
     )
-    total_steps = out.t
 
-    n_elig_d = zeros
+    n_elig_d = torch.zeros((qn,), dtype=torch.int32, device=dev)
     if delta is not None:
-        dcap = delta.x.shape[1]
         dcount = torch.sum(delta.mask, dim=1, dtype=torch.int32)  # (I_d,)
-        dstep = kops.delta_scan_topk if kernel else kref.bucket_scan_topk_ref
-        n_steps_d = dbounds.order.shape[1] // beam
-        out = _scan_phase(
-            out._replace(t=0), q, dbounds.order, dbounds.lb_sorted, n_steps_d,
-            beam, dstep, delta.x, delta.ids, None, dcount, dcap,
+        top_d, top_i, dv, dd, dp, dsteps = _scan_phase(
+            kops.delta_scan_topk if kernel else kref.bucket_scan_phase_ref,
+            q, dbounds, beam, top_d, top_i, delta.x, delta.ids, None, dcount,
         )
-        total_steps += out.t
+        visits, ndist, npad = visits + dv, ndist + dd, npad + dp
+        steps = steps + dsteps
         n_elig_d = dbounds.n_elig
 
     return ScanOut(
-        top_d=out.top_d,
-        top_i=out.top_i,
-        visits=out.visits,
-        ndist=out.ndist,
-        npad=out.npad,
-        steps=total_steps,
+        top_d=top_d,
+        top_i=top_i,
+        visits=visits,
+        ndist=ndist,
+        npad=npad,
+        steps=steps,
         n_elig=bounds.n_elig,
         n_elig_d=n_elig_d,
     )
@@ -422,7 +381,7 @@ def scan_stats(
         + out.n_elig + out.n_elig_d  # bound comparisons (eligible buckets)
         # top-k merge comparisons over every padded lane actually scanned
         + out.npad * int(math.ceil(math.log2(max(kk, 2)))),
-        steps=torch.tensor(out.steps, dtype=torch.int32),
+        steps=out.steps.to(torch.int32),
     )
 
 

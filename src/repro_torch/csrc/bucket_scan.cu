@@ -1,50 +1,142 @@
-// K1: one fused forest-scan step.  For each query, gather its `beam` selected
-// buckets, take the squared L2 distance to every live member, and merge the
-// candidates into the query's running top-kk (ascending squared distances and
-// object ids).
+// K1: one whole forest-scan phase in one launch.  For each query, walk its
+// buckets in ascending lower-bound order, `beam` slots a step; at each step
+// gather the active buckets, take the squared L2 distance to every live
+// member, and merge the candidates into the query's running top-kk
+// (ascending squared distances and object ids); stop at the query's first
+// step with no active slot.
 //
 // Replaces the TPU kernel repro/kernels/bucket_scan.py::bucket_scan_topk_pallas
-// (body _scan_kernel).  The contract is the plain version's
-// (repro_torch/kernels/ref.py::bucket_scan_topk_ref): members with id < 0 and
-// buckets with act == 0 contribute nothing; the merge is a top-kk of
-// [running top-kk | candidates in (bucket, member) order] in which the lower
-// position wins a tie; an extraction that finds only +inf emits id -1.
+// (body _scan_kernel), one scan step, together with the lax.while_loop that
+// the JAX package runs it in (repro/core/knn.py::_scan_phase).  The contract is
+// the plain version's (repro_torch/kernels/ref.py::bucket_scan_phase_ref):
+// step t makes slot t*beam + b active where lb_sorted <= sqrt(top_d[kk-1]) at
+// the step's start (+inf <= +inf: an unfilled top-kk makes every slot
+// active); members with id < 0 and buckets outside [0, NB) contribute no
+// candidate; the merge is a top-kk of [running top-kk | candidates in (slot,
+// member) order] in which the lower position wins a tie.  A query's active
+// steps are a prefix of the phase (its lb only grows, and its kth changes only
+// by its own merges), so walking each query alone until its first inactive
+// step gives the lockstep loop's results, and the loop's trip count is the
+// most steps any query took (`qsteps`).
 //
-// What bounds it on an H100: bytes and latency.  Device memory has to deliver
-// each distinct active bucket once per launch (C ids, and the live members'
-// D values: 4 bytes each in f32, 1 in int8 plus a 4-byte scale), and each
-// query's row, selections and 2*kk words in and out.  The queries of a
-// launch share buckets, so the kernel gathers each (query, bucket) pair's
-// members but most of those loads hit L2.  At 4*D flops per (query, member)
-// pair it stays far below the f32 FMA rate, so memory (3.35 TB/s) is the
-// roofline.  In practice the block-wide merge (kk rounds of argmin, two
-// barriers each) adds a latency floor per query.
+// What bounds it on an H100: latency.  Device memory has to deliver each
+// distinct bucket the phase touches once (C ids, and the live members' D
+// values: 4 bytes each in f32, 1 in int8 plus a 4-byte scale) and each
+// query's row, visited bounds and 2*kk words in and out: tens of MB for a
+// WARD search, microseconds at 3.35 TB/s; its 4*D flops per scored (query,
+// member) pair take about as long at the f32 rate.  But a query's steps form
+// a chain: the next bucket to read depends on the bound, which depends on
+// the merge.  The longest query (165 steps on WARD at beam 1) sets the
+// phase's time, and every step of every query copies its bucket's tiles
+// through L2 again (the queries share buckets, but not in step).
 //
-// What the design does about it: one block per query, and the TPU grid's
-// sequential beam axis becomes a loop inside the block, since blocks run in no
-// order.  Threads stride over a bucket's members (neighbouring threads read
-// neighbouring rows), so each member row is read once.  Members are handled
-// in chunks of kChunk so any bucket capacity fits in shared memory.  Before a
-// chunk is merged, every candidate whose distance is not below the current
-// k-th best is dropped: it has a later position than all kk running entries,
-// so it could never enter; a chunk with no survivor skips the merge, which is
-// what keeps the merge off most steps once a query's top-kk has filled.
-// Surviving chunks merge by kk rounds of a block-wide lexicographic
-// (value, position) argmin, which reproduces lax.top_k's tie order exactly.
-// Iterated merges equal one merge over the whole step: positions of a later
-// chunk are all larger, so the (value, position) order is preserved.
+// What the design does about it:
+// - one block of 128 threads per query walks its steps in order (the TPU
+//   grid's sequential axis becomes this loop); the step loop runs on the card,
+//   so a phase is one launch and the host reads nothing until the search
+//   returns.  Small blocks keep more queries in flight on an SM;
+// - the query's bounds, buckets and the buckets' live counts are staged in a
+//   shared-memory window of 256 slots (or two steps, if more), so a
+//   step decides what to scan and what to prefetch without a device-memory
+//   round trip;
+// - the members of a bucket are staged in tiles of up to kMaxTile rows in
+//   shared memory by 16-byte cp.async copies, double-buffered: the next tile
+//   (the next chunk, the next active slot, or the first slot of the next step
+//   whose bound is within the current kth) is in flight while the current one
+//   is scored and merged.  A prefetch of the next step that turns out inactive
+//   is only wasted bandwidth;
+// - every thread scores up to kMaxRounds members of the tile; a candidate
+//   survives only if d2 < the k-th best at the tile's start (a later position
+//   than all kk running entries, so it could never enter otherwise).  A tile
+//   with no survivor costs two barriers and no merge;
+// - survivors are compacted in member order (a warp ballot, then a prefix over
+//   the warps' counts) and one warp inserts them in order into the sorted
+//   top-kk in shared memory, each after any equal value: lax.top_k's tie
+//   order.  Survivors are rejected 32 at a time against the shrinking kth.
+// The distance arithmetic is fixed: xx and q.x as separate
+// fmaf chains in feature order (an int8 member as float(x) * scale first),
+// then the uncontracted epilogue max(qq + xx - 2 q.x, 0).
+//
+// The 16-byte copies fetch the aligned 16-byte blocks that enclose a tile's
+// bytes, so a row range at any alignment (int8 rows, a bucket that starts
+// mid-block) needs no scalar head or tail.  Those blocks lie within the
+// 256-byte-aligned allocations the card's allocator hands out.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 1024;
+constexpr int kMaxRounds = 4;                    // members a thread scores per tile
+constexpr int kMaxTile = kThreads * kMaxRounds;  // members per tile
+constexpr int kBufBytes = 24 * 1024;             // target size of one tile buffer
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ bool less_vp(float va, int pa, float vb, int pb) {
-  return va < vb || (va == vb && pa < pb);
+// Shared-memory bytes of a staged range of `len` bytes: the enclosing
+// 16-byte blocks span at most len + 30 bytes.
+__host__ __device__ inline int region(int len) { return (len + 30 + 15) / 16 * 16; }
+
+struct Layout {
+  int rows;         // members per tile
+  int ids_bytes;    // the three regions of a tile buffer
+  int x_bytes;
+  int scale_bytes;
+  __host__ __device__ int buf_bytes() const { return ids_bytes + x_bytes + scale_bytes; }
+};
+
+Layout make_layout(int cap, int dim, int elt, bool scaled) {
+  const int row_bytes = 4 + dim * elt + (scaled ? 4 : 0);
+  int rows = (kBufBytes - 3 * 46) / row_bytes;
+  rows = rows < 1 ? 1 : rows;
+  rows = rows > kMaxTile ? kMaxTile : rows;
+  rows = rows > cap ? cap : rows;
+  Layout l;
+  l.rows = rows;
+  l.ids_bytes = region(rows * 4);
+  l.x_bytes = region(rows * dim * elt);
+  l.scale_bytes = scaled ? region(rows * 4) : 0;
+  return l;
+}
+
+// Slots in a query's window: two steps at least.
+int window(int beam) { return beam > 128 ? 2 * beam : 256; }
+
+size_t smem_bytes(const Layout& l, int dim, int kk, int beam) {
+  // two tile buffers; running top-kk values and ids; survivor values and ids;
+  // q row; per-(round, warp) survivor counts; the slot window; qq
+  return 2 * static_cast<size_t>(l.buf_bytes()) + 8 * static_cast<size_t>(kk) +
+         8 * static_cast<size_t>(l.rows) + 4 * static_cast<size_t>(dim) +
+         4 * kMaxRounds * kWarps + 12 * static_cast<size_t>(window(beam)) + 16;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Where byte `g` lands in a region staged from the 16-byte block enclosing it.
+__device__ __forceinline__ int phase_of(const void* g) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(g) & 15);
+}
+
+// Start the copy of the 16-byte blocks enclosing [g, g + len) into dst.
+__device__ __forceinline__ void stage(char* dst, const void* g, int len) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(g);
+  const uintptr_t lo = a & ~static_cast<uintptr_t>(15);
+  const int n16 = static_cast<int>(((a + len + 15) & ~static_cast<uintptr_t>(15)) - lo) >> 4;
+  for (int p = threadIdx.x; p < n16; p += kThreads)
+    cp_async16(dst + 16 * p, reinterpret_cast<const char*>(lo) + 16 * p);
 }
 
 template <typename T>
@@ -60,42 +152,135 @@ __device__ __forceinline__ float load_member<int8_t>(const int8_t* row, int d) {
   return static_cast<float>(row[d]);
 }
 
-size_t smem_bytes(int dim, int kk) {
-  // q row, pool (running top-kk + one chunk) values and ids, new top-kk
-  // values and ids, per-warp argmin partials, qq + dry flag
-  return sizeof(float) * dim + (sizeof(float) + sizeof(int)) * (kk + kChunk) +
-         (sizeof(float) + sizeof(int)) * kk + (sizeof(float) + sizeof(int)) * kWarps +
-         2 * sizeof(float);
+template <typename T, bool kScaled>
+struct Phase {
+  const T* bx;
+  const float* scale;
+  const int* bids;
+  const int* bcount;
+  const int* order;     // this query's row
+  const float* lb;      // this query's row
+  int nb, cap, dim, beam, kk, n_steps, n_slots, nchunks, win;
+  Layout lay;
+  // shared-memory window of slots [w0, w0 + win): bound, bucket and the
+  // bucket's live count, so a step reads no device memory to decide
+  float* w_lb;
+  int* w_ord;
+  int* w_cnt;
+  int w0;
+
+  // Fill the window from slot s0 (every thread takes part; the caller
+  // synchronises before and after).
+  __device__ void load_window(int s0) {
+    w0 = s0;
+    for (int j = threadIdx.x; j < win; j += kThreads) {
+      const int s = s0 + j;
+      float l = CUDART_INF_F;
+      int o = -1, c = 0;
+      if (s < n_slots) {
+        l = lb[s];
+        o = order[s];
+        if (o >= 0 && o < nb) c = bcount[o];
+      }
+      w_lb[j] = l;
+      w_ord[j] = o;
+      w_cnt[j] = c;
+    }
+  }
+
+  __device__ float slot_lb(int s) const { return w_lb[s - w0]; }
+  __device__ int slot_bucket(int s) const { return w_ord[s - w0]; }
+
+  // First slot >= `from` of step t that is active at `kth` and names a bucket
+  // in range (one with members to stage); beam if there is none.
+  __device__ int first_tile_slot(int t, int from, float kth) const {
+    for (int b = from; b < beam; ++b) {
+      const int s = t * beam + b;
+      const int bucket = slot_bucket(s);
+      if (slot_lb(s) <= kth && bucket >= 0 && bucket < nb) return b;
+    }
+    return beam;
+  }
+
+  __device__ void issue(char* buf, int bucket, int c) const {
+    const int c0 = c * lay.rows;
+    const int n = min(lay.rows, cap - c0);
+    const int64_t m0 = static_cast<int64_t>(bucket) * cap + c0;
+    stage(buf, bids + m0, n * 4);
+    stage(buf + lay.ids_bytes, bx + m0 * dim, n * dim * static_cast<int>(sizeof(T)));
+    if (kScaled) stage(buf + lay.ids_bytes + lay.x_bytes, scale + m0, n * 4);
+    cp_async_commit();
+  }
+};
+
+// Insert (v, id) into the sorted top-kk after every entry <= v; the caller
+// has checked v < top_v[kk - 1].  Run by one whole warp.
+__device__ __forceinline__ void insert_sorted(float* top_v, int* top_i, int kk, float v,
+                                              int id, int lane) {
+  int p = 0;
+  for (int j0 = 0; j0 < kk; j0 += 32) {
+    const int j = j0 + lane;
+    p += __popc(__ballot_sync(kFull, j < kk && top_v[j] <= v));
+  }
+  // shift [p, kk - 2] up by one, 32 entries at a time from the top down: a
+  // group reads the entry below it before the group below is rewritten
+  for (int j0 = (kk - 1) / 32 * 32; j0 >= 0 && j0 + 31 >= p; j0 -= 32) {
+    const int j = j0 + lane;
+    const bool mv = j > p && j < kk;
+    float sv = 0.f;
+    int si = 0;
+    if (mv) {
+      sv = top_v[j - 1];
+      si = top_i[j - 1];
+    }
+    __syncwarp();
+    if (mv) {
+      top_v[j] = sv;
+      top_i[j] = si;
+    } else if (j == p) {
+      top_v[j] = v;
+      top_i[j] = id;
+    }
+    __syncwarp();
+  }
 }
 
 template <typename T, bool kScaled>
 __global__ void __launch_bounds__(kThreads)
-bucket_scan_kernel(const float* __restrict__ q, const T* __restrict__ bx,
-                   const float* __restrict__ scale, const int* __restrict__ bids,
-                   const int* __restrict__ bsel, const uint8_t* __restrict__ act,
-                   const float* __restrict__ top_d_in, const int* __restrict__ top_i_in,
-                   float* __restrict__ top_d_out, int* __restrict__ top_i_out,
-                   int nb, int cap, int dim, int beam, int kk) {
-  extern __shared__ float smem[];
-  float* qv = smem;                                   // [dim]
-  float* pool_v = qv + dim;                           // [kk + kChunk]
-  int* pool_i = reinterpret_cast<int*>(pool_v + kk + kChunk);
-  float* new_v = reinterpret_cast<float*>(pool_i + kk + kChunk);  // [kk]
-  int* new_i = reinterpret_cast<int*>(new_v + kk);    // [kk]
-  float* red_v = reinterpret_cast<float*>(new_i + kk);  // [kWarps]
-  int* red_p = reinterpret_cast<int*>(red_v + kWarps);  // [kWarps]
-  float* misc = reinterpret_cast<float*>(red_p + kWarps);  // qq, dry flag
+scan_phase_kernel(Phase<T, kScaled> ph, const float* __restrict__ q_all,
+                  const float* __restrict__ top_d_in, const int* __restrict__ top_i_in,
+                  float* __restrict__ top_d_out, int* __restrict__ top_i_out,
+                  int* __restrict__ visits_out, int* __restrict__ ndist_out,
+                  int* __restrict__ npad_out, int* __restrict__ qsteps_out) {
+  extern __shared__ __align__(16) char smem[];
+  const int buf_bytes = ph.lay.buf_bytes();
+  char* const bufs = smem;
+  float* const top_v = reinterpret_cast<float*>(smem + 2 * buf_bytes);
+  int* const top_id = reinterpret_cast<int*>(top_v + ph.kk);
+  float* const cand_v = reinterpret_cast<float*>(top_id + ph.kk);
+  int* const cand_i = reinterpret_cast<int*>(cand_v + ph.lay.rows);
+  float* const qv = reinterpret_cast<float*>(cand_i + ph.lay.rows);
+  int* const counts = reinterpret_cast<int*>(qv + ph.dim);  // [kMaxRounds][kWarps]
+  ph.w_lb = reinterpret_cast<float*>(counts + kMaxRounds * kWarps);
+  ph.w_ord = reinterpret_cast<int*>(ph.w_lb + ph.win);
+  ph.w_cnt = ph.w_ord + ph.win;
+  float* const misc = reinterpret_cast<float*>(ph.w_cnt + ph.win);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int64_t qi = blockIdx.x;
+  const int kk = ph.kk;
+  const int dim = ph.dim;
+  ph.order += qi * ph.n_slots;
+  ph.lb += qi * ph.n_slots;
 
-  for (int d = tid; d < dim; d += kThreads) qv[d] = q[qi * dim + d];
+  for (int d = tid; d < dim; d += kThreads) qv[d] = q_all[qi * dim + d];
   for (int j = tid; j < kk; j += kThreads) {
-    pool_v[j] = top_d_in[qi * kk + j];
-    pool_i[j] = top_i_in[qi * kk + j];
+    top_v[j] = top_d_in[qi * kk + j];
+    top_id[j] = top_i_in[qi * kk + j];
   }
+  ph.load_window(0);
   __syncthreads();
   if (tid == 0) {
     float qq = 0.f;
@@ -105,150 +290,230 @@ bucket_scan_kernel(const float* __restrict__ q, const T* __restrict__ bx,
   __syncthreads();
   const float qq = misc[0];
 
-  for (int b = 0; b < beam; ++b) {
-    const int64_t slot = qi * beam + b;
-    const int bucket = bsel[slot];
-    if (act[slot] == 0 || bucket < 0 || bucket >= nb) continue;  // uniform
-    const int64_t base = static_cast<int64_t>(bucket) * cap;
-    for (int c0 = 0; c0 < cap; c0 += kChunk) {
-      const int n = min(kChunk, cap - c0);
-      const float kth = pool_v[kk - 1];
-      int survivor = 0;
-      for (int e = tid; e < n; e += kThreads) {
-        const int64_t m = base + c0 + e;
-        const int id = bids[m];
-        float dv = CUDART_INF_F;
-        int iv = -1;
-        if (id >= 0) {
-          const T* row = bx + m * dim;
-          const float s = kScaled ? scale[m] : 1.f;
-          float xx = 0.f, cross = 0.f;
-          for (int d = 0; d < dim; ++d) {
-            const float xd = kScaled ? load_member<T>(row, d) * s : load_member<T>(row, d);
-            xx = fmaf(xd, xd, xx);
-            cross = fmaf(qv[d], xd, cross);
-          }
-          const float d2 =
-              fmaxf(__fsub_rn(__fadd_rn(qq, xx), __fmul_rn(2.f, cross)), 0.f);
-          if (d2 < kth) {
-            dv = d2;
-            iv = id;
-            survivor = 1;
-          }
-        }
-        pool_v[kk + e] = dv;
-        pool_i[kk + e] = iv;
-      }
-      // barrier: the chunk is in shared memory and every thread knows
-      // whether any candidate can enter the top-kk
-      if (!__syncthreads_or(survivor)) continue;
+  int visits = 0, ndist = 0, steps = 0;
+  bool pending = false;  // a tile's copies are in flight into bufs[pend_buf]
+  int pend_t = 0, pend_b = 0, pend_c = 0, pend_buf = 0;
 
-      const int total = kk + n;
-      int r = 0;
-      for (; r < kk; ++r) {
-        float bv = CUDART_INF_F;
-        int bp = 0x7fffffff;
-        for (int e = tid; e < total; e += kThreads) {
-          const float v = pool_v[e];
-          if (less_vp(v, e, bv, bp)) {
-            bv = v;
-            bp = e;
-          }
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-          const int op = __shfl_down_sync(0xffffffffu, bp, off);
-          if (less_vp(ov, op, bv, bp)) {
-            bv = ov;
-            bp = op;
-          }
-        }
-        if (lane == 0) {
-          red_v[warp] = bv;
-          red_p[warp] = bp;
-        }
-        __syncthreads();
-        if (tid == 0) {
-          for (int w = 1; w < kWarps; ++w) {
-            if (less_vp(red_v[w], red_p[w], bv, bp)) {
-              bv = red_v[w];
-              bp = red_p[w];
-            }
-          }
-          if (isinf(bv)) {  // pool ran dry: the rest of the top-kk is empty
-            new_v[r] = CUDART_INF_F;
-            new_i[r] = -1;
-            misc[1] = 1.f;
-          } else {
-            new_v[r] = bv;
-            new_i[r] = pool_i[bp];
-            pool_v[bp] = CUDART_INF_F;
-            misc[1] = 0.f;
-          }
-        }
-        __syncthreads();
-        if (misc[1] != 0.f) {
-          ++r;
-          break;
-        }
-      }
-      for (int j = r + tid; j < kk; j += kThreads) {
-        new_v[j] = CUDART_INF_F;
-        new_i[j] = -1;
-      }
-      __syncthreads();
-      for (int j = tid; j < kk; j += kThreads) {
-        pool_v[j] = new_v[j];
-        pool_i[j] = new_i[j];
-      }
+  for (int t = 0; t < ph.n_steps; ++t) {
+    // the window holds this step's slots and the next one's
+    if (min(t + 2, ph.n_steps) * ph.beam > ph.w0 + ph.win) {
+      __syncthreads();  // no thread still reads the old window
+      ph.load_window(t * ph.beam);
       __syncthreads();
     }
+    // every slot's activity is decided at the step's start, before any merge
+    const float kth = __fsqrt_rn(top_v[kk - 1]);
+    int n_act = 0;
+    for (int b = 0; b < ph.beam; ++b) {
+      const int s = t * ph.beam + b;
+      if (!(ph.slot_lb(s) <= kth)) continue;
+      ++n_act;
+      ndist += ph.w_cnt[s - ph.w0];
+    }
+    if (n_act == 0) break;
+    ++steps;
+    visits += n_act;
+
+    for (int b = ph.first_tile_slot(t, 0, kth); b < ph.beam;
+         b = ph.first_tile_slot(t, b + 1, kth)) {
+      const int bucket = ph.slot_bucket(t * ph.beam + b);
+      for (int c = 0; c < ph.nchunks; ++c) {
+        int cur;
+        if (pending && pend_t == t && pend_b == b && pend_c == c) {
+          cur = pend_buf;
+        } else {
+          if (pending) {  // a prefetch that missed: let it land, then reuse
+            cp_async_wait<0>();
+            __syncthreads();
+          }
+          cur = 0;
+          ph.issue(bufs + cur * buf_bytes, bucket, c);
+        }
+        // the tile after this one, prefetched into the other buffer
+        int nt = t, nbk = 0, nc = c + 1, nb_slot = b;
+        bool next = nc < ph.nchunks;
+        if (next) {
+          nbk = bucket;
+        } else {
+          nc = 0;
+          nb_slot = ph.first_tile_slot(t, b + 1, kth);
+          next = nb_slot < ph.beam;
+          if (!next && t + 1 < ph.n_steps) {
+            // speculative: the next step's first slot within the current kth
+            nt = t + 1;
+            nb_slot = ph.first_tile_slot(nt, 0, __fsqrt_rn(top_v[kk - 1]));
+            next = nb_slot < ph.beam;
+          }
+          if (next) nbk = ph.slot_bucket(nt * ph.beam + nb_slot);
+        }
+        pending = next;
+        if (next) {
+          pend_t = nt;
+          pend_b = nb_slot;
+          pend_c = nc;
+          pend_buf = cur ^ 1;
+          ph.issue(bufs + pend_buf * buf_bytes, nbk, nc);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();  // the tile is in shared memory for every thread
+
+        // score: members tid, tid + kThreads, ... of the tile
+        const char* buf = bufs + cur * buf_bytes;
+        const int c0 = c * ph.lay.rows;
+        const int n = min(ph.lay.rows, ph.cap - c0);
+        const int64_t m0 = static_cast<int64_t>(bucket) * ph.cap + c0;
+        const int* ids_s = reinterpret_cast<const int*>(buf + phase_of(ph.bids + m0));
+        const T* xs = reinterpret_cast<const T*>(buf + ph.lay.ids_bytes +
+                                                  phase_of(ph.bx + m0 * dim));
+        const float* ss = reinterpret_cast<const float*>(
+            buf + ph.lay.ids_bytes + ph.lay.x_bytes + (kScaled ? phase_of(ph.scale + m0) : 0));
+        const float kth2 = top_v[kk - 1];
+        float dv[kMaxRounds];
+        int iv[kMaxRounds];
+        int rank[kMaxRounds];
+        unsigned surv = 0;
+#pragma unroll
+        for (int r = 0; r < kMaxRounds; ++r) {
+          const int e = r * kThreads + tid;
+          bool s = false;
+          dv[r] = 0.f;
+          iv[r] = -1;
+          if (e < n) {
+            const int id = ids_s[e];
+            if (id >= 0) {
+              const T* row = xs + static_cast<int64_t>(e) * dim;
+              const float sc = kScaled ? ss[e] : 1.f;
+              float xx = 0.f, cross = 0.f;
+              for (int d = 0; d < dim; ++d) {
+                const float xd =
+                    kScaled ? load_member<T>(row, d) * sc : load_member<T>(row, d);
+                xx = fmaf(xd, xd, xx);
+                cross = fmaf(qv[d], xd, cross);
+              }
+              const float d2 =
+                  fmaxf(__fsub_rn(__fadd_rn(qq, xx), __fmul_rn(2.f, cross)), 0.f);
+              s = d2 < kth2;
+              dv[r] = d2;
+              iv[r] = id;
+            }
+          }
+          const unsigned bal = __ballot_sync(kFull, s);
+          rank[r] = __popc(bal & ((1u << lane) - 1u));
+          if (lane == 0) counts[r * kWarps + warp] = __popc(bal);
+          surv |= (s ? 1u : 0u) << r;
+        }
+        // barrier: the tile is read, the counts are in shared memory
+        if (!__syncthreads_or(surv != 0)) continue;
+
+        int before = 0, total = 0;
+        for (int w = 0; w < kMaxRounds * kWarps; ++w) total += counts[w];
+#pragma unroll
+        for (int r = 0; r < kMaxRounds; ++r) {
+          int pos = before;
+          for (int w = 0; w < warp; ++w) pos += counts[r * kWarps + w];
+          if (surv >> r & 1u) {
+            cand_v[pos + rank[r]] = dv[r];
+            cand_i[pos + rank[r]] = iv[r];
+          }
+          for (int w = 0; w < kWarps; ++w) before += counts[r * kWarps + w];
+        }
+        __syncthreads();  // the survivors are in shared memory, in member order
+        if (warp == 0) {
+          for (int base = 0; base < total; base += 32) {
+            const int k = base + lane;
+            const float v = k < total ? cand_v[k] : CUDART_INF_F;
+            const int id = k < total ? cand_i[k] : -1;
+            unsigned todo = __ballot_sync(kFull, v < top_v[kk - 1]);
+            while (todo) {
+              const int src = __ffs(todo) - 1;
+              todo &= todo - 1;
+              const float cv = __shfl_sync(kFull, v, src);
+              const int ci = __shfl_sync(kFull, id, src);
+              if (cv < top_v[kk - 1]) insert_sorted(top_v, top_id, kk, cv, ci, lane);
+            }
+          }
+        }
+        __syncthreads();  // the merged top-kk is visible to every thread
+      }
+    }
   }
+  if (pending) cp_async_wait<0>();  // no copy may land after the block exits
+
   for (int j = tid; j < kk; j += kThreads) {
-    top_d_out[qi * kk + j] = pool_v[j];
-    top_i_out[qi * kk + j] = pool_i[j];
+    top_d_out[qi * kk + j] = top_v[j];
+    top_i_out[qi * kk + j] = top_id[j];
+  }
+  if (tid == 0) {
+    visits_out[qi] = visits;
+    ndist_out[qi] = ndist;
+    npad_out[qi] = visits * ph.cap;
+    qsteps_out[qi] = steps;
   }
 }
 
 template <typename T, bool kScaled>
 int launch(const float* q, const T* bx, const float* scale, const int* bids,
-           const int* bsel, const uint8_t* act, const float* top_d, const int* top_i,
-           float* out_d, int* out_i, int nq, int nb, int cap, int dim, int beam,
-           int kk, void* stream) {
-  const size_t smem = smem_bytes(dim, kk);
-  auto kernel = bucket_scan_kernel<T, kScaled>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+           const int* bcount, const int* order, const float* lb, const float* top_d,
+           const int* top_i, float* out_d, int* out_i, int* visits, int* ndist, int* npad,
+           int* qsteps, int nq, int nb, int cap, int dim, int beam, int kk, int n_slots,
+           void* stream) {
+  Phase<T, kScaled> ph;
+  ph.bx = bx;
+  ph.scale = scale;
+  ph.bids = bids;
+  ph.bcount = bcount;
+  ph.order = order;
+  ph.lb = lb;
+  ph.nb = nb;
+  ph.cap = cap;
+  ph.dim = dim;
+  ph.beam = beam;
+  ph.kk = kk;
+  ph.n_steps = n_slots / beam;
+  ph.n_slots = n_slots;
+  ph.win = window(beam);
+  ph.lay = make_layout(cap, dim, static_cast<int>(sizeof(T)), kScaled);
+  ph.nchunks = (cap + ph.lay.rows - 1) / ph.lay.rows;
+  const size_t smem = smem_bytes(ph.lay, dim, kk, beam);
+  auto kernel = scan_phase_kernel<T, kScaled>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<nq, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, bx, scale, bids, bsel, act, top_d, top_i, out_d, out_i, nb, cap, dim, beam, kk);
+      ph, q, top_d, top_i, out_d, out_i, visits, ndist, npad, qsteps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int bucket_scan_topk_f32(const float* q, const float* bx, const int* bids,
-                                    const int* bsel, const uint8_t* act, const float* top_d,
-                                    const int* top_i, float* out_d, int* out_i, int nq,
-                                    int nb, int cap, int dim, int beam, int kk,
-                                    void* stream) {
-  return launch<float, false>(q, bx, nullptr, bids, bsel, act, top_d, top_i, out_d,
-                              out_i, nq, nb, cap, dim, beam, kk, stream);
+extern "C" int bucket_scan_phase_f32(const float* q, const float* bx, const int* bids,
+                                     const int* bcount, const int* order, const float* lb,
+                                     const float* top_d, const int* top_i, float* out_d,
+                                     int* out_i, int* visits, int* ndist, int* npad,
+                                     int* qsteps, int nq, int nb, int cap, int dim, int beam,
+                                     int kk, int n_slots, void* stream) {
+  return launch<float, false>(q, bx, nullptr, bids, bcount, order, lb, top_d, top_i, out_d,
+                              out_i, visits, ndist, npad, qsteps, nq, nb, cap, dim, beam,
+                              kk, n_slots, stream);
 }
 
-extern "C" int bucket_scan_topk_i8(const float* q, const int8_t* bx, const float* scale,
-                                   const int* bids, const int* bsel, const uint8_t* act,
-                                   const float* top_d, const int* top_i, float* out_d,
-                                   int* out_i, int nq, int nb, int cap, int dim, int beam,
-                                   int kk, void* stream) {
-  return launch<int8_t, true>(q, bx, scale, bids, bsel, act, top_d, top_i, out_d, out_i,
-                              nq, nb, cap, dim, beam, kk, stream);
+extern "C" int bucket_scan_phase_i8(const float* q, const int8_t* bx, const float* scale,
+                                    const int* bids, const int* bcount, const int* order,
+                                    const float* lb, const float* top_d, const int* top_i,
+                                    float* out_d, int* out_i, int* visits, int* ndist,
+                                    int* npad, int* qsteps, int nq, int nb, int cap, int dim,
+                                    int beam, int kk, int n_slots, void* stream) {
+  return launch<int8_t, true>(q, bx, scale, bids, bcount, order, lb, top_d, top_i, out_d,
+                              out_i, visits, ndist, npad, qsteps, nq, nb, cap, dim, beam, kk,
+                              n_slots, stream);
 }
 
-extern "C" size_t bucket_scan_smem_bytes(int dim, int kk) { return smem_bytes(dim, kk); }
+// Dynamic shared memory of one block (elt: 4 for f32 members, 1 for int8).
+extern "C" size_t bucket_scan_smem_bytes(int cap, int dim, int elt, int kk, int beam) {
+  return smem_bytes(make_layout(cap, dim, elt, elt == 1), dim, kk, beam);
+}
 
 extern "C" const char* cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

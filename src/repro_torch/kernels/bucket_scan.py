@@ -1,11 +1,14 @@
-"""K1: fused bucket gather + squared L2 + running top-k merge on the card
-(``csrc/bucket_scan.cu``).
+"""K1: a whole forest-scan phase on the card (``csrc/bucket_scan.cu``): each
+query walks its sorted bucket bounds, gathers, measures and merges into its
+running top-k until its first inactive step, all in one launch.
 
-Replaces ``repro/kernels/bucket_scan.py::bucket_scan_topk_pallas``.  The plain
-version it is held against is ``ref.bucket_scan_topk_ref`` (imported below).
-The TPU wrapper padded the datastore to 128-lane tiles once at upload
-(``prepad_buckets``); the CUDA kernel masks the ragged bucket edge itself, so
-the datastore is passed as it is.
+Replaces ``repro/kernels/bucket_scan.py::bucket_scan_topk_pallas`` and the
+``lax.while_loop`` the JAX package runs it in.  The plain version it is held
+against is ``ref.bucket_scan_phase_ref`` (imported below), the lockstep loop
+over ``ref.bucket_scan_topk_ref`` steps.  The TPU wrapper padded the
+datastore to 128-lane tiles once at upload (``prepad_buckets``); the CUDA
+kernel masks the ragged bucket edge itself, so the datastore is passed as it
+is.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import bucket_scan_topk_ref  # noqa: F401  (plain version)
+from repro_torch.kernels.ref import bucket_scan_phase_ref  # noqa: F401  (plain version)
 
 Tensor = torch.Tensor
 
@@ -24,12 +27,12 @@ _I = ctypes.c_int
 
 def _lib() -> ctypes.CDLL:
     lib = _build.library("bucket_scan")
-    if lib.bucket_scan_topk_f32.argtypes is None:
-        lib.bucket_scan_topk_f32.argtypes = [_P] * 9 + [_I] * 6 + [_P]
-        lib.bucket_scan_topk_f32.restype = _I
-        lib.bucket_scan_topk_i8.argtypes = [_P] * 10 + [_I] * 6 + [_P]
-        lib.bucket_scan_topk_i8.restype = _I
-        lib.bucket_scan_smem_bytes.argtypes = [_I, _I]
+    if lib.bucket_scan_phase_f32.argtypes is None:
+        lib.bucket_scan_phase_f32.argtypes = [_P] * 14 + [_I] * 7 + [_P]
+        lib.bucket_scan_phase_f32.restype = _I
+        lib.bucket_scan_phase_i8.argtypes = [_P] * 15 + [_I] * 7 + [_P]
+        lib.bucket_scan_phase_i8.restype = _I
+        lib.bucket_scan_smem_bytes.argtypes = [_I] * 5
         lib.bucket_scan_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -37,52 +40,58 @@ def _lib() -> ctypes.CDLL:
 _MAX_SMEM = 232_448  # bytes of shared memory one H100 block may use
 
 
-def bucket_scan_topk_cuda(
+def bucket_scan_phase_cuda(
     q: Tensor,
     bucket_x: Tensor,
     bucket_ids: Tensor,
-    bsel: Tensor,
-    act: Tensor,
+    bucket_count: Tensor,
+    order: Tensor,
+    lb_sorted: Tensor,
+    beam: int,
     top_d: Tensor,
     top_i: Tensor,
     scale: Tensor | None = None,
-) -> tuple[Tensor, Tensor]:
-    """One fused scan step by the K1 kernel; returns the merged (top_d, top_i).
+) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """One scan phase by the K1 kernel; returns (top_d, top_i, visits,
+    ndist, npad, qsteps) as ``ref.bucket_scan_phase_ref`` does.
 
-    Shapes as ``ref.bucket_scan_topk_ref``: q (Q, D); bucket_x (NB, C, D) f32,
-    or int8 with ``scale`` (NB, C); bucket_ids (NB, C) i32 with -1 padding;
-    bsel/act (Q, beam); top_d/top_i (Q, kk).  Every operand must lie on one
-    CUDA device.  Small per-step operands are cast and made contiguous; the
+    q (Q, D); bucket_x (NB, C, D) f32, or int8 with ``scale`` (NB, C);
+    bucket_ids (NB, C) i32 with -1 padding; bucket_count (NB,) live members
+    per bucket; order/lb_sorted (Q, S * beam), lb ascending along each row;
+    top_d/top_i (Q, kk) the carry.  Every operand must lie on one CUDA
+    device.  The per-search operands are cast and made contiguous; the
     datastore-sized ones (bucket_x, bucket_ids, scale) must already have the
-    kernel's dtype and layout, since a copy there would cost a whole
-    datastore pass per step.
+    kernel's dtype and layout, since a copy there would cost a datastore pass.
     """
     dev = q.device
-    ops = [q, bucket_x, bucket_ids, bsel, act, top_d, top_i]
+    ops = [q, bucket_x, bucket_ids, bucket_count, order, lb_sorted, top_d, top_i]
     if scale is not None:
         ops.append(scale)
     if not all(t.is_cuda and t.device == dev for t in ops):
         raise ValueError(
-            "bucket_scan_topk_cuda needs every operand on one CUDA device, got "
+            "bucket_scan_phase_cuda needs every operand on one CUDA device, got "
             + ", ".join(str(t.device) for t in ops)
         )
     if bucket_x.ndim != 3 or q.ndim != 2 or q.shape[1] != bucket_x.shape[2]:
         raise ValueError(
-            f"bucket_scan_topk_cuda takes q (Q, D) and bucket_x (NB, C, D), got "
+            f"bucket_scan_phase_cuda takes q (Q, D) and bucket_x (NB, C, D), got "
             f"{tuple(q.shape)} and {tuple(bucket_x.shape)}"
         )
     nb, cap, dim = bucket_x.shape
     qn, kk = top_d.shape
-    beam = bsel.shape[1] if bsel.ndim == 2 else -1
+    n_slots = order.shape[1] if order.ndim == 2 else -1
     if (
-        bucket_ids.shape != (nb, cap) or q.shape[0] != qn or top_i.shape != (qn, kk)
-        or bsel.shape != (qn, beam) or act.shape != (qn, beam)
+        bucket_ids.shape != (nb, cap) or bucket_count.shape != (nb,)
+        or q.shape[0] != qn or top_i.shape != (qn, kk) or beam < 1
+        or order.shape != (qn, n_slots) or lb_sorted.shape != (qn, n_slots)
+        or n_slots % beam
     ):
         raise ValueError(
-            "bucket_scan_topk_cuda shape mismatch: q "
-            f"{tuple(q.shape)}, bucket_ids {tuple(bucket_ids.shape)}, bsel "
-            f"{tuple(bsel.shape)}, act {tuple(act.shape)}, top_d "
-            f"{tuple(top_d.shape)}, top_i {tuple(top_i.shape)}"
+            "bucket_scan_phase_cuda shape mismatch: q "
+            f"{tuple(q.shape)}, bucket_ids {tuple(bucket_ids.shape)}, bucket_count "
+            f"{tuple(bucket_count.shape)}, order {tuple(order.shape)}, lb_sorted "
+            f"{tuple(lb_sorted.shape)}, beam {beam}, top_d {tuple(top_d.shape)}, "
+            f"top_i {tuple(top_i.shape)}"
         )
     if bucket_ids.dtype != torch.int32 or not bucket_ids.is_contiguous():
         raise ValueError("bucket_ids must be contiguous int32")
@@ -100,38 +109,43 @@ def bucket_scan_topk_cuda(
             raise ValueError("scale must be contiguous float32 (NB, C)")
 
     q = q.to(torch.float32).contiguous()
-    bsel = bsel.to(torch.int32).contiguous()
-    act = act.to(torch.bool).contiguous()
+    bucket_count = bucket_count.to(torch.int32).contiguous()
+    order = order.to(torch.int32).contiguous()
+    lb_sorted = lb_sorted.to(torch.float32).contiguous()
     top_d = top_d.to(torch.float32).contiguous()
     top_i = top_i.to(torch.int32).contiguous()
     out_d = torch.empty_like(top_d)
     out_i = torch.empty_like(top_i)
-    if qn == 0 or kk == 0:
-        return out_d, out_i
+    counters = torch.empty((4, qn), dtype=torch.int32, device=dev)
+    visits, ndist, npad, qsteps = counters.unbind(0)
+    if qn == 0 or kk == 0 or nb == 0 or cap == 0:
+        counters.zero_()
+        return top_d.clone(), top_i.clone(), visits, ndist, npad, qsteps
 
     lib = _lib()
-    smem = lib.bucket_scan_smem_bytes(dim, kk)
+    smem = lib.bucket_scan_smem_bytes(cap, dim, 1 if scale is not None else 4, kk, beam)
     if smem > _MAX_SMEM:
         raise ValueError(
-            f"bucket_scan_topk_cuda: k={kk} at D={dim} needs {smem} bytes of "
+            f"bucket_scan_phase_cuda: k={kk} at D={dim} needs {smem} bytes of "
             f"shared memory, above the {_MAX_SMEM} a block may use"
         )
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         common = (
-            bucket_ids.data_ptr(), bsel.data_ptr(), act.data_ptr(),
-            top_d.data_ptr(), top_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-            qn, nb, cap, dim, beam, kk, stream,
+            bucket_ids.data_ptr(), bucket_count.data_ptr(), order.data_ptr(),
+            lb_sorted.data_ptr(), top_d.data_ptr(), top_i.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), visits.data_ptr(), ndist.data_ptr(), npad.data_ptr(),
+            qsteps.data_ptr(), qn, nb, cap, dim, beam, kk, n_slots, stream,
         )
         if scale is None:
-            err = lib.bucket_scan_topk_f32(q.data_ptr(), bucket_x.data_ptr(), *common)
+            err = lib.bucket_scan_phase_f32(q.data_ptr(), bucket_x.data_ptr(), *common)
         else:
-            err = lib.bucket_scan_topk_i8(
+            err = lib.bucket_scan_phase_i8(
                 q.data_ptr(), bucket_x.data_ptr(), scale.data_ptr(), *common
             )
     _build.check(lib, err, "bucket_scan_topk")
-    bucket_scan_topk_cuda.launches += 1
-    return out_d, out_i
+    bucket_scan_phase_cuda.launches += 1
+    return out_d, out_i, visits, ndist, npad, qsteps
 
 
-bucket_scan_topk_cuda.launches = 0  # kernel launches since the last reset
+bucket_scan_phase_cuda.launches = 0  # kernel launches since the last reset

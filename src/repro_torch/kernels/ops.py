@@ -12,7 +12,7 @@ Each kernel wrapper counts its own launches (``launch_counts``), so a run can
 show that its main path went through the kernels.
 
 The search's delta phase scans the streaming append buffers through the same
-K1 step, named ``delta_scan_topk`` at its call site; delta members always
+K1 phase, named ``delta_scan_topk`` at its call site; delta members always
 scan f32.
 """
 from __future__ import annotations
@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.bucket_scan import bucket_scan_topk_cuda
+from repro_torch.kernels.bucket_scan import bucket_scan_phase_cuda
 from repro_torch.kernels.eps_graph import (
     eps_count_cuda,
     eps_min_label_cuda,
@@ -33,7 +33,7 @@ Tensor = torch.Tensor
 
 KERNELS = {
     "pairwise_sq_l2": pairwise_sq_l2_cuda,
-    "bucket_scan_topk": bucket_scan_topk_cuda,
+    "bucket_scan_topk": bucket_scan_phase_cuda,
     "eps_count": eps_count_cuda,
     "eps_min_label": eps_min_label_cuda,
     "eps_nearest_core": eps_nearest_core_cuda,
@@ -59,24 +59,29 @@ def pairwise_sq_l2(q: Tensor, x: Tensor) -> Tensor:
     return ref.pairwise_sq_l2_ref(q, x)
 
 
-def bucket_scan_topk(
+def bucket_scan_phase(
     q: Tensor,
     bucket_x: Tensor,
     bucket_ids: Tensor,
-    bsel: Tensor,
-    act: Tensor,
+    bucket_count: Tensor,
+    order: Tensor,
+    lb_sorted: Tensor,
+    beam: int,
     top_d: Tensor,
     top_i: Tensor,
     scale: Tensor | None = None,
-) -> tuple[Tensor, Tensor]:
-    """Fused forest-scan step: gather ``bsel`` buckets, distances, top-k merge.
+) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """One whole forest-scan phase (K1): every step's gather, distances and
+    top-k merge, each query until its first inactive step.  Returns
+    (top_d, top_i, visits, ndist, npad, qsteps).
 
-    See ``bucket_scan.py`` for the kernel and ``ref.py`` for the plain
-    version.  ``scale`` enables the int8 bucket storage path.
+    See ``bucket_scan.py`` for the kernel and ``ref.bucket_scan_phase_ref``
+    for the plain version.  ``scale`` enables the int8 bucket storage path.
     """
+    args = (q, bucket_x, bucket_ids, bucket_count, order, lb_sorted, beam, top_d, top_i, scale)
     if q.is_cuda:
-        return bucket_scan_topk_cuda(q, bucket_x, bucket_ids, bsel, act, top_d, top_i, scale)
-    return ref.bucket_scan_topk_ref(q, bucket_x, bucket_ids, bsel, act, top_d, top_i, scale)
+        return bucket_scan_phase_cuda(*args)
+    return ref.bucket_scan_phase_ref(*args)
 
 
 def eps_count(q: Tensor, x: Tensor, eps_sq) -> Tensor:
@@ -115,9 +120,9 @@ def pairwise_sq_l2_int8(q: Tensor, x_q: Tensor, scale: Tensor) -> Tensor:
     return ref.pairwise_sq_l2_int8_ref(q, x_q, scale)
 
 
-# The delta phase dispatches through the identical kernel step, named so the
-# call site in core/knn.py reads as what it scans.
-delta_scan_topk = bucket_scan_topk
+# The delta phase dispatches through the identical kernel, named so a call
+# site reads as what it scans.
+delta_scan_topk = bucket_scan_phase
 
 
 def quantize_datastore(x: Tensor) -> tuple[Tensor, Tensor]:

@@ -106,6 +106,53 @@ def bucket_scan_topk_ref(
     return vals, torch.gather(merged_i, 1, pos)
 
 
+def bucket_scan_phase_ref(
+    q: Tensor,
+    bucket_x: Tensor,
+    bucket_ids: Tensor,
+    bucket_count: Tensor,
+    order: Tensor,
+    lb_sorted: Tensor,
+    beam: int,
+    top_d: Tensor,
+    top_i: Tensor,
+    scale: Tensor | None = None,
+) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """One bounded best-first scan phase: the JAX package's ``while_loop``
+    over ``bucket_scan_topk_ref`` steps, in lockstep over the queries.
+
+    order/lb_sorted (Q, S * beam) give each query's visit order and its
+    ascending lower bounds; bucket_count (NB,) the live members per bucket;
+    top_d/top_i (Q, kk) the carry the phase starts from.  Step t makes slot
+    ``t * beam + b`` active where its bound is <= the query's k-th best
+    distance at the step's start (+inf until kk are found); the loop runs
+    while any query has an active slot.  Returns (top_d, top_i, and per
+    query i32: visits, ndist, npad of this phase, and qsteps, the steps in
+    which the query had an active slot).  A query's active steps form a
+    prefix of the phase, so ``qsteps.max()`` is the loop's trip count.
+    """
+    qn = q.shape[0]
+    cap = bucket_ids.shape[1]
+    zeros = torch.zeros((qn,), dtype=torch.int32, device=q.device)
+    visits, ndist, qsteps = zeros, zeros, zeros
+    n_steps = order.shape[1] // beam
+    for t in range(n_steps):
+        lo = t * beam
+        kth = torch.sqrt(top_d[:, -1])  # inf until kk found
+        act = lb_sorted[:, lo : lo + beam] <= kth[:, None]  # (Q, beam)
+        if not bool(act.any()):
+            break
+        bsel = order[:, lo : lo + beam]
+        top_d, top_i = bucket_scan_topk_ref(
+            q, bucket_x, bucket_ids, bsel, act, top_d, top_i, scale
+        )
+        visits = visits + torch.sum(act, dim=1, dtype=torch.int32)
+        n_members = torch.where(act, bucket_count[bsel.long()], 0)
+        ndist = ndist + torch.sum(n_members, dim=1, dtype=torch.int32)
+        qsteps = qsteps + act.any(dim=1).to(torch.int32)
+    return top_d, top_i, visits, ndist, visits * cap, qsteps
+
+
 # --- DBSCAN eps-graph reductions (the plain versions of K3-K5) --------------
 # Each reduces a row of the same expansion ``pairwise_sq_l2_ref`` gives; the
 # sentinel label is N = len(x), as in the JAX package.

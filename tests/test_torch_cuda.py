@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.bucket_scan import bucket_scan_topk_cuda
+from repro_torch.kernels.bucket_scan import bucket_scan_phase_cuda
 from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_cuda
 
 pytestmark = pytest.mark.cuda
@@ -43,68 +43,105 @@ def test_pairwise_kernel_matches_plain(dev, q_n, x_n, d):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
-def _problem(g, qn, nb, cap, dim, beam, kk, pad_frac=0.3):
-    q = g.normal(size=(qn, dim)).astype(np.float32)
-    bx = g.normal(size=(nb, cap, dim)).astype(np.float32)
+@pytest.mark.parametrize("qn,n", [(1, 1), (7, 9), (31, 130), (33, 257), (64, 1498), (100, 841)])
+@pytest.mark.parametrize("d", list(range(1, 41)))
+def test_pairwise_kernel_bit_equal_on_grid(dev, qn, n, d):
+    """On 1/8-grid rows the expansion is exact in f32, so K2 equals its plain
+    version bit for bit: every width of the small-D kernel (D <= 32) and the
+    tiled one above it, N not a multiple of 4 (rows start off 16-byte
+    alignment) and Q below one tile."""
+    g = np.random.default_rng(1000 * d + n + qn)
+    q = torch.from_numpy(_grid(g, qn, d)).to(dev)
+    x = torch.from_numpy(_grid(g, n, d)).to(dev)
+    got = ops.pairwise_sq_l2(q, x)
+    want = ref.pairwise_sq_l2_ref(q, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _phase_problem(g, qn, nb, cap, dim, beam, kk, *, pad_frac=0.3, inf_frac=0.2,
+                   int8=False, dev="cuda"):
+    """A K1 scan phase on grid rows (int8: integers with scale 1/8), so the
+    expansion is exact and the kernel must equal the plain phase bit for bit.
+    Bounds per bucket with a share of +inf rows, sorted and padded to a beam
+    multiple by the search's own ``_sorted_bounds``."""
+    from repro_torch.core.knn import _sorted_bounds
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    q = _grid(g, qn, dim)
+    if int8:
+        bx = g.integers(-127, 128, size=(nb, cap, dim)).astype(np.int8)
+        scale = t(np.full((nb, cap), 0.125, np.float32))
+    else:
+        bx = _grid(g, nb * cap, dim).reshape(nb, cap, dim)
+        scale = None
     ids = np.arange(nb * cap, dtype=np.int32).reshape(nb, cap)
     ids = np.where(g.random((nb, cap)) < pad_frac, -1, ids).astype(np.int32)
-    bsel = g.integers(0, nb, size=(qn, beam)).astype(np.int32)
-    act = g.random((qn, beam)) < 0.75
-    top_d = np.sort(g.random((qn, kk)).astype(np.float32) * 40.0, axis=1)
-    top_d[:, kk // 2:] = np.inf
-    top_i = np.where(np.isinf(top_d), -1, g.integers(10_000, 20_000, (qn, kk))).astype(np.int32)
-    return q, bx, ids, bsel, act, top_d, top_i
+    lb = (g.random((qn, nb)) * 1.5 * np.sqrt(dim) * (8.0 if int8 else 1.0)).astype(np.float32)
+    lb[g.random((qn, nb)) < inf_frac] = np.inf
+    order, lb_sorted, _ = _sorted_bounds(t(lb), beam)
+    top_d = torch.full((qn, kk), float("inf"), device=dev)
+    top_i = torch.full((qn, kk), -1, dtype=torch.int32, device=dev)
+    return [t(q), t(bx), t(ids), t((ids >= 0).sum(1).astype(np.int32)), order, lb_sorted,
+            beam, top_d, top_i, scale]
+
+
+def _assert_phase_equal(args):
+    """The phase kernel (one launch) against the plain lockstep phase: bit
+    for bit in top_d, top_i, visits, ndist, npad and qsteps."""
+    n0 = bucket_scan_phase_cuda.launches
+    got = ops.bucket_scan_phase(*args)
+    torch.cuda.synchronize()
+    assert bucket_scan_phase_cuda.launches == n0 + 1
+    want = ref.bucket_scan_phase_ref(*args)
+    for name, a, b in zip(("top_d", "top_i", "visits", "ndist", "npad", "qsteps"), got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    return got
 
 
 @pytest.mark.parametrize("qn,nb,cap,dim,beam,kk", [
-    (4, 7, 5, 6, 3, 4), (2, 9, 8, 16, 4, 7), (1, 3, 2, 33, 2, 5),
-    (5, 6, 4, 8, 6, 11), (64, 40, 1000, 5, 1, 10), (64, 40, 2500, 20, 4, 10),
-    (16, 10, 300, 20, 2, 200),
+    (4, 7, 5, 6, 3, 4), (2, 9, 8, 16, 4, 7), (1, 3, 2, 33, 1, 5), (5, 13, 4, 8, 4, 11),
+    (64, 40, 1000, 5, 1, 10), (64, 40, 1000, 5, 4, 10), (48, 30, 250, 20, 1, 10),
+    (32, 12, 2500, 20, 3, 10), (16, 10, 300, 20, 3, 300),
 ])
 @pytest.mark.parametrize("int8", [False, True])
 def test_bucket_scan_kernel_matches_plain(dev, qn, nb, cap, dim, beam, kk, int8):
-    g = np.random.default_rng(qn * 7 + cap)
-    args = [torch.from_numpy(a).to(dev) for a in _problem(g, qn, nb, cap, dim, beam, kk)]
-    scale = None
-    if int8:
-        xq, s = ops.quantize_datastore(args[1].reshape(nb * cap, dim))
-        args[1] = xq.reshape(nb, cap, dim).contiguous()
-        scale = s.reshape(nb, cap).contiguous()
-    n0 = bucket_scan_topk_cuda.launches
-    kd, ki = ops.bucket_scan_topk(*args, scale)
-    torch.cuda.synchronize()
-    assert bucket_scan_topk_cuda.launches == n0 + 1
-    rd, ri = ref.bucket_scan_topk_ref(*args, scale)
-    tol = 1e-4 if int8 else 1e-5
-    torch.testing.assert_close(kd, rd, rtol=tol, atol=tol)
-    torch.testing.assert_close(torch.isinf(kd), ki == -1)
-    # ids: equal wherever the plain result has no near tie at that rank
-    gap = torch.diff(rd, dim=1).abs()
-    near = torch.zeros_like(ki, dtype=torch.bool)
-    near[:, 1:] |= gap <= tol * (1 + rd[:, 1:].abs().nan_to_num(0, 0, 0))
-    near[:, :-1] |= near[:, 1:].clone()
-    assert torch.equal(ki[~near], ri[~near])
+    """Beams 1/3/4, WARD's C = 1000 at D = 5 and Tracking's C = 250 at
+    D = 20, C = 2500 (several shared-memory tiles a bucket) and kk = 300."""
+    g = np.random.default_rng(qn * 7 + cap + beam)
+    got = _assert_phase_equal(_phase_problem(g, qn, nb, cap, dim, beam, kk, int8=int8))
+    assert int(got[5].max()) > 0
 
 
 def test_bucket_scan_kernel_ties_and_dry_pool(dev):
+    """Exact ties across the slots of a step (one row in every bucket);
+    fewer than k reachable (kth stays +inf: every slot active, pad slots
+    re-scan bucket 0, the tail stays (+inf, -1)); a delta phase seeded with
+    the main phase's carry; and a carry whose kth is below every bound (no
+    step runs)."""
     g = np.random.default_rng(9)
-    qn, nb, cap, dim, beam, kk = 3, 5, 4, 6, 3, 6
-    row = g.normal(size=(dim,)).astype(np.float32)
-    bx = np.broadcast_to(row, (nb, cap, dim)).copy()
-    bx[2:] = g.normal(size=(nb - 2, cap, dim))
-    ids = np.arange(nb * cap, dtype=np.int32).reshape(nb, cap)
-    ids[4] = -1  # an all-padding bucket: a dry pool for query 2
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    q = t(g.normal(size=(qn, dim)).astype(np.float32))
-    bsel = t(np.array([[0, 1, 2], [1, 0, 3], [4, 4, 4]], np.int32))
-    act = t(np.ones((qn, beam), bool))
-    top_d = t(np.array([[np.inf] * kk, [np.inf] * kk, [1.0, 2.5] + [np.inf] * (kk - 2)], np.float32))
-    top_i = t(np.array([[-1] * kk, [-1] * kk, [42, 7] + [-1] * (kk - 2)], np.int32))
-    kd, ki = ops.bucket_scan_topk(q, t(bx), t(ids), bsel, act, top_d, top_i)
-    rd, ri = ref.bucket_scan_topk_ref(q, t(bx), t(ids), bsel, act, top_d, top_i)
-    torch.testing.assert_close(kd, rd, rtol=1e-5, atol=1e-5)
-    assert torch.equal(ki, ri)
-    assert torch.equal(ki[2], top_i[2])
+    args = _phase_problem(g, 5, 6, 4, 5, 3, 7, pad_frac=0.0, inf_frac=0.0)
+    args[1][:] = args[1][0, 0]
+    got = _assert_phase_equal(args)
+    assert (torch.diff(got[0], dim=1) == 0).all()
+
+    args = _phase_problem(g, 4, 5, 3, 3, 4, 40, pad_frac=0.5)
+    got = _assert_phase_equal(args)
+    assert (got[5] == args[4].shape[1] // 4).all() and torch.isinf(got[0]).any()
+    assert torch.equal(torch.isinf(got[0]), got[1] == -1)
+
+    main = _phase_problem(g, 32, 20, 64, 5, 2, 10)
+    carry = _assert_phase_equal(main)
+    delta = _phase_problem(g, 32, 6, 50, 5, 2, 10, pad_frac=0.5)
+    delta[0] = main[0]
+    delta[7], delta[8] = carry[0], carry[1]
+    _assert_phase_equal(delta)
+
+    done = _phase_problem(g, 3, 6, 4, 4, 2, 5, inf_frac=0.0)
+    done[5] = done[5] + 1.0
+    done[7] = torch.full_like(done[7], 0.25)
+    got = _assert_phase_equal(done)
+    assert int(got[5].max()) == 0 and torch.equal(got[0], done[7])
 
 
 # --- K3, K4, K5: the DBSCAN eps-graph passes ---------------------------------

@@ -1,5 +1,6 @@
 """The port's plain K1/K2, and K7 at D = 900 (``repro_torch.kernels``), against
-the JAX package.
+the JAX package; and K1's one-launch phase reformulation against the
+lockstep loop it replaces.
 
 Each case feeds the same numpy-seeded inputs to the port's plain version, to
 ``repro.kernels.ref`` and to the Pallas kernel in interpret mode.  On a CPU
@@ -25,7 +26,7 @@ from repro.kernels.bucket_scan import bucket_scan_topk_pallas
 from repro.kernels.ops import quantize_datastore as j_quantize
 from repro.kernels.pairwise_l2 import pairwise_sq_l2_int8_pallas, pairwise_sq_l2_pallas
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.bucket_scan import bucket_scan_topk_cuda
+from repro_torch.kernels.bucket_scan import bucket_scan_phase_cuda
 from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_cuda
 
 TOL = 1e-5
@@ -96,7 +97,7 @@ def _problem(g, qn, nb, cap, dim, beam, kk, *, pad_frac=0.3, seeded_topk=True):
 def _scan_all(args, scale=None):
     """(port plain, JAX ref, Pallas interpret) results of one scan step."""
     q, bx, ids, bsel, act, top_d, top_i = args
-    tp = ops.bucket_scan_topk(
+    tp = ref.bucket_scan_topk_ref(
         _t(q), _t(bx), _t(ids), _t(bsel), _t(act), _t(top_d), _t(top_i),
         None if scale is None else _t(scale),
     )
@@ -273,11 +274,11 @@ def test_dispatch_on_cpu_runs_plain_and_counts_nothing():
     np.testing.assert_array_equal(
         ops.pairwise_sq_l2(q, x).numpy(), ref.pairwise_sq_l2_ref(q, x).numpy()
     )
-    args = [_t(a) for a in _problem(g, 3, 4, 5, 5, 2, 3)]
-    got = ops.bucket_scan_topk(*args)
-    want = ref.bucket_scan_topk_ref(*args)
-    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
-    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    p = _phase_problem(g, 3, 4, 5, 5, 2, 3)
+    got = ops.bucket_scan_phase(*_phase_args(p))
+    want = ref.bucket_scan_phase_ref(*_phase_args(p))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert ops.launch_counts() == {
         "pairwise_sq_l2": 0, "bucket_scan_topk": 0,
         "eps_count": 0, "eps_min_label": 0, "eps_nearest_core": 0,
@@ -293,9 +294,168 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         pairwise_sq_l2_cuda(q, q)
     with pytest.raises(ValueError, match="CUDA"):
-        bucket_scan_topk_cuda(
+        bucket_scan_phase_cuda(
             q, torch.zeros((1, 2, 3)), torch.zeros((1, 2), dtype=torch.int32),
-            torch.zeros((2, 1), dtype=torch.int32), torch.ones((2, 1), dtype=torch.bool),
-            torch.full((2, 1), float("inf")), torch.full((2, 1), -1, dtype=torch.int32),
+            torch.ones((1,), dtype=torch.int32), torch.zeros((2, 1), dtype=torch.int32),
+            torch.zeros((2, 1)), 1, torch.full((2, 1), float("inf")),
+            torch.full((2, 1), -1, dtype=torch.int32),
         )
     assert ops.launch_counts() == before
+
+
+# --- K1 as one phase: the kernel's control flow against the lockstep loop ----
+#
+# Rows on a 1/8 grid (int8 rows: integers with a power-of-two scale) keep
+# every product and partial sum of the expansion exact in f32, so every
+# formulation below must agree bit for bit.
+
+
+def _phase_problem(g, qn, nb, cap, dim, beam, kk, *, pad_frac=0.3, inf_frac=0.2,
+                   seeded=False, int8=False):
+    """A scan phase: grid queries and buckets, per-bucket lower bounds with a
+    share of ineligible (+inf) rows, sorted and padded to a beam multiple by
+    the search's own ``_sorted_bounds``."""
+    from repro_torch.core.knn import _sorted_bounds
+
+    q = (g.integers(-16, 17, size=(qn, dim)) / 8).astype(np.float32)
+    scale = None
+    if int8:
+        xq = g.integers(-127, 128, size=(nb, cap, dim)).astype(np.int8)
+        scale = np.full((nb, cap), 0.125, np.float32)
+        bx = xq
+    else:
+        bx = (g.integers(-16, 17, size=(nb, cap, dim)) / 8).astype(np.float32)
+    ids = np.arange(nb * cap, dtype=np.int32).reshape(nb, cap)
+    ids = np.where(g.random((nb, cap)) < pad_frac, -1, ids).astype(np.int32)
+    count = (ids >= 0).sum(1).astype(np.int32)
+    typical = 1.5 * np.sqrt(dim) * (8.0 if int8 else 1.0)
+    lb = (g.random((qn, nb)) * typical).astype(np.float32)
+    lb[g.random((qn, nb)) < inf_frac] = np.inf
+    order, lb_sorted, _ = _sorted_bounds(_t(lb), beam)
+    if seeded:
+        top_d = np.sort((g.integers(0, 64, (qn, kk)) / 8).astype(np.float32) * 4, axis=1)
+        top_d[:, kk // 2:] = np.inf
+        top_i = np.where(np.isinf(top_d), -1, g.integers(10**6, 2 * 10**6, (qn, kk)))
+    else:
+        top_d = np.full((qn, kk), np.inf, np.float32)
+        top_i = np.full((qn, kk), -1)
+    return dict(q=q, bx=bx, ids=ids, count=count, order=order.numpy(),
+                lb=lb_sorted.numpy(), beam=beam, top_d=top_d,
+                top_i=top_i.astype(np.int32), scale=scale)
+
+
+def _phase_args(p):
+    """The problem as the arguments of ``ops.bucket_scan_phase``."""
+    return (_t(p["q"]), _t(p["bx"]), _t(p["ids"]), _t(p["count"]), _t(p["order"]),
+            _t(p["lb"]), p["beam"], _t(p["top_d"]), _t(p["top_i"]),
+            None if p["scale"] is None else _t(p["scale"]))
+
+
+def _walk_alone(p, rows):
+    """Plain emulation of the phase kernel's control flow: each query walks
+    its own steps until its first inactive one, deciding every slot of a
+    step from the kth at the step's start, scoring each active bucket in
+    tiles of ``rows`` members, dropping candidates not below the kth at the
+    tile's start, and inserting the survivors in member order, each after
+    every equal value."""
+    q, ids, count, order, lb, beam = (p[k] for k in ("q", "ids", "count", "order", "lb", "beam"))
+    bx = p["bx"].astype(np.float32)
+    if p["scale"] is not None:
+        bx = bx * p["scale"][..., None]
+    tq, tx = _t(q), _t(bx)
+    d2_all = torch.clamp_min(  # the plain version's arithmetic, every (query, bucket, member)
+        torch.sum(tq * tq, dim=-1)[:, None, None] + torch.sum(tx * tx, dim=-1)[None]
+        - 2.0 * torch.einsum("bcd,qd->qbc", tx, tq), 0.0).numpy()
+    nb, cap = ids.shape
+    qn, kk = p["top_d"].shape
+    n_steps = order.shape[1] // beam
+    out_d, out_i = p["top_d"].copy(), p["top_i"].copy()
+    counters = np.zeros((4, qn), np.int32)  # visits, ndist, npad, qsteps
+    for qi in range(qn):
+        tv, ti = list(out_d[qi]), list(out_i[qi])
+        for t in range(n_steps):
+            kth = np.sqrt(np.float32(tv[-1]))
+            slots = range(t * beam, (t + 1) * beam)
+            act = [s for s in slots if lb[qi, s] <= kth]
+            if not act:
+                break
+            counters[0, qi] += len(act)
+            counters[3, qi] += 1
+            for s in act:
+                b = order[qi, s]
+                if not 0 <= b < nb:
+                    continue
+                counters[1, qi] += count[b]
+                for c0 in range(0, cap, rows):
+                    kth2 = tv[-1]
+                    surv = [(d2_all[qi, b, m], ids[b, m]) for m in range(c0, min(cap, c0 + rows))
+                            if ids[b, m] >= 0 and d2_all[qi, b, m] < kth2]
+                    for v, i in surv:
+                        if v < tv[-1]:
+                            pos = sum(1 for w in tv if w <= v)
+                            tv.insert(pos, v)
+                            ti.insert(pos, i)
+                            del tv[-1], ti[-1]
+        out_d[qi], out_i[qi] = tv, ti
+        counters[2, qi] = counters[0, qi] * cap
+    return out_d, out_i, counters
+
+
+def _assert_walk_equals_lockstep(p, rows):
+    want = ref.bucket_scan_phase_ref(*_phase_args(p))
+    got_d, got_i, counters = _walk_alone(p, rows)
+    np.testing.assert_array_equal(got_d.view(np.int32), want[0].numpy().view(np.int32))
+    np.testing.assert_array_equal(got_i, want[1].numpy())
+    for j, name in enumerate(("visits", "ndist", "npad", "qsteps")):
+        np.testing.assert_array_equal(counters[j], want[2 + j].numpy(), err_msg=name)
+    return want
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("beam", [1, 3, 4])
+def test_phase_walk_alone_equals_lockstep(beam, int8):
+    """Random forests (13 buckets: a beam of 3 or 4 leaves pad slots), empty
+    and seeded carries, buckets scored in tiles of 3 members."""
+    for seed in range(4):
+        g = np.random.default_rng(100 * beam + 10 * int8 + seed)
+        p = _phase_problem(g, 6, 13, 7, 4, beam, 5, seeded=bool(seed % 2), int8=int8)
+        want = _assert_walk_equals_lockstep(p, rows=3)
+        steps = int(want[5].max())
+        assert 0 < steps <= p["order"].shape[1] // beam
+
+
+def test_phase_walk_alone_unfilled_topk_pad_slots():
+    """Fewer than kk members reachable: kth stays +inf, so every slot is
+    active to the end, the +inf-bound rows and the pad slots included (a pad
+    slot re-scans bucket 0, as in the reference)."""
+    g = np.random.default_rng(7)
+    p = _phase_problem(g, 4, 5, 3, 3, 4, 40, pad_frac=0.5)
+    want = _assert_walk_equals_lockstep(p, rows=2)
+    n_slots = p["order"].shape[1]
+    assert (want[5].numpy() == n_slots // 4).all()
+    assert (want[2].numpy() == n_slots).all()  # every slot visited, pads too
+    assert np.isinf(want[0].numpy()).any()
+
+
+def test_phase_walk_alone_ties_across_slots():
+    """One member row copied into every bucket: exact ties across the slots
+    of a step and across steps; the lower position wins each."""
+    g = np.random.default_rng(8)
+    p = _phase_problem(g, 5, 6, 4, 5, 3, 7, pad_frac=0.0, inf_frac=0.0)
+    p["bx"][:] = p["bx"][0, 0]
+    want = _assert_walk_equals_lockstep(p, rows=4)
+    assert (np.diff(want[0].numpy(), axis=1) == 0).all()
+
+
+def test_phase_all_slots_inactive_at_step_0():
+    """A seeded carry whose kth is below every bound: no step runs, the
+    carry comes back unchanged and every counter is 0."""
+    g = np.random.default_rng(9)
+    p = _phase_problem(g, 3, 6, 4, 4, 2, 5, inf_frac=0.0)
+    p["lb"] = p["lb"] + 1.0
+    p["top_d"] = np.full_like(p["top_d"], 0.25)
+    p["top_i"] = np.arange(p["top_i"].size, dtype=np.int32).reshape(p["top_i"].shape)
+    want = _assert_walk_equals_lockstep(p, rows=4)
+    np.testing.assert_array_equal(want[0].numpy(), p["top_d"])
+    np.testing.assert_array_equal(want[1].numpy(), p["top_i"])
+    assert all(int(c.abs().sum()) == 0 for c in want[2:])

@@ -32,7 +32,15 @@ from repro.api import (
     SearchConfig as JSearchConfig,
     StreamConfig as JStreamConfig,
 )
-from repro.core.knn import knn_exact as j_knn_exact, knn_search_impl as j_impl
+from repro.core.knn import (
+    DeltaView as JDeltaView,
+    bucket_bounds as j_bucket_bounds,
+    delta_bounds as j_delta_bounds,
+    device_forest as j_device_forest,
+    knn_exact as j_knn_exact,
+    knn_search_impl as j_impl,
+    scan_sorted as j_scan_sorted,
+)
 from repro.core.pipeline import build_baseline_core as j_build_baseline
 from repro.data.synthetic import tracking_like as j_tracking, ward_like as j_ward
 from repro.stream.ingest import delta_view as j_delta_view
@@ -52,6 +60,7 @@ from repro_torch.core.knn import (
 )
 from repro_torch.core.pipeline import build_baseline_core
 from repro_torch.data.synthetic import tracking_like, ward_like
+from repro_torch.kernels import ref as tref
 
 D2_RTOL = 8 * float(np.finfo(np.float32).eps)
 STAT_KEYS = ("buckets_visited", "distances", "bound_distances",
@@ -200,8 +209,6 @@ def test_carried_overlap_forest_parity(blob_data, overlap_index, beam):
     jx = overlap_index
     q = _queries(blob_data, 48, seed=30 + beam)
     for quantize in (False, True):
-        from repro.core.knn import device_forest as j_device_forest
-
         dj, ij, sj = j_impl(
             j_device_forest(jx.forest, quantize=quantize), jnp.asarray(q),
             k=10, beam=beam,
@@ -240,6 +247,68 @@ def test_carried_forest_with_delta_parity(blob_data):
         for name in STAT_KEYS:
             np.testing.assert_array_equal(getattr(st, name).numpy(), rj.stats[name], err_msg=name)
         assert int(st.steps) == rj.stats["steps"]
+
+
+def _grid_blobs(g, n, d):
+    """Clustered rows on a 1/8 grid in [-15.875, 15.875], plus a constant
+    feature 15.875 that makes every row's int8 scale exactly 1/8: f32 and
+    int8 buckets then hold the same values, and every sum of the expansion
+    is exact in f32, whatever its order."""
+    centers = g.uniform(-10, 10, size=(6, d))
+    x = centers[g.integers(0, 6, n)] + 2.0 * g.normal(size=(n, d))
+    x = np.clip(np.round(x * 8) / 8, -15.875, 15.875)
+    return np.concatenate([x, np.full((n, 1), 15.875)], axis=1).astype(np.float32)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("beam", [1, 3, 4])
+def test_phase_ref_matches_jax_scan_sorted(quantize, beam):
+    """The plain K1 phase (``bucket_scan_phase_ref``) over the JAX package's
+    own ``PhaseBounds``: the main phase, then a delta phase seeded with its
+    carry, equal the JAX ``scan_sorted`` bit for bit in top_d, top_i, every
+    counter and steps."""
+    g = np.random.default_rng(60 + beam)
+    x = _grid_blobs(g, 600, 6)
+    qn, kk = 24, 10
+    q = x[g.choice(len(x), qn)].copy()
+    q[:, :-1] += np.round(g.normal(size=(qn, 6)) * 4) / 8
+    jx = JIndex.baseline(x, JConfig(index=JIndexConfig(pivot_method="kmeans", c_max=32)))
+    jf = j_device_forest(jx.forest, quantize=quantize)
+    jq = jnp.asarray(q)
+    n_d, cap_d = 5, 9
+    dx = _grid_blobs(g, n_d * cap_d, 6).reshape(n_d, cap_d, 7)
+    dmask = g.random((n_d, cap_d)) < 0.7
+    dmask[0] = False  # an empty buffer is never eligible
+    dids = np.where(dmask, 10_000 + np.arange(n_d * cap_d).reshape(n_d, cap_d), -1)
+    dpiv = dx.mean(axis=1).astype(np.float32)
+    drad = np.sqrt(((dx - dpiv[:, None]) ** 2).sum(-1)).max(1).astype(np.float32)
+    jdelta = JDeltaView(x=jnp.asarray(dx), ids=jnp.asarray(dids, jnp.int32),
+                        mask=jnp.asarray(dmask), pivot=jnp.asarray(dpiv),
+                        radius=jnp.asarray(drad))
+    sel = jnp.ones((qn, jf.index_centers.shape[0]), bool)
+    jb = j_bucket_bounds(jf, jq, sel, beam=beam, kernel=False)
+    jdb = j_delta_bounds(jdelta, jq, jnp.ones((qn, n_d), bool), beam=beam, kernel=False)
+    want = j_scan_sorted(jf, jq, jb, kk=kk, beam=beam, kernel=False,
+                         delta=jdelta, dbounds=jdb)
+
+    tf = _port_forest(jx, quantize)
+    t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    main = tref.bucket_scan_phase_ref(
+        t(q), tf.bucket_x, tf.bucket_ids, torch.sum(tf.bucket_mask, 1, dtype=torch.int32),
+        t(jb.order), t(jb.lb_sorted), beam, torch.full((qn, kk), float("inf")),
+        torch.full((qn, kk), -1, dtype=torch.int32), tf.bucket_scale)
+    delta = tref.bucket_scan_phase_ref(
+        t(q), t(dx), t(dids.astype(np.int32)), t(dmask.sum(1).astype(np.int32)),
+        t(jdb.order), t(jdb.lb_sorted), beam, main[0], main[1])
+    np.testing.assert_array_equal(delta[0].numpy().view(np.int32),
+                                  np.asarray(want.top_d).view(np.int32))
+    np.testing.assert_array_equal(delta[1].numpy(), np.asarray(want.top_i))
+    np.testing.assert_array_equal(main[2].numpy(), np.asarray(want.visits_main))
+    for j, name in ((2, "visits"), (3, "ndist"), (4, "npad")):
+        np.testing.assert_array_equal((main[j] + delta[j]).numpy(),
+                                      np.asarray(getattr(want, name)), err_msg=name)
+    assert int(main[5].max()) + int(delta[5].max()) == int(want.steps)
+    assert int(delta[5].max()) > 0 and int(main[5].max()) > 1
 
 
 def test_synthetic_datasets_match():
