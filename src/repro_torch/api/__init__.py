@@ -5,6 +5,9 @@
     ix = OverlapIndex.build(x, cfg)        # the paper's overlap forest, on "cuda"
     ix = OverlapIndex.baseline(x)          # the BCCF baseline; device= names another
     res = ix.search(q, k=10)               # SearchResult(dists, ids, stats)
+    ix.ingest(batch)                       # streaming writes (delta buffers)
+    ix.maintain()                          # overlap-drift monitor + rebuilds
+    ds = ix.to_datastore(values)           # kNN-LM serving datastore
 
 Overlap heuristics resolve through ``register_overlap_method`` /
 ``available_overlap_methods`` (VBM, DBM and OBM are the built-in entries).
@@ -14,6 +17,7 @@ from repro_torch.api.config import (
     ConfigError,
     IndexConfig,
     SearchConfig,
+    StreamConfig,
     as_index_config,
 )
 from repro_torch.api.index import OverlapIndex
@@ -25,7 +29,7 @@ from repro_torch.core.overlap import (
 )
 
 __all__ = [
-    "Config", "ConfigError", "IndexConfig", "SearchConfig", "as_index_config",
+    "Config", "ConfigError", "IndexConfig", "SearchConfig", "StreamConfig", "as_index_config",
     "OverlapIndex", "PlanCache", "PlanKey", "SearchPlan", "SearchResult",
     "available_overlap_methods", "register_overlap_method",
     "unregister_overlap_method",

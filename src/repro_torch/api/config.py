@@ -1,5 +1,5 @@
 """One frozen configuration tree for the index: ``Config(index=IndexConfig,
-search=SearchConfig)``.
+search=SearchConfig, stream=StreamConfig)``.
 
 Every field is validated at construction with an actionable message
 (``ConfigError``), with the same texts as the JAX package's
@@ -111,15 +111,73 @@ class SearchConfig:
 
 
 @dataclass(frozen=True)
+class StreamConfig:
+    """Streaming ingest and online-maintenance knobs (``repro_torch.stream``)."""
+
+    capacity: int | None = None  # per-index delta capacity; None -> sqrt(n)
+    monitor_method: str = "dbm"  # overlap heuristic re-evaluated online
+    xi_rebuild: float = 0.8  # absolute overlap rate forcing repartition
+    drift_margin: float | None = None  # optional rise-over-baseline trigger
+    fill_rebuild: float = 0.75  # delta fill fraction forcing a merge-rebuild
+    # measured-waste trigger: rebuild when explain() attribution shows this
+    # share of an index's bucket visits were wasted; None keeps it off
+    wasted_rebuild: float | None = None
+    pivot_method: str = "gh"  # pivot rule for maintenance rebuilds
+    c_max: int | None = None  # rebuild bucket capacity; None -> keep forest's
+    seed: int = 1
+
+    def __post_init__(self) -> None:
+        _require(
+            self.capacity is None or self.capacity >= 1,
+            f"StreamConfig.capacity={self.capacity} must be >= 1 or None "
+            "(None sizes the per-index delta buffers at sqrt(n), floor 64)",
+        )
+        _check_method(
+            self.monitor_method, owner="StreamConfig", field_name="monitor_method"
+        )
+        _require(
+            0.0 < self.xi_rebuild <= 1.0,
+            f"StreamConfig.xi_rebuild={self.xi_rebuild} must lie in (0, 1] "
+            "(overlap rates are rates — 1.0 disables the absolute trigger "
+            "short of full containment)",
+        )
+        _require(
+            self.drift_margin is None or self.drift_margin > 0.0,
+            f"StreamConfig.drift_margin={self.drift_margin} must be > 0 or "
+            "None (None disables the rise-over-baseline trigger)",
+        )
+        _require(
+            0.0 < self.fill_rebuild <= 1.0,
+            f"StreamConfig.fill_rebuild={self.fill_rebuild} must lie in "
+            "(0, 1] (fraction of delta capacity that forces a merge-rebuild)",
+        )
+        _require(
+            self.wasted_rebuild is None or 0.0 < self.wasted_rebuild <= 1.0,
+            f"StreamConfig.wasted_rebuild={self.wasted_rebuild} must lie in "
+            "(0, 1] or None (share of MEASURED wasted bucket visits — from "
+            "OverlapIndex.explain attribution — that flags an index for "
+            "rebuild; None disables the trigger)",
+        )
+        _check_pivot(self.pivot_method, owner="StreamConfig")
+        _require(
+            self.c_max is None or self.c_max >= 2,
+            f"StreamConfig.c_max={self.c_max} must be >= 2 or None (None "
+            "keeps the forest's bucket capacity on rebuilds)",
+        )
+
+
+@dataclass(frozen=True)
 class Config:
     """The index lifecycle in one immutable tree; ``dataclasses.replace``
     derives variants."""
 
     index: IndexConfig = field(default_factory=IndexConfig)
     search: SearchConfig = field(default_factory=SearchConfig)
+    stream: StreamConfig = field(default_factory=StreamConfig)
 
     def __post_init__(self) -> None:
-        for name, want in (("index", IndexConfig), ("search", SearchConfig)):
+        for name, want in (("index", IndexConfig), ("search", SearchConfig),
+                           ("stream", StreamConfig)):
             got = getattr(self, name)
             if not isinstance(got, want):
                 raise ConfigError(

@@ -1,7 +1,7 @@
 """Search planning: one cached executor per static-option tuple.
 
   * ``PlanKey``     — the static options an executor is specialized on:
-                      ``(k, mode, beam, kernel, quantize)``;
+                      ``(k, mode, beam, kernel, quantize, delta_capacity)``;
   * ``SearchPlan``  — the key plus the layout backend's executor body with
                       those options baked in, and a call counter;
   * ``PlanCache``   — the per-index table of plans with hit/miss counters,
@@ -31,6 +31,7 @@ class PlanKey(NamedTuple):
     beam: int
     kernel: bool
     quantize: bool
+    delta_capacity: int | None = None  # None: no delta phase
 
 
 @dataclass

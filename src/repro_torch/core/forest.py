@@ -170,3 +170,54 @@ def build_forest(
         ),
         **flat,
     )
+
+
+def swap_trees(
+    forest: ForestArrays,
+    x: np.ndarray,
+    replacements: dict[int, FlatTree],
+    *,
+    index_centers: np.ndarray | None = None,
+    index_radii: np.ndarray | None = None,
+) -> ForestArrays:
+    """Swap freshly rebuilt per-index trees into a forest (the hot rebuild).
+
+    Returns a new ForestArrays (the old one keeps serving until the caller
+    swaps the device upload) with the bucket arrays re-flattened from the
+    updated tree set by ``_flatten_trees``, the host ``trees`` refreshed (so
+    ``aggregate_structure`` describes the live trees), ``build_stats``
+    accumulated over the build and every rebuild (the paper's construction
+    cost includes maintenance) with a ``rebuilds`` tally, and optionally the
+    post-ingest index geometry.  ``x`` must cover every global object id any
+    tree references.
+    """
+    x = np.asarray(x, np.float32)
+    trees = list(forest.trees)
+    add = BuildCounters()
+    for gi, tree in replacements.items():
+        if not (0 <= gi < len(trees)):
+            raise ValueError(f"replacement for unknown index {gi}")
+        trees[gi] = tree
+        add.distances += tree.counters.distances
+        add.comparisons += tree.counters.comparisons
+
+    flat = _flatten_trees(x, trees, c_max=forest.c_max)
+    centers = forest.index_centers.copy() if index_centers is None else (
+        np.asarray(index_centers, np.float32)
+    )
+    radii = forest.index_radii.copy() if index_radii is None else (
+        np.asarray(index_radii, np.float32)
+    )
+    stats = dict(forest.build_stats)
+    stats["tree_distances"] = stats.get("tree_distances", 0) + add.distances
+    stats["tree_comparisons"] = stats.get("tree_comparisons", 0) + add.comparisons
+    stats["rebuilds"] = stats.get("rebuilds", 0) + len(replacements)
+    return ForestArrays(
+        index_centers=centers,
+        index_radii=radii,
+        neighbors=forest.neighbors.copy(),
+        is_overlap_index=forest.is_overlap_index.copy(),
+        trees=trees,
+        build_stats=stats,
+        **flat,
+    )

@@ -8,6 +8,8 @@
   clusters with heavy within-class concentration.
 * embedding_datastore — kNN-LM (key, next-token) pairs: clustered
   hidden-state keys with token ids.
+* drifting_batches — an IoT arrival stream whose cluster centers wander
+  (the recipe of the JAX package's ``benchmarks/bench_stream.py``).
 
 Host numpy, the same generators as the JAX package's
 ``repro.data.synthetic``: the same seed gives the same array.
@@ -85,3 +87,24 @@ def embedding_datastore_on(
     keys = torch.randn((n, dim), generator=g, device=device).mul_(0.5).add_(centers[lab])
     tokens = (lab * 97 + torch.randint(0, 13, (n,), generator=g, device=device)) % 50_000
     return keys, tokens.to(torch.int32)
+
+
+def drifting_batches(n_total: int, batch: int, dim: int, seed: int) -> list[np.ndarray]:
+    """IoT-style arrival: six clustered sources whose centers wander by 2
+    units a batch along fixed directions, in batches of ``batch`` rows (the
+    last one shorter).  The drift is what moves the overlap rates."""
+    g = np.random.default_rng(seed)
+    centers = g.normal(size=(6, dim)) * 12.0
+    drift = g.normal(size=(6, dim))
+    drift /= np.linalg.norm(drift, axis=1, keepdims=True)
+    out = []
+    t = 0.0
+    remaining = n_total
+    while remaining > 0:
+        m = min(batch, remaining)
+        lab = g.integers(0, 6, m)
+        pts = centers[lab] + t * drift[lab] * 2.0 + g.normal(size=(m, dim))
+        out.append(pts.astype(np.float32))
+        remaining -= m
+        t += 1.0
+    return out

@@ -22,18 +22,21 @@ The traffic model:
   (``req.shed``/``req.shed_reason``) and counted under
   ``serve.shed{reason=...}``, and ``submitted == completed + shed +
   in_flight`` holds at every step boundary;
-* **retrieval** — the datastore is handed to every decode step;
-* **telemetry** (``repro_torch.obs``): request latency histograms with
-  serving percentiles, queue-depth / slot-occupancy gauges, shed counters,
+* **query/ingest fairness** — mixed read+write traffic shares the engine;
+  ``_drain_ingest`` applies at most ``max_ingest_per_step`` ingest batches
+  between decode steps, so a sustained ingest stream cannot starve queued
+  queries (each deferral increments ``serve.ingest_deferred``);
+* **retrieval** — the datastore is handed to every decode step; an ingest
+  replaces it with the datastore ``ingest_keys`` returns, and the next step
+  searches that one;
+* **telemetry** (``repro_torch.obs``): request and ingest latency
+  histograms with serving percentiles, queue-depth / slot-occupancy gauges,
+  shed and fairness counters,
   prefill/decode-step span timings — ``engine.metrics()`` snapshots them
   all, and sampled requests emit a linked span tree (queue wait -> prefill
   -> completion root) for ``Trace.reconstruct``.
 
-Streaming inserts (``IngestRequest``) need the forest datastore's delta
-buffers, which come with the streaming slice: until then ``submit`` raises
-``NotImplementedError`` on one rather than dropping it.
-
-``run()`` drives the queue to completion; ``step()`` is one scheduler
+``run()`` drives the queues to completion; ``step()`` is one scheduler
 iteration, for an open-loop driver that interleaves arrivals with service.
 """
 from __future__ import annotations
@@ -48,7 +51,7 @@ import torch
 
 from repro_torch.models.model import Cache, Model
 from repro_torch.obs import Registry, TraceContext, TraceSampler, use_trace
-from repro_torch.serve.retrieval import Datastore
+from repro_torch.serve.retrieval import Datastore, ForestDatastore, ingest_keys
 
 # shed reasons (Request.shed_reason / serve.shed{reason=...} counter labels)
 SHED_REJECTED = "rejected"  # admission control refused at submit()
@@ -94,9 +97,11 @@ class Request:
 
 @dataclass
 class IngestRequest:
-    """Insert (key, next-token) pairs into a streaming datastore.  The port's
-    engine refuses it until the streaming slice brings the forest
-    datastore's delta buffers (``ServeEngine.submit`` raises)."""
+    """Insert (key, next-token) pairs into the serving datastore's delta.
+
+    Needs a ``ForestDatastore`` built with ``stream_capacity > 0``.
+    ``accepted`` reports how many pairs fit the destination buffers (the
+    rest were capacity-rejected; clients submit them again later)."""
 
     rid: int
     keys: np.ndarray  # (B, Dk) f32
@@ -104,7 +109,7 @@ class IngestRequest:
     accepted: int = 0
     done: bool = False
     latency_s: float = 0.0
-    error: str = ""
+    error: str = ""  # non-empty when the engine could not ingest at all
 
 
 class ServeEngine:
@@ -114,9 +119,10 @@ class ServeEngine:
         *,
         num_slots: int = 4,
         max_len: int = 256,
-        datastore: Datastore | None = None,
+        datastore: Datastore | ForestDatastore | None = None,
         registry: Registry | None = None,
         trace_sample: float = 0.0,
+        max_ingest_per_step: int = 8,
         step_time_hint_s: float | None = None,
     ):
         self.model = model
@@ -128,7 +134,16 @@ class ServeEngine:
         self.slot_req: list[Request | None] = [None] * num_slots
         self.slot_pos = np.zeros(num_slots, np.int32)
         self.queue: list[Request] = []
+        self.ingest_queue: list[IngestRequest] = []
         self.steps = 0
+        # query/ingest fairness: at most this many ingest batches apply per
+        # scheduler step, so a saturating write stream cannot starve reads
+        if max_ingest_per_step < 1:
+            raise ValueError(
+                f"max_ingest_per_step={max_ingest_per_step} must be >= 1 "
+                "(ingest batches applied between decode steps)"
+            )
+        self.max_ingest_per_step = max_ingest_per_step
         # admission control's service-time model: median of recent decode
         # step wall times; ``step_time_hint_s`` seeds it for deterministic
         # admission before the first measured step
@@ -140,14 +155,19 @@ class ServeEngine:
 
     def metrics(self) -> dict[str, Any]:
         """One snapshot of the engine's registry: ``serve.*`` latency
-        histograms (seconds, p50/p95/p99), queue/slot gauges, shed counters,
-        and step/token counters."""
+        histograms (seconds, p50/p95/p99), queue/slot gauges, shed and
+        fairness counters, and step/token counters."""
         return self.obs.snapshot()
 
     @property
     def busy(self) -> bool:
-        """True while any work remains (live slots or queued requests)."""
-        return any(r is not None for r in self.slot_req) or bool(self.queue)
+        """True while any work remains (live slots, queued decodes, or an
+        ingest backlog)."""
+        return (
+            any(r is not None for r in self.slot_req)
+            or bool(self.queue)
+            or bool(self.ingest_queue)
+        )
 
     # --- admission control --------------------------------------------------
     def step_time_s(self) -> float | None:
@@ -200,16 +220,14 @@ class ServeEngine:
         return int(torch.argmax(logits[0, -1]))
 
     # --- slot management ---------------------------------------------------
-    def submit(self, req: Request) -> bool:
-        """Enqueue a request.  Returns False when admission control shed it
-        on the spot (``req.shed``/``req.shed_reason`` are set; the request
-        never enters the queue and is not returned by ``run()``/``step()``)."""
+    def submit(self, req: Request | IngestRequest) -> bool:
+        """Enqueue a request.  Returns False when admission control shed a
+        decode request on the spot (``req.shed``/``req.shed_reason`` are set;
+        the request never enters the queue and is not returned by
+        ``run()``/``step()``).  An ``IngestRequest`` always queues."""
         if isinstance(req, IngestRequest):
-            raise NotImplementedError(
-                "IngestRequest needs a streaming (forest) datastore, which the "
-                "port brings with the streaming slice; the flat datastore "
-                "served here takes no inserts"
-            )
+            self.ingest_queue.append(req)
+            return True
         now = time.perf_counter()
         req._t_submit = now
         self.obs.counter("serve.submitted").inc()
@@ -224,6 +242,44 @@ class ServeEngine:
             req.trace = self._tracer.maybe_trace()
         self.queue.append(req)
         return True
+
+    def _drain_ingest(self) -> list[IngestRequest]:
+        """Apply queued inserts to the datastore, between decode steps.
+
+        At most ``max_ingest_per_step`` batches a call, so a sustained ingest
+        stream yields to queued queries every step (a bounded stop with work
+        left counts once under ``serve.ingest_deferred``)."""
+        done: list[IngestRequest] = []
+        streamable = (
+            isinstance(self.datastore, ForestDatastore)
+            and self.datastore.delta is not None
+        )
+        budget = self.max_ingest_per_step
+        while self.ingest_queue and budget > 0:
+            budget -= 1
+            req = self.ingest_queue.pop(0)
+            t0 = time.perf_counter()
+            if not streamable:
+                # fail this request, not the run loop: in-flight decode
+                # requests must survive a misdirected insert
+                req.accepted = 0
+                req.error = "datastore does not accept streaming inserts"
+                self.obs.counter("serve.ingest_errors").inc()
+            else:
+                with self.obs.span("serve.ingest"):
+                    self.datastore, n_acc = ingest_keys(
+                        self.datastore, np.asarray(req.keys, np.float32),
+                        np.asarray(req.values, np.int32),
+                    )
+                req.accepted = n_acc
+                self.obs.counter("serve.ingested_keys").inc(n_acc)
+            req.done = True
+            req.latency_s = time.perf_counter() - t0
+            self.obs.histogram("serve.ingest_latency_s").observe(req.latency_s)
+            done.append(req)
+        if self.ingest_queue:
+            self.obs.counter("serve.ingest_deferred").inc()
+        return done
 
     def _expire_queue(self) -> list[Request]:
         """Shed queued requests whose deadline passed before they reached a
@@ -284,16 +340,20 @@ class ServeEngine:
             self.slot_pos[slot] = len(req.prompt)
 
     # --- scheduler ----------------------------------------------------------
-    def step(self) -> list[Request]:
-        """One scheduler iteration: queue/slot deadline expiry -> slot refill
-        (continuous batching) -> one batched decode step -> retire.  Returns
-        every request that reached a terminal state during the iteration."""
-        finished: list[Request] = []
+    def step(self) -> list[Request | IngestRequest]:
+        """One scheduler iteration: bounded ingest drain -> queue/slot
+        deadline expiry -> slot refill (continuous batching) -> one batched
+        decode step -> retire.  Returns every request that reached a
+        terminal state during the iteration (completed and shed decodes,
+        ingest acks)."""
+        finished: list[Request | IngestRequest] = []
+        finished.extend(self._drain_ingest())
         finished.extend(self._expire_queue())
         finished.extend(self._expire_slots())
         self._fill_slots()
         live = [s for s in range(self.num_slots) if self.slot_req[s] is not None]
         self.obs.gauge("serve.queue_depth").set(len(self.queue))
+        self.obs.gauge("serve.ingest_queue_depth").set(len(self.ingest_queue))
         self.obs.gauge("serve.slot_occupancy").set(len(live) / self.num_slots)
         if not live:
             return finished
@@ -326,11 +386,11 @@ class ServeEngine:
                 self.slot_pos[s] = 0
         return finished
 
-    def run(self, *, max_steps: int = 10_000) -> list[Request]:
-        """Process the queue to completion; returns finished requests
-        (completed and shed, in completion order).  ``max_steps`` bounds
-        decode steps."""
-        finished: list[Request] = []
+    def run(self, *, max_steps: int = 10_000) -> list[Request | IngestRequest]:
+        """Process the queues to completion; returns finished requests
+        (completed and shed decodes, ingest acks, in completion order).
+        ``max_steps`` bounds decode steps; an ingest backlog always drains."""
+        finished: list[Request | IngestRequest] = []
         while self.busy and self.steps < max_steps:
             finished.extend(self.step())
         return finished

@@ -465,3 +465,85 @@ def test_pairwise_int8_ragged_shapes(dev, qn, d, offset):
     assert ops.launch_counts()["pairwise_sq_l2_int8"] == n0 + 1
     assert got.shape == (qn, n)
     assert torch.equal(got, ref.pairwise_sq_l2_int8_ref(q, xq, s))
+
+
+# --------------------------------------------------------------------------
+# streaming: K1's delta phase, K1 at the forest datastore's width, and the
+# card's ingest state
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [
+    # (qn, main nb, main C, D, delta I, delta CAPD): WARD's forest (C=1000,
+    # 12 indexes of 1000 delta slots) and bench_stream's (C=141 at D=12, a
+    # few indexes of 2048 delta slots)
+    (64, 40, 1000, 5, 12, 1000), (64, 60, 141, 12, 6, 2048),
+])
+@pytest.mark.parametrize("beam", [1, 4])
+def test_delta_phase_seeded_with_main_carry(dev, shape, beam):
+    """The search's second K1 phase over (I, CAPD, D) f32 delta buffers
+    (half filled), seeded with the main phase's top-k, bit for bit against
+    the plain phase."""
+    qn, nb, cap, dim, n_d, capd = shape
+    g = np.random.default_rng(nb + cap + beam)
+    main = _phase_problem(g, qn, nb, cap, dim, beam, 10)
+    carry = _assert_phase_equal(main)
+    delta = _phase_problem(g, qn, n_d, capd, dim, beam, 10, pad_frac=0.5, inf_frac=0.1)
+    delta[0] = main[0]
+    delta[7], delta[8] = carry[0], carry[1]
+    got = _assert_phase_equal(delta)
+    assert int(got[5].max()) > 0
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("beam", [1, 4])
+def test_bucket_scan_at_datastore_width(dev, int8, beam):
+    """K1 at the forest datastore's shape: D = 896 (qwen2-0.5b's keys),
+    C = 256 (sqrt of 65,536 rows), k = 8, eight decode slots as queries."""
+    g = np.random.default_rng(896 + beam + int8)
+    got = _assert_phase_equal(_phase_problem(g, 8, 24, 256, 896, beam, 8, int8=int8))
+    assert int(got[5].max()) > 0
+
+
+def test_card_ingest_is_deterministic_and_matches_the_cpu(dev):
+    """The same batches ingested twice on the card give the same buffers bit
+    for bit (the coordinate sums included), and the CPU's: ids, rows,
+    counts, drops and accepts equal, radius and coordinate sums within a
+    few ulp (another summation order)."""
+    from repro_torch.api import OverlapIndex
+    from repro_torch.data.synthetic import drifting_batches
+    from repro_torch.stream.ingest import alloc_delta, ingest_impl
+
+    x0 = np.concatenate(drifting_batches(4000, 4000, 12, seed=3))
+    forest = OverlapIndex.baseline(x0, device="cpu").forest
+    batches = drifting_batches(3 * 1024, 1024, 12, seed=11)
+
+    def run(device):
+        delta = alloc_delta(forest, 700, device=device)
+        centers = torch.from_numpy(forest.index_centers).to(device)
+        accs = []
+        for i, xb in enumerate(batches):
+            ids = torch.arange(4000 + 1024 * i, 4000 + 1024 * (i + 1), dtype=torch.int32)
+            valid = torch.from_numpy(np.arange(1024) % 7 != 3)
+            delta, acc = ingest_impl(centers, delta, torch.from_numpy(xb).to(device),
+                                     ids.to(device), valid.to(device))
+            accs.append(acc.cpu())
+        return [t.cpu() for t in delta], torch.cat(accs)
+
+    (d1, a1), (d2, a2), (dc, ac) = run(dev), run(dev), run("cpu")
+    assert torch.equal(a1, a2) and torch.equal(a1, ac) and not bool(a1.all())
+    names = ("x", "ids", "count", "pivot", "radius", "sum_x", "main_count", "main_sum",
+             "main_radius", "dropped")
+    for name, a, b, c in zip(names, d1, d2, dc):
+        assert torch.equal(a, b), name
+        if name == "radius":
+            torch.testing.assert_close(a, c, rtol=1e-6, atol=0.0)
+        elif name == "sum_x":
+            # two f32 orders of n terms differ by at most n eps sum|x|
+            live = torch.arange(dc[0].shape[1])[None, :] < dc[2][:, None]
+            abs_sum = (dc[0].double().abs() * live[..., None]).sum(1)
+            bound = dc[2].double()[:, None] * 2.0 ** -23 * abs_sum
+            assert bool(((a.double() - c.double()).abs() <= bound).all()), name
+        else:
+            assert torch.equal(a, c), name
+    assert int(d1[-1].sum()) > 0  # capacity rejects happened

@@ -29,7 +29,9 @@ def test_import_loads_no_jax_and_no_repro():
     mods = _modules()
     for m in ("repro_torch.core.knn", "repro_torch.api.index", "repro_torch.models.model",
               "repro_torch.serve.engine", "repro_torch.launch.serve", "repro_torch.obs.trace",
-              "repro_torch.configs.qwen2_0_5b", "repro_torch.kernels.topk"):
+              "repro_torch.configs.qwen2_0_5b", "repro_torch.kernels.topk",
+              "repro_torch.stream.ingest", "repro_torch.stream.maintenance",
+              "repro_torch.serve.retrieval"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -122,3 +124,23 @@ def test_build_stages_without_device_refuse_cpu(monkeypatch):
         build_index_core(x, cfg)
     forest, report = build_index_core(x, cfg, device="cpu")
     assert report.n_clusters == 2 and forest.n_indexes == 2
+
+
+def test_streaming_entry_points_refuse_cpu(monkeypatch):
+    """The forest datastore builds on the card unless told otherwise; the
+    streaming writes run where the index lives."""
+    from repro_torch.api import OverlapIndex
+    from repro_torch.serve.retrieval import build_forest_datastore, ingest_keys
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = np.random.default_rng(2)
+    keys = np.concatenate([c + g.normal(size=(40, 4)) for c in (0.0, 12.0)]).astype(np.float32)
+    vals = np.arange(80, dtype=np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_forest_datastore(keys, vals, min_pts=4)
+    ds = build_forest_datastore(keys, vals, min_pts=4, stream_capacity=8, device="cpu")
+    ds, acc = ingest_keys(ds, keys[:3] + 0.1, vals[:3])
+    assert acc == 3 and ds.delta.x.is_cpu
+    ix = OverlapIndex.baseline(keys, device="cpu")
+    ix.ingest(keys[:5] + 0.1)
+    assert ix.device_delta.x.is_cpu and sum(ix.structure()["delta_fill"]) == 5

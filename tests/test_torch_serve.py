@@ -222,11 +222,17 @@ def test_two_slots_give_one_slots_tokens():
 
 
 def test_engine_refuses_ingest():
+    """Without a streaming (forest) datastore an insert is refused: it queues,
+    and the next step acks it with an error, counted under
+    ``serve.ingest_errors``; no decode submission is counted."""
     cfg = get_smoke_config("smollm-135m")
     eng = ServeEngine(Model(cfg, device="cpu"), num_slots=1, max_len=16)
-    with pytest.raises(NotImplementedError, match="streaming slice"):
-        eng.submit(IngestRequest(rid=0, keys=np.zeros((2, cfg.d_model), np.float32),
-                                 values=np.zeros(2, np.int32)))
+    req = IngestRequest(rid=0, keys=np.zeros((2, cfg.d_model), np.float32),
+                        values=np.zeros(2, np.int32))
+    assert eng.submit(req) and eng.busy
+    assert eng.run() == [req]
+    assert req.done and req.accepted == 0 and "does not accept" in req.error
+    assert eng.obs.value("serve.ingest_errors") == 1
     assert eng.obs.value("serve.submitted") == 0 and not eng.busy
 
 
