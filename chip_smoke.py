@@ -78,7 +78,17 @@ Phases, in order; any failure raises and the run exits non-zero:
     interleaved with 16 inserts of 64 keys on ``ServeEngine(num_slots=8)``:
     inserts accepted or reported, the delta holding exactly the accepted
     pairs, each streamed key retrieving its token, ``forest_knn`` exact over
-    its routed rows, K1 twice a decode step; K1 timed at D = 896.
+    its routed rows, K1 twice a decode step; K1 timed at D = 896;
+16. the rest of the facade on forests built above: phase 13's streamed WARD
+    index saved and loaded (file size, save and load seconds; searches
+    bitwise equal to before the save, 2 K1 launches and at most 2 syncs a
+    search), the same search with metrics on and off (bitwise equal, walls
+    in turns), ``explain`` on WARD, Tracking VBM and the blob forest at beam
+    1 and 4 (its result the search's bit for bit, contributing + wasted ==
+    ``buckets_visited`` every query, the prefix invariant of its decode
+    against the kernel's counters and a replay of the plain phase), the
+    measured-waste trigger against a CPU twin, and ``to_prometheus()``
+    parsed back.
 
 The last lines are one JSON object of per-kernel numbers, then
 ``{"ok": true, "device": {...}}``; ``--json PATH`` also writes the full
@@ -1344,23 +1354,34 @@ def phase_operands(ix, q, beam: int, k: int = K):
             top_d, top_i, df.bucket_scale]
 
 
-def touched_buckets(args):
-    """Buckets the lockstep plain phase makes active (each once), and the
-    slots it reads: replays ``ref.bucket_scan_phase_ref`` step by step."""
+def visited_slots(args):
+    """The (Q, W) slots of ``order`` that the lockstep plain phase makes
+    active, and its final carry: replays ``ref.bucket_scan_phase_ref`` step
+    by step."""
     import torch
 
     from repro_torch.kernels import ref
 
     q, bx, ids, count, order, lb, beam, top_d, top_i, scale = args
-    touched = torch.zeros(bx.shape[0], dtype=torch.bool, device=q.device)
+    visited = torch.zeros(order.shape, dtype=torch.bool, device=q.device)
     for t in range(order.shape[1] // beam):
         lo = t * beam
         act = lb[:, lo:lo + beam] <= torch.sqrt(top_d[:, -1])[:, None]
         if not bool(act.any()):
             break
-        bsel = order[:, lo:lo + beam]
-        touched[bsel[act].long()] = True
-        top_d, top_i = ref.bucket_scan_topk_ref(q, bx, ids, bsel, act, top_d, top_i, scale)
+        visited[:, lo:lo + beam] = act
+        top_d, top_i = ref.bucket_scan_topk_ref(q, bx, ids, order[:, lo:lo + beam], act,
+                                                top_d, top_i, scale)
+    return visited, top_d, top_i
+
+
+def touched_buckets(args):
+    """Buckets the lockstep plain phase makes active (each once)."""
+    import torch
+
+    visited, _, _ = visited_slots(args)
+    touched = torch.zeros(args[1].shape[0], dtype=torch.bool, device=args[0].device)
+    touched[args[4][visited].long()] = True
     return touched
 
 
@@ -2138,7 +2159,8 @@ def ward_stream_phase(dev, ward_ix, smi: str) -> dict:
     batches: its delta buffers, every round's accepts and its rebuild
     triggers must equal the card's.  Then 1,024 queries (forest and all,
     f32, beam 1 and 4) against a brute force over main + delta rows, the
-    host syncs and K1 launches of one search."""
+    host syncs and K1 launches of one search.  Returns (the numbers, the
+    card's streamed index)."""
     import numpy as np
     import torch
 
@@ -2214,7 +2236,7 @@ def ward_stream_phase(dev, ward_ix, smi: str) -> dict:
         f"{NQ} queries {wall_ms:.2f} ms wall, K1 launches {per['bucket_scan_topk']}, host "
         f"syncs {syncs}; delta fill {fill}; launches over the ingest {launches}; phase "
         f"{out['seconds']:.1f} s (CPU twin {host_s:.1f} s) ({smi})")
-    return out
+    return out, card
 
 
 def in_band_objects(x, centers, radii) -> int:
@@ -2521,6 +2543,243 @@ def time_k3_wide(keys, eps_sq: float, smi: str) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 16: persistence, telemetry and explain
+# --------------------------------------------------------------------------
+
+def same_result(a, b) -> bool:
+    """Two SearchResults bit for bit: distances, ids and every counter."""
+    import numpy as np
+
+    return (np.array_equal(a.dists, b.dists) and np.array_equal(a.ids, b.ids)
+            and all(np.array_equal(a.stats[k], b.stats[k]) for k in a.stats))
+
+
+def alternate_ms(calls: dict, reps: int = 7) -> dict:
+    """Host wall ms of each call (each returns host arrays, so each is
+    synchronised), the calls taken in turns after one warm-up each:
+    {name: (first quartile, median, third quartile)}."""
+    for fn in calls.values():
+        fn()
+    times = {name: [] for name in calls}
+    for _ in range(reps):
+        for name, fn in calls.items():
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: tuple(statistics.quantiles(v, n=4)[:1]) + (statistics.median(v),)
+            + tuple(statistics.quantiles(v, n=4)[2:]) for name, v in times.items()}
+
+
+def check_explain_prefix(ix, q, beam: int) -> dict:
+    """The decode's invariant on the card, at ``beam``: a phase visits
+    exactly the first ``visits`` entries of its ``order``.
+
+    * the kernel's own accounting: each query's ``distances`` counter equals
+      the bucket sizes summed over the decoded prefixes (main and delta),
+      every query;
+    * the plain lockstep phase replayed on the same operands (the search's
+      route, bounds and order; the delta phase seeded with the replay's
+      main carry) visits a prefix of ``order``, every query, and its length
+      equals the kernel's visit count except where a bound lies within the
+      rounding of the k-th best (the two round member distances apart):
+      at most 1% of queries, each by at most ``beam`` visits, the rule of
+      ``check_kernel_vs_plain_search``."""
+    import torch
+
+    from repro_torch.core.knn import delta_bounds, knn_search_explain_impl, route_select
+    from repro_torch.stream.ingest import delta_view
+
+    args = phase_operands(ix, q, beam)
+    qt, df = args[0], ix.device
+    dv = None if ix.device_delta is None else delta_view(ix.device_delta)
+    _, _, st, rows = knn_search_explain_impl(df, qt, k=K, beam=beam, delta=dv)
+    require(torch.equal(rows.order, args[4]), "the explain plan's order is not the search's")
+    count = args[3]
+    cols = torch.arange(rows.order.shape[1], device=qt.device)[None]
+    kernel_prefix = cols < rows.visits[0][:, None]
+    ndist = torch.where(kernel_prefix, count[rows.order.long()], 0).sum(1)
+    replay, top_d, top_i = visited_slots(args)
+    phases = [(replay, rows.visits[0])]
+    if dv is not None:
+        dcount = dv.mask.sum(1, dtype=torch.int32)
+        dcols = torch.arange(rows.dorder.shape[1], device=qt.device)[None]
+        ndist = ndist + torch.where(dcols < rows.dvisits[0][:, None],
+                                    dcount[rows.dorder.long()], 0).sum(1)
+        sel, _, _ = route_select(df, qt)
+        db = delta_bounds(dv, qt, sel, beam=beam)
+        require(torch.equal(db.order, rows.dorder), "the delta order is not the search's")
+        dreplay, _, _ = visited_slots([qt, dv.x, dv.ids, dcount, db.order, db.lb_sorted, beam,
+                                       top_d, top_i, None])
+        phases.append((dreplay, rows.dvisits[0]))
+    require(torch.equal(ndist.to(torch.int32), st.distances),
+            "a kernel's distances counter is not the decoded prefix's bucket sizes")
+    differ = torch.zeros(qt.shape[0], dtype=torch.bool, device=qt.device)
+    worst = 0
+    for seen, kvis in phases:
+        own = seen.sum(1)
+        w = torch.arange(seen.shape[1], device=qt.device)[None]
+        require(torch.equal(seen, w < own[:, None]), "the replayed phase skipped a slot")
+        gap = (own - kvis).abs()
+        differ |= gap > 0
+        worst = max(worst, int(gap.max()))
+    require(float(differ.double().mean()) <= 0.01 and worst <= beam,
+            f"replayed visits differ from the kernel's on {int(differ.sum())} queries "
+            f"(by up to {worst})")
+    return dict(queries_differ=int(differ.sum()), max_gap=worst)
+
+
+def counters_survive_prometheus(ix) -> int:
+    """``to_prometheus()`` parsed back: every registry counter comes back
+    under its sanitized name and labels with its value.  Returns the
+    number of counters checked."""
+    from repro_torch.obs import export
+
+    got = {(s["name"], tuple(sorted(s["labels"].items()))): s["value"]
+           for s in export.parse_prometheus(ix.obs.to_prometheus())}
+    counters = ix.obs.snapshot()["counters"]
+    for key, val in counters.items():
+        name, labels = export._split_key(key)
+        back = got.get((export._sanitize(name), tuple(sorted(labels.items()))))
+        require(back == val, f"counter {key} = {val} came back as {back}")
+    return len(counters)
+
+
+def persist_explain_phase(dev, ward, tracking, blob, smi: str) -> dict:
+    """Phase 16: the rest of the single-device facade on forests earlier
+    phases built (nothing new is built).
+
+    * ``save`` / ``load``: phase 13's streamed WARD 1M VBM index, delta
+      included, to a temporary directory and back onto the card; the 1,024
+      queries' searches (f32, beam 1 and 4, forest and all) bitwise equal to
+      the index's before the save, 2 K1 launches and at most 2 host syncs a
+      search;
+    * metrics on and off: the same WARD search on the loaded index and on a
+      twin with ``ObsConfig(enabled=False)``, bitwise equal, walls taken in
+      turns;
+    * ``explain`` on WARD, Tracking VBM and the blob forest, beam 1 and 4:
+      ``report.result`` bitwise equal to ``search()``, contributing + wasted
+      == ``buckets_visited`` every query, the prefix invariant
+      (``check_explain_prefix``); explain's syncs and wall beside the
+      search's, the wasted fraction and the top wasted pairs;
+    * the measured-waste trigger: the blob forest with ``wasted_rebuild``
+      set, on the card and on a CPU twin, the same ingest and explain calls,
+      then ``maintain()``: the ``wasted`` triggers equal;
+    * ``to_prometheus()`` of the loaded WARD index parses back with every
+      counter intact."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import Config, ObsConfig, OverlapIndex, StreamConfig
+
+    t_phase = time.perf_counter()
+    q = make_queries(ward.x_all, SEED + 16)
+    searches = [(b, m) for b in (1, 4) for m in ("forest", "all")]
+    before = {s: ward.search(q, k=K, beam=s[0], mode=s[1]) for s in searches}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = ward.save(os.path.join(tmp, "ward"))
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        lx = OverlapIndex.load(path, device=dev)
+        load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lx.device  # the upload
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    for s in searches:
+        require(same_result(lx.search(q, k=K, beam=s[0], mode=s[1]), before[s]),
+                f"WARD after load, beam {s[0]} {s[1]}: not bitwise equal to before the save")
+    per = one_search_launches(lx, q)
+    require(per["bucket_scan_topk"] == 2, f"K1 launched {per['bucket_scan_topk']} times a "
+            "search after load")
+    syncs = count_syncs(lambda: lx.search(q, k=K))
+    require(syncs <= 2, f"a search after load synchronises {syncs} times")
+    log(f"[persist] WARD {lx.n_total:,} x {lx.x_all.shape[1]} VBM + delta "
+        f"({sum(lx.structure()['delta_fill'])} "
+        f"rows): save {save_s:.3f} s, {size / 1e6:.2f} MB on disk; load {load_s:.3f} s, upload "
+        f"{upload_s:.3f} s; searches beam 1/4 forest/all bitwise equal to before the save; K1 "
+        f"launches {per['bucket_scan_topk']}, host syncs {syncs} a search ({smi})")
+
+    off = OverlapIndex._wire(
+        lx.x_all, lx.forest, dataclasses.replace(lx.cfg, obs=ObsConfig(enabled=False)),
+        lx.build_report, dev, n_total=lx.n_total, delta=lx.device_delta, capacity=lx.capacity,
+        monitor_baseline=lx.monitor.rates_baseline)
+    require(same_result(lx.search(q, k=K), off.search(q, k=K)),
+            "metrics on and off give different results")
+    walls = alternate_ms({"on": lambda: lx.search(q, k=K), "off": lambda: off.search(q, k=K)},
+                         reps=25)
+    syncs_on = count_syncs(lambda: lx.search(q, k=K))
+    require(syncs_on <= 2, f"a search with metrics on synchronises {syncs_on} times")
+    log(f"[metrics] WARD f32 beam 1, {NQ} queries, 25 of each in turns: metrics on "
+        f"{walls['on'][1]:.3f} ms (quartiles {walls['on'][0]:.3f}-{walls['on'][2]:.3f}), off "
+        f"{walls['off'][1]:.3f} ms ({walls['off'][0]:.3f}-{walls['off'][2]:.3f}); results "
+        f"bitwise equal, {syncs_on} syncs with metrics on ({smi})")
+
+    explain = {}
+    for name, ix in (("WARD", lx), ("Tracking", tracking), ("Blob", blob)):
+        qx = q if name == "WARD" else make_queries(ix.x_all, SEED + 16)
+        for beam in (1, 4):
+            res = ix.search(qx, k=K, beam=beam)
+            rep = ix.explain(qx, k=K, beam=beam, feed_monitor=False)
+            require(same_result(rep.result, res), f"{name} beam {beam}: explain's result is "
+                    "not the search's")
+            require(np.array_equal(rep.contributing + rep.wasted,
+                                   res.stats["buckets_visited"]),
+                    f"{name} beam {beam}: contributing + wasted != buckets_visited")
+            prefix = check_explain_prefix(ix, qx, beam)
+            ex_syncs = count_syncs(lambda: ix.explain(qx, k=K, beam=beam, feed_monitor=False))
+            ms = alternate_ms({
+                "search": lambda: ix.search(qx, k=K, beam=beam),
+                "explain": lambda: ix.explain(qx, k=K, beam=beam, feed_monitor=False)}, reps=5)
+            row = dict(search_ms=ms["search"][1], explain_ms=ms["explain"][1], syncs=ex_syncs,
+                       wasted_fraction=rep.wasted_fraction, visits=rep.total_visits,
+                       top_pairs=rep.top_pairs(3), **prefix)
+            explain[f"{name} beam {beam}"] = row
+            log(f"[explain] {name} {ix.n_total:,} x {ix.x_all.shape[1]} ({ix.n_indexes} "
+                f"indexes) beam {beam}: result bitwise the search's, contributing + wasted == "
+                f"buckets_visited on all {len(qx)} queries; prefix invariant held (replay vs "
+                f"kernel visits differ on {prefix['queries_differ']} queries, by <= "
+                f"{prefix['max_gap']}); explain {ms['explain'][1]:.2f} ms vs search "
+                f"{ms['search'][1]:.2f} ms wall (medians of 5), {ex_syncs} syncs; wasted "
+                f"{rep.wasted_fraction:.4f} of {rep.total_visits} visits; top wasted pairs "
+                f"{rep.top_pairs(3)} ({smi})")
+
+    cfg = Config(index=blob.cfg.index, stream=StreamConfig(capacity=64, wasted_rebuild=0.05))
+    twins = [OverlapIndex._wire(blob.x_all, blob.forest, cfg, blob.build_report, d)
+             for d in (dev, torch.device("cpu"))]
+    g = np.random.default_rng(SEED + 16)
+    xb = (blob.x_all[g.choice(blob.n_total, 48)]
+          + 0.1 * g.normal(size=(48, blob.x_all.shape[1]))).astype(np.float32)
+    qw = np.concatenate([make_queries(blob.x_all, SEED + 17)[:32],
+                         g.uniform(-15, 15, size=(32, blob.x_all.shape[1])).astype(np.float32)])
+    reps, wasted = [], []
+    for ix in twins:
+        ix.ingest(xb)
+        reps.append(ix.explain(qw, k=5))
+        wasted.append({i: w for i, w in ix.maintain().reasons.items() if "wasted" in w})
+    rc, rh = reps
+    n_diff = int((rc.wasted != rh.wasted).sum() + (rc.home != rh.home).sum())
+    require(wasted[0] == wasted[1] and wasted[0],
+            f"wasted triggers {wasted[0]} on the card, {wasted[1]} on the CPU")
+    log(f"[explain] blob wasted_rebuild 0.05: maintain()'s wasted triggers {sorted(wasted[0])} "
+        f"on the card equal the CPU twin's; per-query wasted / home entries differing "
+        f"{n_diff} ({smi})")
+
+    n_counters = counters_survive_prometheus(lx)
+    log(f"[metrics] WARD to_prometheus(): {n_counters} counters parse back intact")
+    return dict(save_s=save_s, load_s=load_s, upload_s=upload_s, file_bytes=size,
+                k1_per_search=per["bucket_scan_topk"], syncs=syncs, metrics_ms=walls,
+                metrics_on_syncs=syncs_on, explain=explain,
+                wasted_triggers=sorted(wasted[0]), twin_differ=n_diff,
+                prometheus_counters=n_counters, seconds=time.perf_counter() - t_phase)
+
+
+# --------------------------------------------------------------------------
 
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -2591,9 +2850,13 @@ def main(argv=None) -> int:
     del store
     torch.cuda.empty_cache()
     stream = bench_stream_phase(dev, smi)
-    ward_stream = ward_stream_phase(dev, ov["builds"][("WARD", "vbm")]["idx"][False], smi)
+    ward_stream, ward_card = ward_stream_phase(
+        dev, ov["builds"][("WARD", "vbm")]["idx"][False], smi)
     blob_obm = blob_obm_phase(dev, smi)
     forest_serve = forest_serve_phase(dev, model, smi)
+    persist_explain = persist_explain_phase(
+        dev, ward_card, ov["builds"][("Tracking", "vbm")]["idx"][False],
+        ov["builds"][("Blob", "vbm")]["idx"][False], smi)
 
     # how much of each search's wall time its one K1 launch accounts for
     walls = {(n, qz, bm): w for n, qz, bm, _, w in sl["results"]}
@@ -2647,6 +2910,7 @@ def main(argv=None) -> int:
                       eps_data=eps_data, builds=builds, searches=ov["searches"],
                       dbscan=db, profile=prof_rows, serve=sv, stream=stream,
                       ward_stream=ward_stream, blob_obm=blob_obm, forest_serve=forest_serve,
+                      persist_explain=persist_explain,
                       nvcc_s=t_build, seconds=time.perf_counter() - t_start)
         out = Path(args.json)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -5,8 +5,12 @@
     ix = OverlapIndex.build(x, cfg)        # the paper's overlap forest, on "cuda"
     ix = OverlapIndex.baseline(x)          # the BCCF baseline; device= names another
     res = ix.search(q, k=10)               # SearchResult(dists, ids, stats)
+    rep = ix.explain(q, k=10)              # ExplainReport: contributing / wasted visits
     ix.ingest(batch)                       # streaming writes (delta buffers)
     ix.maintain()                          # overlap-drift monitor + rebuilds
+    ix.save("index.npz")                   # the JAX package's snapshot format
+    ix = OverlapIndex.load("index.npz")    # rebuild-free restart, on "cuda"
+    ix.metrics()                           # one nested telemetry snapshot
     ds = ix.to_datastore(values)           # kNN-LM serving datastore
 
 Overlap heuristics resolve through ``register_overlap_method`` /
@@ -16,6 +20,7 @@ from repro_torch.api.config import (
     Config,
     ConfigError,
     IndexConfig,
+    ObsConfig,
     SearchConfig,
     StreamConfig,
     as_index_config,
@@ -29,7 +34,8 @@ from repro_torch.core.overlap import (
 )
 
 __all__ = [
-    "Config", "ConfigError", "IndexConfig", "SearchConfig", "StreamConfig", "as_index_config",
+    "Config", "ConfigError", "IndexConfig", "ObsConfig", "SearchConfig", "StreamConfig",
+    "as_index_config",
     "OverlapIndex", "PlanCache", "PlanKey", "SearchPlan", "SearchResult",
     "available_overlap_methods", "register_overlap_method",
     "unregister_overlap_method",

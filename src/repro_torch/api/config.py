@@ -1,5 +1,5 @@
 """One frozen configuration tree for the index: ``Config(index=IndexConfig,
-search=SearchConfig, stream=StreamConfig)``.
+search=SearchConfig, stream=StreamConfig, obs=ObsConfig)``.
 
 Every field is validated at construction with an actionable message
 (``ConfigError``), with the same texts as the JAX package's
@@ -167,6 +167,57 @@ class StreamConfig:
 
 
 @dataclass(frozen=True)
+class ObsConfig:
+    """Telemetry knobs (``repro_torch.obs``): the per-index metrics registry.
+
+    ``enabled=False`` turns the whole layer into shared no-op objects;
+    search results are bitwise-identical either way (metrics are host-side
+    bookkeeping only).  ``events_path`` attaches a JSONL span/event log;
+    ``None`` falls back to the ``REPRO_OBS_EVENTS`` environment variable,
+    else events stay off.  ``trace_sample`` turns a fraction of ``search()``
+    calls into traced requests (deterministic systematic sampling): their
+    spans carry trace/span/parent ids, so ``repro_torch.obs.Trace.reconstruct``
+    reassembles the per-request tree from the event log.
+    ``events_max_bytes``/``events_backups`` bound the event log on disk by
+    size-based rotation.
+    """
+
+    enabled: bool = True
+    window: int = 2048  # histogram reservoir: exact percentiles up to this
+    events_path: str | None = None  # JSONL event log destination
+    trace_sample: float = 0.0  # fraction of searches traced (0 = off, 1 = all)
+    events_max_bytes: int | None = None  # rotate event log past this size
+    events_backups: int = 3  # rotated files kept (0 = truncate in place)
+
+    def __post_init__(self) -> None:
+        _require(
+            self.window >= 1,
+            f"ObsConfig.window={self.window} must be >= 1 (number of recent "
+            "observations each histogram retains for percentiles)",
+        )
+        _require(
+            self.events_path is None or len(str(self.events_path)) > 0,
+            "ObsConfig.events_path must be a non-empty path or None (None "
+            "defers to $REPRO_OBS_EVENTS, else JSONL events stay off)",
+        )
+        _require(
+            0.0 <= self.trace_sample <= 1.0,
+            f"ObsConfig.trace_sample={self.trace_sample} must lie in [0, 1] "
+            "(fraction of search requests that emit linked trace spans)",
+        )
+        _require(
+            self.events_max_bytes is None or self.events_max_bytes >= 1,
+            f"ObsConfig.events_max_bytes={self.events_max_bytes} must be "
+            ">= 1 or None (None never rotates the event log)",
+        )
+        _require(
+            self.events_backups >= 0,
+            f"ObsConfig.events_backups={self.events_backups} must be >= 0 "
+            "(rotated event-log files kept; 0 truncates on rotation)",
+        )
+
+
+@dataclass(frozen=True)
 class Config:
     """The index lifecycle in one immutable tree; ``dataclasses.replace``
     derives variants."""
@@ -174,10 +225,11 @@ class Config:
     index: IndexConfig = field(default_factory=IndexConfig)
     search: SearchConfig = field(default_factory=SearchConfig)
     stream: StreamConfig = field(default_factory=StreamConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
     def __post_init__(self) -> None:
         for name, want in (("index", IndexConfig), ("search", SearchConfig),
-                           ("stream", StreamConfig)):
+                           ("stream", StreamConfig), ("obs", ObsConfig)):
             got = getattr(self, name)
             if not isinstance(got, want):
                 raise ConfigError(

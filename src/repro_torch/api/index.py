@@ -1,23 +1,27 @@
-"""``OverlapIndex`` — the owner object for one forest, its searches and
-its streaming writes.
+"""``OverlapIndex`` — the owner object for one forest: its searches, its
+streaming writes, its snapshots and its telemetry.
 
     from repro_torch.api import OverlapIndex
 
     ix = OverlapIndex.build(x, cfg)          # the paper's overlap forest, on "cuda"
     ix = OverlapIndex.baseline(x)            # BCCF baseline, on "cuda"
     res = ix.search(q, k=10, beam=4)         # SearchResult: dists / ids / stats
+    rep = ix.explain(q, k=10)                # + contributing / wasted bucket visits
     ix.ingest(batch)                         # streaming writes (delta buffers)
     ix.maintain()                            # overlap-drift monitor + rebuilds
+    ix.save("index.npz")                     # rebuild-free restart ...
+    ix2 = OverlapIndex.load("index.npz")     # ... bitwise-identical searches
+    ix.metrics()                             # one nested telemetry snapshot
     ds = ix.to_datastore(values)             # kNN-LM serving datastore
 
 The facade owns the host ``ForestArrays``, the device ``DeviceForest``
 upload (quantized per ``cfg.search``), the streaming ``DeltaBuffer``
-(allocated at the first ingest), the drift monitor and a ``PlanCache`` of
-search executors.  Entry points run on ``cuda`` unless the caller passes a
-``device``; with no device given and no CUDA available they raise rather than
-run on the CPU.  Persistence (``save`` / ``load``) comes with a later slice,
-and so do the JAX facade's telemetry spans and counters (ROADMAP §1, item 3,
-telemetry).
+(allocated at the first ingest), the drift monitor, a ``PlanCache`` of
+search executors and a telemetry ``Registry`` (``cfg.obs``).  Entry points
+run on ``cuda`` unless the caller passes a ``device``; with no device given
+and no CUDA available they raise rather than run on the CPU.  Snapshots are
+the JAX package's npz format (``api/persist.py``), readable by either
+package.  The sharded and routed layouts come with a later slice.
 """
 from __future__ import annotations
 
@@ -32,11 +36,12 @@ from repro_torch.api.config import (
     ConfigError,
     as_index_config,
 )
-from repro_torch.api.executor import SingleDeviceBackend
+from repro_torch.api import persist
+from repro_torch.api.executor import IslandStats, SingleDeviceBackend
 from repro_torch.api.plan import PlanCache, PlanKey, SearchResult, results_to_host
 from repro_torch.core.forest import ForestArrays
-from repro_torch.core.knn import DeviceForest
-from repro_torch.core.overlap import get_overlap_method
+from repro_torch.core.knn import DeviceForest, route_points
+from repro_torch.core.overlap import get_overlap_method, overlap_matrix
 from repro_torch.core.pipeline import (
     BuildReport,
     IndexConfig as _CoreIndexConfig,
@@ -45,6 +50,16 @@ from repro_torch.core.pipeline import (
     default_delta_capacity,
 )
 from repro_torch.device import resolve_device
+from repro_torch.obs import (
+    EventLog,
+    Registry,
+    TraceContext,
+    TraceSampler,
+    current_trace,
+    events_path_from_env,
+    use_trace,
+)
+from repro_torch.obs.attribution import ExplainReport, attribute_visits
 from repro_torch.stream.ingest import DeltaBuffer, alloc_delta, delta_view, pull_delta_meta
 from repro_torch.stream.maintenance import (
     DriftReport,
@@ -81,14 +96,19 @@ class OverlapIndex:
 
     def __init__(self, *args, **kwargs):
         raise TypeError(
-            "OverlapIndex is constructed via OverlapIndex.build(x, cfg) or "
-            "OverlapIndex.baseline(x, cfg)"
+            "OverlapIndex is constructed via OverlapIndex.build(x, cfg), "
+            ".baseline(x, cfg), or .load(path)"
         )
 
     @classmethod
     def _wire(
         cls, x: np.ndarray, forest: ForestArrays, cfg: Config,
-        report: BuildReport, device: torch.device,
+        report: BuildReport, device: torch.device, *,
+        n_total: int | None = None,
+        delta: DeltaBuffer | None = None,
+        capacity: int | None = None,
+        rebuild_log: list[dict[str, Any]] | None = None,
+        monitor_baseline: np.ndarray | None = None,
     ) -> "OverlapIndex":
         self = object.__new__(cls)
         self.cfg = cfg
@@ -97,15 +117,43 @@ class OverlapIndex:
         self.backend = SingleDeviceBackend(device)
         self._x_parts: list[np.ndarray] = [x]
         self._x_cache: np.ndarray | None = x
-        self.n_total = len(x)
+        self.n_total = len(x) if n_total is None else n_total
         self._device: DeviceForest | None = None  # lazy (see .device)
-        self.capacity = cfg.stream.capacity or default_delta_capacity(self.n_total)
-        self._delta: DeltaBuffer | None = None  # allocated by the first ingest
+        self.capacity = (
+            capacity or cfg.stream.capacity or default_delta_capacity(self.n_total)
+        )
+        self._delta: DeltaBuffer | None = (
+            None if delta is None else self.backend.place_delta(delta)
+        )
         self.monitor: OverlapMonitor | None = None
+        if delta is not None:
+            self.monitor = self._make_monitor()
+            if monitor_baseline is not None:
+                # the baseline captured at save time: recomputing it over
+                # the restart-time dataset would shift object-based trigger
+                # decisions mid-stream
+                self.monitor.rates_baseline = np.asarray(monitor_baseline)
         self._ingest_calls = 0
         self._ingest_shapes: set[int] = set()
-        self.plans = PlanCache()
-        self.rebuild_log: list[dict[str, Any]] = []
+        # one telemetry registry per index: the plan cache, the spans and
+        # the ingest / maintenance / per-island counters register here, and
+        # metrics() is the one snapshot of it all
+        events_path = cfg.obs.events_path or events_path_from_env()
+        self.obs = Registry(
+            enabled=cfg.obs.enabled,
+            window=cfg.obs.window,
+            events=None if events_path is None else EventLog(
+                events_path,
+                max_bytes=cfg.obs.events_max_bytes,
+                backups=cfg.obs.events_backups,
+            ),
+        )
+        # self-sampled searches (cfg.obs.trace_sample) get their own
+        # TraceContext; an ambient one installed by a caller always wins
+        self._tracer = TraceSampler(cfg.obs.trace_sample)
+        self._searches_since_swap = 0  # maintenance.rebuild_age gauge
+        self.plans = PlanCache(registry=self.obs)
+        self.rebuild_log: list[dict[str, Any]] = rebuild_log or []
         return self
 
     @classmethod
@@ -201,24 +249,170 @@ class OverlapIndex:
             raise ConfigError(f"search beam={key.beam} must be >= 1")
         return key
 
+    def _record_search(self, stats: dict[str, Any], isl: IslandStats) -> None:
+        """Fold one search's host-side stats into the registry: the fleet
+        node-access counters and the per-island breakdown (one island on the
+        single layout; the routing tier's counters come with the routed
+        layout)."""
+        obs = self.obs
+        obs.counter("search.queries").inc(len(stats["buckets_visited"]))
+        for name in ("buckets_visited", "distances", "bound_distances"):
+            obs.counter(f"search.{name}").inc(int(stats[name].sum()))
+        method = self.cfg.index.method
+        for s_id in range(isl.buckets_visited.shape[0]):
+            for name in ("buckets_visited", "distances", "bound_distances"):
+                obs.counter(
+                    f"search.island.{name}", island=s_id, method=method
+                ).inc(int(getattr(isl, name)[s_id].sum()))
+            # traced requests also get a per-island point event in their
+            # span tree (dropped outside a sampled trace)
+            obs.emit_event(
+                {
+                    "event": "island",
+                    "island": s_id,
+                    "buckets_visited": int(isl.buckets_visited[s_id].sum()),
+                    "distances": int(isl.distances[s_id].sum()),
+                },
+                traced_only=True,
+            )
+
     def search(
         self, q, *, k: int | None = None, mode: str | None = None,
         beam: int | None = None, kernel: bool | None = None,
+        trace: TraceContext | None = None,
     ) -> SearchResult:
         """kNN over the forest and the streaming delta.  Defaults come from
         ``cfg.search``; per-call overrides select (or create) the matching
-        cached ``SearchPlan``.  Returns a host-side ``SearchResult``."""
-        key = self._plan_key(k, mode, beam, kernel)
-        plan = self.plans.plan(key, self.backend)
-        plan.calls += 1
-        qt = torch.as_tensor(np.asarray(q, np.float32), device=self.backend.device)
-        delta = None if self._delta is None else delta_view(self._delta)
-        d, i, s = plan.executor(self.backend.search_operands(self.device), qt, delta)
-        d, i, stats = results_to_host(d, i, s)
+        cached ``SearchPlan``.  Returns a host-side ``SearchResult``.
+
+        ``trace`` joins this search to a caller-owned request trace; with no
+        explicit context and no ambient one, ``cfg.obs.trace_sample``
+        self-samples (the sampled search becomes its own trace root in the
+        event log).  Telemetry is host bookkeeping around the executor:
+        traced, untraced and metrics-off searches return bitwise-identical
+        results with the same two host syncs.
+        """
+        obs = self.obs
+        ctx = trace
+        if ctx is None and obs.enabled and current_trace() is None:
+            ctx = self._tracer.maybe_trace()
+        self._searches_since_swap += 1
+        obs.gauge("maintenance.rebuild_age").set(self._searches_since_swap)
+        with use_trace(ctx), obs.span("search"):
+            with obs.span("plan_lookup"):
+                key = self._plan_key(k, mode, beam, kernel)
+                plan = self.plans.plan(key, self.backend)
+                plan.calls += 1
+                delta = None if self._delta is None else delta_view(self._delta)
+            with obs.span("device_execute"):
+                qt = torch.as_tensor(np.asarray(q, np.float32), device=self.backend.device)
+                d, i, s = plan.executor(self.backend.search_operands(self.device), qt, delta)
+            with obs.span("host_transfer"):
+                d, i, stats = results_to_host(d, i, s)
+            if obs.enabled:
+                self._record_search(stats, self.backend.islands(stats))
         kk = min(key.k, self.n_total)  # Def. 4: |X| <= k -> whole set
         if d.shape[1] > kk:
             d, i = d[:, :kk], i[:, :kk]
         return SearchResult(dists=d, ids=i, stats=stats, plan=plan)
+
+    def explain(
+        self, q, *, k: int | None = None, mode: str | None = None,
+        beam: int | None = None, kernel: bool | None = None,
+        feed_monitor: bool = True,
+    ) -> ExplainReport:
+        """Search + overlap attribution: which bucket visits contributed a
+        final top-k member, which were wasted, and which (visited, home)
+        index pairs the waste charges to (``obs/attribution.py``).
+
+        Runs the search's op sequence through a separate cached plan that
+        also returns the visited-row evidence (``core.knn.VisitRows``), so
+        ``report.result`` is bitwise-identical to ``search()``; ``home`` is
+        each query's routed index, by the same routing op.  The evidence,
+        the home indexes and the delta's ids ride in the search's one copy
+        to the host, where the attribution runs.  Per query, contributing +
+        wasted == ``stats['buckets_visited']``.  Totals land in
+        ``metrics()['overlap_health']`` and, with ``feed_monitor`` (the
+        default), in the drift monitor's measured-waste accumulators
+        (``StreamConfig.wasted_rebuild``).
+        """
+        obs = self.obs
+        with obs.span("explain"):
+            with obs.span("plan_lookup"):
+                key = self._plan_key(k, mode, beam, kernel)._replace(explain=True)
+                plan = self.plans.plan(key, self.backend)
+                plan.calls += 1
+                delta = None if self._delta is None else delta_view(self._delta)
+            with obs.span("device_execute"):
+                qt = torch.as_tensor(np.asarray(q, np.float32), device=self.backend.device)
+                d, i, s, rows = plan.executor(
+                    self.backend.search_operands(self.device), qt, delta
+                )
+                _, home = route_points(self.device.index_centers, qt, kernel=key.kernel)
+                extra = [rows.order, rows.visits, home]
+                if delta is not None:  # the delta phase's evidence and member ids
+                    extra += [rows.dorder, rows.dvisits, self.delta.ids, self.delta.count]
+            with obs.span("host_transfer"):
+                d, i, stats, order, visits, home, *dx = results_to_host(d, i, s, *extra)
+            dorder, dvisits, delta_ids, delta_count = dx or (None,) * 4
+            if obs.enabled:
+                self._record_search(stats, self.backend.islands(stats))
+            kk = min(key.k, self.n_total)
+            if d.shape[1] > kk:
+                d, i = d[:, :kk], i[:, :kk]
+            with obs.span("attribute"):
+                report = self._attribute(
+                    order, visits, dorder, dvisits, i, home, delta_ids, delta_count
+                )
+        report.result = SearchResult(dists=d, ids=i, stats=stats, plan=plan)
+        if obs.enabled:
+            obs.counter("explain.queries").inc(report.queries)
+            obs.counter("explain.contributing").inc(int(report.contributing.sum()))
+            obs.counter("explain.wasted").inc(int(report.wasted.sum()))
+            jj, ii = np.nonzero(report.wasted_pair)
+            for j_v, i_h in zip(jj.tolist(), ii.tolist()):
+                obs.counter(
+                    "explain.wasted_pair", visited=j_v, home=i_h
+                ).inc(int(report.wasted_pair[j_v, i_h]))
+        if feed_monitor and self.monitor is not None:
+            self.monitor.note_wasted(report.wasted_pair, report.visited_pair)
+        return report
+
+    def _attribute(
+        self, order, visits, dorder, dvisits, result_ids, home, delta_ids, delta_count,
+    ) -> ExplainReport:
+        """Host-side decode of one explain run's visit evidence (see
+        ``obs.attribution.attribute_visits`` for the semantics).  The rates
+        are the monitor's baseline, or the geometric heuristic's matrix
+        computed from the uploaded index geometry when no monitor runs
+        yet."""
+        forest = self.forest
+        method = self.cfg.stream.monitor_method
+        rates = None
+        if self.monitor is not None:
+            rates = self.monitor.rates_baseline
+        elif not get_overlap_method(method).needs_objects:
+            rates = overlap_matrix(
+                method, self.device.index_centers, self.device.index_radii
+            ).cpu().numpy()
+        return attribute_visits(
+            order=order,
+            visits=visits,
+            dorder=dorder,
+            dvisits=dvisits,
+            result_ids=result_ids,
+            home=home,
+            n_indexes=forest.n_indexes,
+            bucket_index=forest.bucket_index,
+            bucket_ids=forest.bucket_ids,
+            bucket_mask=forest.bucket_mask,
+            main_rows_per_shard=forest.n_buckets,
+            delta_rows_per_shard=forest.n_indexes,
+            delta_ids=delta_ids,
+            delta_count=delta_count,
+            rates=rates,
+            method=method,
+        )
 
     # -- write path ----------------------------------------------------------
     def _ensure_delta(self) -> None:
@@ -238,11 +432,12 @@ class OverlapIndex:
         return min(p, self.capacity)
 
     def ingest_stats(self) -> dict[str, int]:
-        """Write-path counters: ``calls`` of the ingest executor (one per
-        round, retries included) and ``shapes``, the distinct padded batch
-        lengths it ran.  The JAX package reports compiled ``traces`` here;
-        the port runs eagerly and has no trace to count."""
-        return dict(calls=self._ingest_calls, shapes=len(self._ingest_shapes))
+        """Write-path counters, under the JAX package's keys: ``calls`` of
+        the ingest executor (one per round, retries included) and
+        ``traces``, the distinct padded batch lengths it ran.  The JAX
+        package compiles one ingest program per such length; the port runs
+        eagerly and compiles nothing, so ``traces`` counts the shapes."""
+        return dict(traces=len(self._ingest_shapes), calls=self._ingest_calls)
 
     def _make_monitor(self) -> OverlapMonitor:
         needs_x = get_overlap_method(self.cfg.stream.monitor_method).needs_objects
@@ -282,8 +477,10 @@ class OverlapIndex:
         self._x_parts.append(xb)
         self.n_total += len(xb)
         self._x_cache = None
-        for lo in range(0, len(xb), self.capacity):
-            self._ingest_chunk(xb[lo: lo + self.capacity], ids[lo: lo + self.capacity])
+        with self.obs.span("ingest"):
+            self.obs.counter("ingest.points").inc(len(xb))
+            for lo in range(0, len(xb), self.capacity):
+                self._ingest_chunk(xb[lo: lo + self.capacity], ids[lo: lo + self.capacity])
         return ids
 
     def _ingest_chunk(self, xc: np.ndarray, ic: np.ndarray) -> None:
@@ -309,14 +506,16 @@ class OverlapIndex:
         run = self.backend.ingest_body()
         for _ in range(self.forest.n_indexes + 1):
             self._ingest_calls += 1
-            self._delta, acc = run(
-                self.device.index_centers, self._delta, xt, it,
-                torch.from_numpy(pending).to(dev),
-            )
-            pending &= ~acc.cpu().numpy()
+            with self.obs.span("device_execute"):
+                self._delta, acc = run(
+                    self.device.index_centers, self._delta, xt, it,
+                    torch.from_numpy(pending).to(dev),
+                )
+                pending &= ~acc.cpu().numpy()
             if not pending.any():
                 return
             # capacity hit: force-rebuild the rejecting indexes, retry the rest
+            self.obs.counter("ingest.capacity_retries").inc()
             meta = pull_delta_meta(self.delta)
             full = [i for i in range(self.forest.n_indexes) if meta["dropped"][i] > 0]
             self._rebuild(full)
@@ -329,8 +528,16 @@ class OverlapIndex:
     def check(self) -> DriftReport:
         """Overlap-drift evaluation only (no rebuild) -> DriftReport."""
         self._ensure_delta()
-        needs_x = get_overlap_method(self.cfg.stream.monitor_method).needs_objects
-        return self.monitor.check(self.delta, x=self.x_all if needs_x else None)
+        with self.obs.span("check"):
+            needs_x = get_overlap_method(self.cfg.stream.monitor_method).needs_objects
+            report = self.monitor.check(self.delta, x=self.x_all if needs_x else None)
+        self.obs.counter("maintain.checks").inc()
+        for i, f in enumerate(report.fill):
+            self.obs.gauge("maintenance.delta_fill", index=i).set(float(f))
+        for reasons in report.reasons.values():
+            for why in reasons:
+                self.obs.counter("maintain.triggers", reason=why).inc()
+        return report
 
     def maintain(self) -> DriftReport:
         """Run the drift monitor; rebuild and hot-swap every triggered index.
@@ -338,13 +545,16 @@ class OverlapIndex:
         The swap is atomic: a query sees the old (device, delta) pair or the
         new pair, never a partial state.  Returns the DriftReport.
         """
-        report = self.check()
-        if report.triggers:
-            self._rebuild(report.triggers, report)
+        with self.obs.span("maintain"):
+            report = self.check()
+            if report.triggers:
+                self._rebuild(report.triggers, report)
         return report
 
     def _rebuild(self, triggers: list[int], report: DriftReport | None = None) -> None:
-        if triggers:
+        if not triggers:
+            return
+        with self.obs.span("rebuild"):
             self._rebuild_impl(triggers, report)
 
     def _rebuild_impl(self, triggers: list[int], report: DriftReport | None) -> None:
@@ -382,6 +592,39 @@ class OverlapIndex:
         stats["reasons"] = dict(report.reasons) if report is not None else {}
         stats["n_migrated"] = n_migrated
         self.rebuild_log.append(stats)
+        self._searches_since_swap = 0
+        self.obs.gauge("maintenance.rebuild_age").set(0)
+        self.obs.counter("maintain.rebuilds").inc(len(triggers))
+        self.obs.counter("maintain.migrated").inc(n_migrated)
+        self.obs.histogram("maintain.rebuild_wall_s").observe(stats["wall_time_s"])
+
+    # -- persistence ---------------------------------------------------------
+    def save(self, path) -> str:
+        """Serialize the whole index (forest, host trees, delta, monitor
+        baseline, config, dataset) to one .npz in the JAX package's format;
+        returns the path written.  A ``load`` of that file, by either
+        package, serves bitwise-identical searches without rebuilding."""
+        return persist.save_state(self, path)
+
+    @classmethod
+    def load(cls, path, *, device=None) -> "OverlapIndex":
+        """Rebuild-free restart from ``save`` output (this package's or the
+        JAX package's) onto ``device`` (default ``cuda``; without CUDA and
+        without a device it raises, as the other entry points do).
+
+        Snapshots hold the logical, unpadded state, so they are
+        layout-independent: a JAX snapshot saved under a sharded or routed
+        layout loads here single-device and searches as the writer did."""
+        dev = resolve_device(device)
+        st = persist.load_state(path, device=dev)
+        return cls._wire(
+            st["x_all"], st["forest"], st["cfg"], st["build_report"], dev,
+            n_total=st["n_total"],
+            delta=st["delta"],
+            capacity=st["capacity"],
+            rebuild_log=st["rebuild_log"],
+            monitor_baseline=st["monitor_baseline"],
+        )
 
     # -- serving -------------------------------------------------------------
     def to_datastore(self, values, *, stream_capacity: int = 0, quantized: bool | None = None):
@@ -401,6 +644,114 @@ class OverlapIndex:
         )
 
     # -- introspection -------------------------------------------------------
+    def metrics(self) -> dict[str, Any]:
+        """One nested telemetry snapshot of this index (JSON-serializable),
+        with the JAX package's sections and keys:
+
+          search       per-phase span histograms (``search``,
+                       ``search/plan_lookup``, ``search/device_execute``,
+                       ``search/host_transfer``) with p50/p95/p99 seconds,
+                       and the node-access totals;
+          plan_cache   executor-table counters (hits / misses / evictions /
+                       ``traces``: distinct operand shapes run, see
+                       ``api/plan.py``);
+          ingest       write-path counters (``ingest_stats()``, points
+                       ingested, capacity-retry rounds);
+          maintenance  drift-monitor checks, per-reason trigger counts,
+                       rebuild totals, searches since the last swap;
+          islands      per-executor-island node-access counters (the
+                       paper's cost currency), one island on this layout;
+          router       the routed layout's dispatch telemetry: present and
+                       zero here, ``table`` None (no routing tier);
+          overlap_health  ``explain()``'s attribution rollup: contributing
+                       vs wasted visit totals, the wasted fraction, the
+                       per-(visited, home) wasted-pair counters and the
+                       monitor's measured-waste shares;
+          registry     the raw registry snapshot (every counter, gauge and
+                       histogram).
+
+        ``Registry.to_prometheus()`` (or ``python -m repro_torch.obs.export``)
+        renders the registry section in Prometheus text format.  With
+        ``cfg.obs.enabled=False`` the structural sections (plan_cache,
+        ingest traces/calls, rebuilds) remain and the registry-backed ones
+        are empty.
+        """
+        obs = self.obs
+        snap = obs.snapshot()
+        islands: dict[int, dict[str, int]] = {}
+        triggers: dict[str, int] = {}
+        wasted_pairs: dict[str, int] = {}
+        for (name, labels), val in obs.counters().items():
+            if name.startswith("search.island."):
+                lab = dict(labels)
+                islands.setdefault(int(lab["island"]), {})[
+                    name[len("search.island."):]
+                ] = val
+            elif name == "maintain.triggers":
+                triggers[dict(labels).get("reason", "?")] = val
+            elif name == "explain.wasted_pair":
+                lab = dict(labels)
+                wasted_pairs[f"{lab['visited']}->{lab['home']}"] = val
+        contributing = obs.value("explain.contributing")
+        wasted = obs.value("explain.wasted")
+        return {
+            "enabled": obs.enabled,
+            "search": {
+                "spans": {
+                    k: v for k, v in snap["histograms"].items()
+                    if k == "search" or k.startswith("search/")
+                },
+                "queries": obs.value("search.queries"),
+                "buckets_visited": obs.value("search.buckets_visited"),
+                "distances": obs.value("search.distances"),
+                "bound_distances": obs.value("search.bound_distances"),
+            },
+            "plan_cache": self.plans.stats(),
+            "ingest": {
+                **self.ingest_stats(),
+                "points": obs.value("ingest.points"),
+                "capacity_retries": obs.value("ingest.capacity_retries"),
+            },
+            "maintenance": {
+                "checks": obs.value("maintain.checks"),
+                "triggers": triggers,
+                "rebuilds": len(self.rebuild_log),
+                "indexes_rebuilt": obs.value("maintain.rebuilds"),
+                "migrated": obs.value("maintain.migrated"),
+                # searches since the last rebuild swap (the gauge
+                # maintenance.rebuild_age); per-index delta_fill gauges are
+                # in the registry section
+                "rebuild_age": self._searches_since_swap,
+            },
+            "islands": islands,
+            "router": {
+                "queries": obs.value("router.queries"),
+                "eligible_hosts": obs.value("router.eligible_hosts"),
+                "pruned_hosts": obs.value("router.pruned_hosts"),
+                "fanout": {
+                    m: obs.value("router.fanout", mode=m) for m in ("targeted", "all")
+                },
+                "est_bytes": {
+                    m: obs.value("router.est_bytes", mode=m) for m in ("targeted", "all")
+                },
+                "table": None,
+            },
+            "overlap_health": {
+                "explained_queries": obs.value("explain.queries"),
+                "contributing": contributing,
+                "wasted": wasted,
+                "wasted_fraction": (
+                    wasted / (contributing + wasted) if (contributing + wasted) else 0.0
+                ),
+                "wasted_pairs": wasted_pairs,
+                "monitor_wasted_share": (
+                    None if self.monitor is None
+                    else self.monitor.wasted_share().tolist()
+                ),
+            },
+            "registry": snap,
+        }
+
     def structure(self) -> dict[str, Any]:
         """aggregate_structure + live delta occupancy."""
         s = self.forest.aggregate_structure()

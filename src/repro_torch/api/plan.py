@@ -1,15 +1,18 @@
 """Search planning: one cached executor per static-option tuple.
 
   * ``PlanKey``     — the static options an executor is specialized on:
-                      ``(k, mode, beam, kernel, quantize, delta_capacity)``;
+                      ``(k, mode, beam, kernel, quantize, delta_capacity,
+                      explain)``;
   * ``SearchPlan``  — the key plus the layout backend's executor body with
-                      those options baked in, and a call counter;
+                      those options baked in, and call / shape counters;
   * ``PlanCache``   — the per-index table of plans with hit/miss counters,
                       bounded by ``max_plans`` with LRU eviction.
 
 PyTorch runs eagerly, so a plan holds no compiled program (the JAX package's
-plans hold a ``jax.jit`` executable and count traces); it keeps the option
-tuple and its executor in one place so both packages key searches alike.
+plans hold a ``jax.jit`` executable and count its traces).  It keeps the
+option tuple and its executor in one place so both packages key searches
+alike, and counts as ``traces`` the distinct operand shapes it ran: the
+specializations a compiled executor would trace.
 """
 from __future__ import annotations
 
@@ -32,24 +35,56 @@ class PlanKey(NamedTuple):
     kernel: bool
     quantize: bool
     delta_capacity: int | None = None  # None: no delta phase
+    # explain plans also return core.knn.VisitRows (the visited-row
+    # evidence obs/attribution.py decodes); a separate plan keeps the
+    # search executor's output contract untouched
+    explain: bool = False
+
+
+def _shape_signature(forest, q, delta) -> tuple:
+    return (tuple(tuple(t.shape) for t in forest if t is not None), tuple(q.shape),
+            None if delta is None else tuple(delta.x.shape))
 
 
 @dataclass
 class SearchPlan:
     """A search program for one ``PlanKey``: ``executor(device_forest, q,
-    delta)`` returns the device triple ``(dists, ids, SearchStats)``;
-    ``calls`` counts executions through this plan."""
+    delta)`` returns the device triple ``(dists, ids, SearchStats)``, and
+    an explain plan (``key.explain``) appends ``core.knn.VisitRows``.
+    ``calls`` counts executions through this plan, ``shapes`` the distinct
+    operand shape signatures it ran."""
 
     key: PlanKey
-    executor: Callable[..., tuple[Any, ...]]
+    executor: Callable[..., tuple[Any, ...]] = None  # set by _build_plan
     calls: int = 0
+    shapes: set = field(default_factory=set, repr=False)
+
+    @property
+    def traces(self) -> int:
+        """Distinct operand shapes run: what a compiled executor would have
+        traced (the port compiles nothing)."""
+        return len(self.shapes)
+
+
+def _build_plan(key: PlanKey, backend) -> SearchPlan:
+    plan = SearchPlan(key=key)
+    body = backend.explain_body(key) if key.explain else backend.search_body(key)
+
+    def executor(forest, q, delta):
+        plan.shapes.add(_shape_signature(forest, q, delta))
+        return body(forest, q, delta)
+
+    plan.executor = executor
+    return plan
 
 
 class PlanCache:
     """Per-``OverlapIndex`` table of search plans, LRU-bounded: exceeding
-    ``max_plans`` evicts the least-recently-used plan."""
+    ``max_plans`` evicts the least-recently-used plan.  With a ``registry``
+    (``repro_torch.obs.Registry``) the hit/miss/eviction counts also go to
+    its ``plan_cache.*`` counters."""
 
-    def __init__(self, max_plans: int = 64) -> None:
+    def __init__(self, max_plans: int = 64, *, registry=None) -> None:
         if max_plans < 1:
             raise ValueError(f"max_plans={max_plans} must be >= 1")
         self._plans: OrderedDict[PlanKey, SearchPlan] = OrderedDict()
@@ -57,22 +92,38 @@ class PlanCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.evicted_traces = 0  # lifetime traces of plans no longer cached
+        self._obs = registry
+
+    def _count(self, name: str) -> None:
+        if self._obs is not None:
+            self._obs.counter(name).inc()
 
     def plan(self, key: PlanKey, backend) -> SearchPlan:
         got = self._plans.get(key)
         if got is None:
             self.misses += 1
-            got = self._plans[key] = SearchPlan(key=key, executor=backend.search_body(key))
+            self._count("plan_cache.misses")
+            got = self._plans[key] = _build_plan(key, backend)
             if len(self._plans) > self.max_plans:
-                self._plans.popitem(last=False)
+                _, evicted = self._plans.popitem(last=False)
+                self.evicted_traces += evicted.traces
                 self.evictions += 1
+                self._count("plan_cache.evictions")
         else:
             self.hits += 1
+            self._count("plan_cache.hits")
             self._plans.move_to_end(key)
         return got
 
     def __len__(self) -> int:
         return len(self._plans)
+
+    def __contains__(self, key: PlanKey) -> bool:
+        return key in self._plans
+
+    def keys(self) -> tuple[PlanKey, ...]:
+        return tuple(self._plans)
 
     def stats(self) -> dict[str, int]:
         return dict(
@@ -81,6 +132,8 @@ class PlanCache:
             hits=self.hits,
             misses=self.misses,
             evictions=self.evictions,
+            # lifetime specializations: live plans + plans eviction dropped
+            traces=self.evicted_traces + sum(p.traces for p in self._plans.values()),
         )
 
 
@@ -111,18 +164,29 @@ _STAT_FIELDS = ("buckets_visited", "distances", "bound_distances",
 
 
 def results_to_host(
-    d: torch.Tensor, i: torch.Tensor, s: SearchStats
-) -> tuple[np.ndarray, np.ndarray, dict[str, Any]]:
+    d: torch.Tensor, i: torch.Tensor, s: SearchStats, *extra: torch.Tensor
+) -> tuple[Any, ...]:
     """A search's (dists, ids, SearchStats) -> host arrays and the stats dict
     the JAX package reports (numpy int32 per-query arrays and an int
-    ``steps``), in one device-to-host copy: the search's only sync."""
+    ``steps``), in one device-to-host copy: the search's only sync.
+    ``extra`` integer tensors (an explain run's visit orders, counts and
+    home indexes) ride in the same copy and follow, as i32 numpy arrays of
+    their shapes: ``(dists, ids, stats, *extra)``."""
     qn, kk = d.shape
     packed = torch.cat([
         d.to(torch.float32).view(torch.int32).reshape(-1), i.to(torch.int32).reshape(-1),
         *(getattr(s, f).to(torch.int32).reshape(-1) for f in _STAT_FIELDS),
         s.steps.to(torch.int32).reshape(1),
+        *(t.to(torch.int32).reshape(-1) for t in extra),
     ]).cpu().numpy()
     n = qn * kk
     stats = {f: packed[2 * n + j * qn: 2 * n + (j + 1) * qn] for j, f in enumerate(_STAT_FIELDS)}
-    stats["steps"] = int(packed[-1])
-    return packed[:n].view(np.float32).reshape(qn, kk), packed[n:2 * n].reshape(qn, kk), stats
+    lo = 2 * n + len(_STAT_FIELDS) * qn
+    stats["steps"] = int(packed[lo])
+    lo += 1
+    rest = []
+    for t in extra:
+        rest.append(packed[lo: lo + t.numel()].reshape(tuple(t.shape)))
+        lo += t.numel()
+    return (packed[:n].view(np.float32).reshape(qn, kk), packed[n:2 * n].reshape(qn, kk),
+            stats, *rest)

@@ -174,6 +174,10 @@ class ScanOut(NamedTuple):
     steps: Tensor  # () i32 scan-loop trip count over both phases
     n_elig: Tensor  # (Q,) i32 eligible main buckets
     n_elig_d: Tensor  # (Q,) i32 eligible delta buckets
+    # main-phase visits alone (visits - visits_main = the delta phase's);
+    # the attribution layer decodes the visited rows from these and the
+    # sorted visit orders
+    visits_main: Tensor | None = None
 
 
 class PhaseBounds(NamedTuple):
@@ -317,6 +321,7 @@ def scan_sorted(
         q, bounds, beam, top_d, top_i, forest.bucket_x, forest.bucket_ids,
         forest.bucket_scale, bucket_count,
     )
+    visits_main = visits
 
     n_elig_d = torch.zeros((qn,), dtype=torch.int32, device=dev)
     if delta is not None:
@@ -338,6 +343,7 @@ def scan_sorted(
         steps=steps,
         n_elig=bounds.n_elig,
         n_elig_d=n_elig_d,
+        visits_main=visits_main,
     )
 
 
@@ -417,6 +423,74 @@ def knn_search_impl(
     )
     stats = scan_stats(route_dists, route_cmps, out, kk=kk)
     return torch.sqrt(out.top_d), out.top_i, stats
+
+
+class VisitRows(NamedTuple):
+    """Per-query visited-row evidence for the attribution layer
+    (``obs/attribution.py``).
+
+    The decode rests on a scan invariant: within one phase the visited
+    buckets are exactly the first ``visits[0, q]`` entries of the ascending
+    visit order.  K1 walks a query's ``order`` front to back, ``beam``
+    entries a step, and visits an entry when its bound is <= the query's
+    k-th best at the step's start.  ``lb_sorted`` ascends and the k-th best
+    never grows, so once an entry fails every later one fails too: the
+    visited entries are a prefix (+inf padding included while fewer than k
+    are found).  So (order, per-phase visit counts) gives the visited set
+    on the host without running anything again.
+
+    The layout is the JAX package's single-device one: ``order`` (Q, W) and
+    ``visits`` (1, Q), one island; ``dorder``/``dvisits`` are the delta
+    phase's twin (``None`` without a delta phase).
+    """
+
+    order: Tensor  # (Q, W) i32 ascending-bound visit order
+    visits: Tensor  # (1, Q) i32 main-phase visit counts
+    dorder: Tensor | None  # (Q, Wd) delta visit order
+    dvisits: Tensor | None  # (1, Q) i32 delta-phase visit counts
+
+
+def knn_search_explain_impl(
+    forest: DeviceForest,
+    q: Tensor,
+    *,
+    k: int,
+    mode: str = "forest",
+    beam: int = 1,
+    kernel: bool = True,
+    delta: DeltaView | None = None,
+) -> tuple[Tensor, Tensor, SearchStats, VisitRows]:
+    """``knn_search_impl`` + the visited-row evidence (``VisitRows``).
+
+    Runs the same op sequence as ``knn_search_impl`` (the same routing,
+    bounds and scan phases on the same operands), so its results are
+    bitwise equal to it, and also returns the sorted visit orders and
+    per-phase visit counts that the search computes and drops.
+    """
+    n_idx = forest.index_centers.shape[0]
+    nb, cap, _ = forest.bucket_x.shape
+    n_cap = nb * cap
+    if delta is not None:
+        n_cap += n_idx * delta.x.shape[1]
+    kk = min(k, n_cap)
+
+    sel, route_dists, route_cmps = route_select(forest, q, mode=mode, kernel=kernel)
+    bounds = bucket_bounds(forest, q, sel, beam=beam, kernel=kernel)
+    dbounds = None
+    if delta is not None:
+        dbounds = delta_bounds(delta, q, sel, beam=beam, kernel=kernel)
+    out = scan_sorted(
+        forest, q, bounds, kk=kk, beam=beam, kernel=kernel,
+        delta=delta, dbounds=dbounds,
+    )
+    stats = scan_stats(route_dists, route_cmps, out, kk=kk)
+    rows = VisitRows(
+        order=bounds.order,
+        visits=out.visits_main[None],
+        dorder=None if dbounds is None else dbounds.order,
+        dvisits=None if delta is None else (out.visits - out.visits_main)[None],
+    )
+    return torch.sqrt(out.top_d), out.top_i, stats, rows
 
 
 def knn_exact(x: Tensor, q: Tensor, *, k: int, kernel: bool = True) -> tuple[Tensor, Tensor]:

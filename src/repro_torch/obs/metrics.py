@@ -1,6 +1,6 @@
 """Dependency-free metrics primitives: counters, gauges, streaming
 histograms, and phase-span timers, behind one ``Registry`` (the port's own
-copy of ``repro/obs/metrics.py``, without the Prometheus export).
+copy of ``repro/obs/metrics.py``).
 
 The paper's whole argument is measured in observability terms — overlap
 reduction is proven by node-access counts and search time — but until this
@@ -371,3 +371,12 @@ class Registry:
                 _fmt(k): h.snapshot() for k, h in self._hists.items()
             },
         }
+
+    def to_prometheus(self) -> str:
+        """The whole registry in Prometheus text exposition format —
+        counters, gauges, and histograms-as-summaries (quantile labels +
+        ``_sum``/``_count``).  See ``obs/export.py`` for the renderer and
+        the ``python -m repro_torch.obs.export`` CLI around it."""
+        from repro_torch.obs.export import render_prometheus  # lazy: export is CLI-adjacent
+
+        return render_prometheus(self.snapshot())

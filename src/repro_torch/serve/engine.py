@@ -159,6 +159,13 @@ class ServeEngine:
         fairness counters, and step/token counters."""
         return self.obs.snapshot()
 
+    def reset_metrics(self, registry: Registry | None = None) -> Registry:
+        """Swap the engine onto a fresh (or provided) registry and return
+        it.  The service-time model persists, so a sweep can isolate each
+        operating point's percentiles without rebuilding the engine."""
+        self.obs = registry if registry is not None else Registry()
+        return self.obs
+
     @property
     def busy(self) -> bool:
         """True while any work remains (live slots, queued decodes, or an

@@ -547,3 +547,46 @@ def test_card_ingest_is_deterministic_and_matches_the_cpu(dev):
         else:
             assert torch.equal(a, c), name
     assert int(d1[-1].sum()) > 0  # capacity rejects happened
+
+
+@pytest.mark.parametrize("beam", [1, 4])
+def test_load_and_explain_on_the_card(dev, blob_data, tmp_path, beam):
+    """A snapshot written on the CPU loads onto the card; there ``explain``
+    returns the search's result bit for bit, conserves visits (contributing
+    + wasted == buckets_visited), and its decoded prefixes account for the
+    kernel's own distances counter: each query's K1 ``distances`` equal the
+    bucket sizes summed over the first ``visits`` entries of each phase's
+    order.  Searches after the load launch K1 twice (main and delta)."""
+    from repro_torch.api import Config, IndexConfig, OverlapIndex, StreamConfig
+    from repro_torch.core.knn import knn_search_explain_impl
+    from repro_torch.stream.ingest import delta_view
+
+    cfg = Config(index=IndexConfig(method="vbm", eps=1.5, min_pts=8, xi_min=0.1, xi_max=0.7),
+                 stream=StreamConfig(capacity=64))
+    host = OverlapIndex.build(blob_data, cfg, device="cpu")
+    g = np.random.default_rng(7)
+    host.ingest((blob_data[g.choice(len(blob_data), 100)]
+                 + 0.3 * g.normal(size=(100, 8))).astype(np.float32))
+    ix = OverlapIndex.load(host.save(tmp_path / "blob"), device=dev)
+    q = (blob_data[g.choice(len(blob_data), 64)] + 0.5 * g.normal(size=(64, 8))).astype(np.float32)
+    n0 = ops.launch_counts()["bucket_scan_topk"]
+    res = ix.search(q, k=10, beam=beam)
+    assert ops.launch_counts()["bucket_scan_topk"] == n0 + 2
+    rep = ix.explain(q, k=10, beam=beam)
+    np.testing.assert_array_equal(rep.result.dists, res.dists)
+    np.testing.assert_array_equal(rep.result.ids, res.ids)
+    np.testing.assert_array_equal(rep.contributing + rep.wasted, res.stats["buckets_visited"])
+    qt = torch.from_numpy(q).to(dev)
+    dv = delta_view(ix.device_delta)
+    _, _, st, rows = knn_search_explain_impl(ix.device, qt, k=10, beam=beam, delta=dv)
+    count = ix.device.bucket_mask.sum(1, dtype=torch.int32)
+    dcount = dv.mask.sum(1, dtype=torch.int32)
+
+    def prefix_sum(order, visits, sizes):
+        cols = torch.arange(order.shape[1], device=dev)[None]
+        return torch.where(cols < visits[:, None], sizes[order.long()], 0).sum(1)
+
+    ndist = prefix_sum(rows.order, rows.visits[0], count)
+    ndist = ndist + prefix_sum(rows.dorder, rows.dvisits[0], dcount)
+    assert int(rows.dvisits.sum()) > 0
+    assert torch.equal(ndist.to(torch.int32), st.distances)

@@ -31,7 +31,9 @@ def test_import_loads_no_jax_and_no_repro():
               "repro_torch.serve.engine", "repro_torch.launch.serve", "repro_torch.obs.trace",
               "repro_torch.configs.qwen2_0_5b", "repro_torch.kernels.topk",
               "repro_torch.stream.ingest", "repro_torch.stream.maintenance",
-              "repro_torch.serve.retrieval"):
+              "repro_torch.serve.retrieval", "repro_torch.api.persist",
+              "repro_torch.core.metric", "repro_torch.obs.export",
+              "repro_torch.obs.attribution"):
         assert m in mods
     code = (
         "import importlib, sys\n"

@@ -522,16 +522,17 @@ def test_ingest_never_loses_points_under_overflow(blob_data):
 
 def test_ingest_pads_to_powers_of_two(blob_data):
     """Ragged batches pad up to a power of two (clamped to the capacity):
-    ``shapes`` counts the distinct padded lengths, ``calls`` every round."""
+    ``traces`` counts the distinct padded lengths (the JAX package's ingest
+    traces one program per length), ``calls`` every round."""
     tx = OverlapIndex.build(blob_data, Config(index=IndexConfig(**BUILD),
                                               stream=StreamConfig(capacity=100)), device="cpu")
-    assert tx.ingest_stats() == dict(calls=0, shapes=0)
+    assert tx.ingest_stats() == dict(traces=0, calls=0)
     assert [tx._pad_batch(n) for n in (1, 3, 64, 65, 100)] == [1, 4, 64, 100, 100]
     tx.ingest(_stream_points(blob_data, 64, seed=0))
     tx.ingest(_stream_points(blob_data, 40, seed=1))  # pads to 64
-    assert tx.ingest_stats() == dict(calls=2, shapes=1)
+    assert tx.ingest_stats() == dict(traces=1, calls=2)
     tx.ingest(_stream_points(blob_data, 17, seed=2))  # pads to 32: a new shape
-    assert tx.ingest_stats() == dict(calls=3, shapes=2)
+    assert tx.ingest_stats() == dict(traces=2, calls=3)
     with pytest.raises(ConfigError, match="ingest batch"):
         tx.ingest(np.zeros((3, 5), np.float32))
 
