@@ -11,7 +11,9 @@ Phases, in order; any failure raises and the run exits non-zero:
 3. K1 (``bucket_scan_topk``, one launch per scan phase) against the plain
    lockstep phase on the card, bit for bit on grid rows: f32 and int8, beam
    1/3/4, main-path widths, several tiles a bucket, kk = 300, exact ties,
-   fewer than k reachable and a delta phase seeded with the main carry;
+   fewer than k reachable and a delta phase seeded with the main carry; and
+   with a ``qmask`` (half the queries masked, f32 and int8, beam 1 and 4, a
+   delta phase from a masked carry), an all-true mask equal to none;
 4. K3, K4, K5 (the DBSCAN ``eps_*`` passes) against their plain versions:
    exact on unit-scale rows and on hand-made cases (ties, no core point, all
    core, ragged tiles, K3-K5 ties across column chunks), and on 2,048 rows
@@ -88,7 +90,21 @@ Phases, in order; any failure raises and the run exits non-zero:
     ``buckets_visited`` every query, the prefix invariant of its decode
     against the kernel's counters and a replay of the plain phase), the
     measured-waste trigger against a CPU twin, and ``to_prometheus()``
-    parsed back.
+    parsed back;
+17. the sharded and routed layouts on the forests above, four islands
+    (``["cuda:0"] * 4``, or one per card where four are present): phase
+    13's streamed WARD index under ``sharded`` and ``routed`` (fanout all,
+    targeted, auto), 1,024 queries, f32 and int8, beam 1 and 4, bitwise
+    equal to the single layout, island rows summing to the fleet counters,
+    K1 launched S times a phase, the host syncs of a search, one ingest
+    batch equal to the single layout's delta state, saved sharded and
+    loaded routed; Tracking VBM's routed ``auto`` decision held to a CPU
+    twin's; qwen2-0.5b at full width on phase 15's forest datastore under
+    a routed layout, greedy tokens equal to the single layout's; the flat
+    2^20 x 896 datastore and its int8 twin split over the islands in
+    ``knn_logits`` under ``use_mesh``, equal to one scan, K6 / K7 once per
+    island; the search walls (single / sharded / routed, in turns), each
+    island's K1 time and the routed pruning share.
 
 The last lines are one JSON object of per-kernel numbers, then
 ``{"ok": true, "device": {...}}``; ``--json PATH`` also writes the full
@@ -228,20 +244,61 @@ def phase_problem(gen, dev, qn, nb, cap, dim, beam, kk, *, pad=0.3, inf_frac=0.2
     return [q, bx, ids, count, order, lb_sorted, beam, top_d, top_i, scale]
 
 
-def compare_phase(args, what: str):
+def compare_phase(args, what: str, qmask=None):
     """The K1 phase kernel against the plain phase on the same operands:
-    bit for bit in top_d, top_i, visits, ndist, npad and qsteps."""
+    bit for bit in top_d, top_i, visits, ndist, npad and qsteps.  With a
+    ``qmask``, a masked query must also keep its carry with zero counters."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.bucket_scan import bucket_scan_phase_cuda
 
-    got = bucket_scan_phase_cuda(*args)
-    want = ref.bucket_scan_phase_ref(*args)
+    got = bucket_scan_phase_cuda(*args, qmask=qmask)
+    want = ref.bucket_scan_phase_ref(*args, qmask=qmask)
     torch.cuda.synchronize()
     for name, a, b in zip(("top_d", "top_i", "visits", "ndist", "npad", "qsteps"), got, want):
         require(a.dtype == b.dtype and torch.equal(a, b), f"K1 {what}: {name} differs")
+    if qmask is not None:
+        off = ~qmask
+        require(torch.equal(got[0][off], args[7][off]) and torch.equal(got[1][off], args[8][off]),
+                f"K1 {what}: a masked query's carry changed")
+        require(all(bool((c[off] == 0).all()) for c in got[2:]),
+                f"K1 {what}: a masked query did work")
     return got
+
+
+def check_k1_qmask(dev, gen) -> int:
+    """K1 with a ``qmask`` (the routed layout's host pruning) against the
+    plain phase, bit for bit on grid rows: f32 and int8, beam 1 and 4, half
+    the queries masked (WARD's and Tracking's widths and a small case), a
+    delta phase seeded from a masked carry; and an all-true mask
+    bit-identical to no mask, kernel against kernel."""
+    import torch
+
+    from repro_torch.kernels.bucket_scan import bucket_scan_phase_cuda
+
+    n = 0
+    for shape in [(NQ, 1498, 1000, 5, 1, K), (NQ, 1498, 1000, 5, 4, K),
+                  (NQ, 841, 250, 20, 1, K), (NQ, 841, 250, 20, 4, K), (5, 13, 4, 8, 4, 11)]:
+        for int8 in (False, True):
+            args = phase_problem(gen, dev, *shape, int8=int8)
+            mask = torch.rand(shape[0], generator=gen, device=dev) < 0.5
+            compare_phase(args, f"{shape} int8={int8} half masked", qmask=mask)
+            full = bucket_scan_phase_cuda(*args, qmask=torch.ones_like(mask))
+            none = bucket_scan_phase_cuda(*args)
+            torch.cuda.synchronize()
+            require(all(torch.equal(a, b) for a, b in zip(full, none)),
+                    f"K1 {shape} int8={int8}: an all-true qmask differs from no qmask")
+            n += 2
+    for beam in (1, 4):
+        main = phase_problem(gen, dev, 256, 40, 64, 5, beam, K)
+        mask = torch.rand(256, generator=gen, device=dev) < 0.5
+        carry = compare_phase(main, f"masked main phase beam={beam}", qmask=mask)
+        delta = phase_problem(gen, dev, 256, 8, 50, 5, beam, K, pad=0.5)
+        delta[0], delta[7], delta[8] = main[0], carry[0], carry[1]
+        compare_phase(delta, f"delta phase seeded from a masked carry beam={beam}", qmask=mask)
+        n += 2
+    return n
 
 
 def check_k1(dev, gen) -> float:
@@ -278,9 +335,13 @@ def check_k1(dev, gen) -> float:
     delta[0], delta[7], delta[8] = main[0], carry[0], carry[1]
     compare_phase(delta, "delta phase seeded with the main carry")
     n += 5
+    n_mask = check_k1_qmask(dev, gen)
     log(f"[K1] {n} phases equal the plain phase bit for bit on the card (grid rows; "
         f"f32 and int8, beam 1/3/4, main-path widths, C = 2500, kk = 300, exact ties, "
-        f"fewer than k, a delta-seeded carry); steps per phase {min(steps)}-{max(steps)}")
+        f"fewer than k, a delta-seeded carry); steps per phase {min(steps)}-{max(steps)}; "
+        f"with qmask: {n_mask} phases (half the queries masked, f32 and int8, beam 1/4, "
+        f"a delta phase from a masked carry) equal the plain phase bit for bit, and an "
+        f"all-true qmask equals no qmask bit for bit")
     return 0.0
 
 
@@ -2522,7 +2583,9 @@ def forest_serve_phase(dev, model, smi: str) -> dict:
                                      kernel=("K1", ("scan_phase_kernel",)),
                                      what="forest datastore")
     out["k3_time"] = time_k3_wide(keys, float(np.float32(built["ix"].cfg.index.eps) ** 2), smi)
-    return out
+    # phase 17 serves the same index under a routed layout
+    return out, dict(ix=built["ix"], values=(values % cfg.vocab_size).cpu().numpy(),
+                     prompts=prompts, stream=stream_np, tokens=tokens)
 
 
 def time_k3_wide(keys, eps_sq: float, smi: str) -> dict:
@@ -2781,6 +2844,437 @@ def persist_explain_phase(dev, ward, tracking, blob, smi: str) -> dict:
 
 # --------------------------------------------------------------------------
 
+# --------------------------------------------------------------------------
+# phase 17: the sharded and routed layouts
+# --------------------------------------------------------------------------
+
+LAYOUT_SHARDS = 4
+FANOUTS = ("all", "targeted", "auto")
+
+
+def layout_islands() -> list:
+    """Four islands: one per card where four are present, else four on
+    cuda:0 (islands on one card run one after another on its stream)."""
+    import torch
+
+    if torch.cuda.device_count() >= LAYOUT_SHARDS:
+        return [f"cuda:{i}" for i in range(LAYOUT_SHARDS)]
+    return ["cuda:0"] * LAYOUT_SHARDS
+
+
+def layouts() -> dict:
+    from repro_torch.api import LayoutConfig, RoutingConfig
+
+    out = {"sharded": LayoutConfig(kind="sharded", shards=LAYOUT_SHARDS)}
+    for f in FANOUTS:
+        out[f"routed {f}"] = LayoutConfig(kind="routed", shards=LAYOUT_SHARDS,
+                                          routing=RoutingConfig(fanout=f))
+    return out
+
+
+def layout_twin(ix, layout, devices, *, quantize: bool = False):
+    """``ix``'s forest and live delta under another layout (a fresh index on
+    the same state; the streaming writes are functional, so neither index
+    changes the other)."""
+    import dataclasses
+
+    from repro_torch.api import OverlapIndex
+
+    cfg = dataclasses.replace(ix.cfg, layout=layout,
+                              search=dataclasses.replace(ix.cfg.search, quantize=quantize))
+    return OverlapIndex._wire(ix.x_all, ix.forest, cfg, ix.build_report, devices,
+                              n_total=ix.n_total, delta=ix.delta, capacity=ix.capacity)
+
+
+def router_stats(ix, q):
+    """One search's RouterStats (host numpy) through the routed backend's
+    own decision (``router.route_dispatch``), without the scan."""
+    import torch
+
+    from repro_torch.distributed import router
+
+    b = ix.backend
+    delta = None if ix.device_delta is None else b.delta_view(ix.device_delta)
+    _, r = router.route_dispatch(b.mesh, ix.device, torch.from_numpy(q).to(b.device), delta,
+                                 b.table, k=K, fanout=b.routing.fanout)
+    return {f: getattr(r, f).cpu().numpy() for f in r._fields}
+
+
+def island_k1_ms(ix, q) -> list:
+    """Device ms of each island's main-phase K1 launch at beam 1, on the
+    operands the island's search gives it (route, bounds over its rows)."""
+    import torch
+
+    from repro_torch.core.knn import bucket_bounds, route_select
+    from repro_torch.kernels.bucket_scan import bucket_scan_phase_cuda
+
+    parts = ix.device.parts if hasattr(ix.device, "parts") else [ix.device]
+    out = []
+    for part in parts:
+        qd = torch.from_numpy(q).to(part.bucket_x.device)
+        sel, _, _ = route_select(part, qd)
+        if hasattr(ix.device, "parts"):
+            sel = torch.nn.functional.pad(sel, (0, 1))  # the pad buckets' sentinel
+        mb = bucket_bounds(part, qd, sel)
+        count = torch.sum(part.bucket_mask, 1, dtype=torch.int32)
+        top_d = torch.full((qd.shape[0], K), float("inf"), device=qd.device)
+        top_i = torch.full((qd.shape[0], K), -1, dtype=torch.int32, device=qd.device)
+        out.append(device_ms(lambda: bucket_scan_phase_cuda(
+            qd, part.bucket_x, part.bucket_ids, count, mb.order, mb.lb_sorted, 1, top_d,
+            top_i, part.bucket_scale)))
+    return out
+
+
+def ward_layout_phase(ward, islands, smi: str) -> dict:
+    """WARD 1M + 16,384 streamed (phase 13's index, its delta live) under the
+    sharded layout and the routed one (fanout all, targeted, auto): 1,024
+    queries, f32 and int8, beam 1 and 4, bitwise equal to the single
+    layout; island rows summing to the fleet counters; K1 launched S times
+    a phase; the host syncs of a search; one ingest batch equal to the
+    single layout's delta state; save under sharded, load under routed."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import LayoutConfig, OverlapIndex
+    from repro_torch.data.synthetic import ward_like
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    q = make_queries(ward.x_all, SEED + 17)
+    n_idx = ward.forest.n_indexes
+    out = dict(layouts={})
+    searches = [("forest", 1), ("forest", 4), ("all", 1)]
+    for quantize in (False, True):
+        single = layout_twin(ward, LayoutConfig(), islands[0], quantize=quantize)
+        ref = {sb: single.search(q, k=K, mode=sb[0], beam=sb[1]) for sb in searches}
+        fanall = {}
+        for name, lay in layouts().items():
+            ix = layout_twin(ward, lay, islands, quantize=quantize)
+            ops.reset_launch_counts()
+            spill = {}
+            for mode, beam in searches:
+                res = ix.search(q, k=K, mode=mode, beam=beam)
+                what = f"WARD {name} int8={quantize} mode={mode} beam={beam}"
+                spill[f"{mode} {beam}"] = hold_layout(res, ref[(mode, beam)], what,
+                                                      exact=mode == "all")
+                if name == "sharded":
+                    fanall[(mode, beam)] = res
+                else:  # host pruning is invisible: routed == sharded fan-all
+                    require(same_dists_ids(res, fanall[(mode, beam)]),
+                            f"{what}: results differ from the sharded fan-all's")
+            launches = ops.launch_counts()
+            m = ix.metrics()
+            for key in ("buckets_visited", "distances"):
+                require(sum(v[key] for v in m["islands"].values()) == m["search"][key],
+                        f"WARD {name}: island {key} do not sum to the fleet's")
+            summed = sum(v["bound_distances"] for v in m["islands"].values())
+            # every island routes the queries itself (mode="forest" routes;
+            # mode="all" does not)
+            n_routed = sum(len(q) for mode, _ in searches if mode == "forest")
+            require(summed == m["search"]["bound_distances"]
+                    + (LAYOUT_SHARDS - 1) * n_routed * n_idx,
+                    f"WARD {name}: island bound distances off the fleet's")
+            per = one_search_launches(ix, q)
+            require(per["bucket_scan_topk"] == 2 * LAYOUT_SHARDS,
+                    f"WARD {name}: K1 launched {per['bucket_scan_topk']} times a search")
+            syncs = count_syncs(lambda: ix.search(q, k=K))
+            row = dict(launches=launches, per_search=per, syncs=syncs, spill=spill,
+                       islands={s: v for s, v in m["islands"].items()},
+                       router={k: v for k, v in m["router"].items() if k != "table"})
+            if lay.kind == "routed":
+                r = router_stats(ix, q)
+                row["pruned_share"] = float(r["pruned_hosts"].sum()) / (len(q) * LAYOUT_SHARDS)
+                row["eligible_mean"] = float(r["eligible_hosts"].mean())
+                row["targeted"] = bool(r["targeted"])
+            out["layouts"][f"{name} {'int8' if quantize else 'f32'}"] = row
+            log(f"[layout] WARD {name} {'int8' if quantize else 'f32 '}: {len(q)} queries, "
+                f"forest beam 1 and 4 and all beam 1: equal to the single layout bit for bit "
+                f"but for {spill} queries where an island's underfilled scan found closer "
+                f"rows (mode all: none); K1 {per['bucket_scan_topk']} "
+                f"and K2 {per['pairwise_sq_l2']} launches a search; host syncs a search "
+                f"{syncs}; island buckets_visited "
+                f"{[v['buckets_visited'] for v in m['islands'].values()]}"
+                + (f"; router: targeted={row['targeted']}, mean eligible hosts "
+                   f"{row['eligible_mean']:.2f}, pruned share {row['pruned_share']:.4f}"
+                   if lay.kind == "routed" else ""))
+
+    # times, in turns: single / sharded / routed auto, f32 beam 1
+    single = layout_twin(ward, LayoutConfig(), islands[0])
+    sharded = layout_twin(ward, layouts()["sharded"], islands)
+    routed = layout_twin(ward, layouts()["routed auto"], islands)
+    walls = alternate_ms({"single": lambda: single.search(q, k=K),
+                          "sharded": lambda: sharded.search(q, k=K),
+                          "routed auto": lambda: routed.search(q, k=K)})
+    out["search_ms"] = walls
+    out["k1_single_ms"] = island_k1_ms(single, q)[0]
+    out["k1_island_ms"] = island_k1_ms(sharded, q)
+    log(f"[time] WARD search of {len(q)} queries, f32 beam 1 with the delta, host wall ms "
+        f"(q1, median, q3), in turns: "
+        + ", ".join(f"{k} {v[1]:.2f} ({v[0]:.2f}-{v[2]:.2f})" for k, v in walls.items())
+        + f"; K1 main phase: single {out['k1_single_ms']:.3f} ms, islands "
+        + ", ".join(f"{v:.3f}" for v in out["k1_island_ms"]) + f" ms ({smi})")
+
+    # one ingest batch on both layouts: the same accepts and delta state
+    batch = ward_like(1_024, seed=3)
+    ids_single = single.ingest(batch)
+    ids_sharded = sharded.ingest(batch)
+    require(np.array_equal(ids_single, ids_sharded), "WARD ingest: ids differ")
+    require(single.ingest_stats() == sharded.ingest_stats()
+            and len(single.rebuild_log) == len(sharded.rebuild_log),
+            "WARD ingest: the two layouts took different paths")
+    ds, dh = single.delta, sharded.delta
+    same = {n: bool(torch.equal(getattr(ds, n).cpu(), getattr(dh, n).cpu())) for n in DELTA_FIELDS}
+    require(all(v for n, v in same.items() if n != "sum_x"),
+            f"WARD ingest: the sharded delta differs from the single layout's: {same}")
+    live = (torch.arange(ds.x.shape[1], device=ds.x.device)[None, :]
+            < ds.count[:, None]).cpu().numpy()
+    abs_sum = (np.abs(ds.x.cpu().numpy().astype(np.float64)) * live[..., None]).sum(1)
+    sum_err = np.abs(ds.sum_x.cpu().numpy().astype(np.float64) - dh.sum_x.cpu().numpy())
+    require(bool((sum_err <= ds.count.cpu().numpy()[:, None] * 2.0 ** -23 * abs_sum).all()),
+            "WARD ingest: the sharded delta's sum_x off the single layout's")
+    out["ingest"] = dict(bitwise=same, rebuilds=len(single.rebuild_log),
+                         accepted=int(ds.count.sum()))
+    res = single.search(q, k=K)
+    hold_layout(sharded.search(q, k=K), res, "WARD: search after the ingest", exact=False)
+
+    # save under sharded, load under routed
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = sharded.save(Path(tmp) / "ward_sharded.npz")
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = OverlapIndex.load(path, layout=layouts()["routed auto"], device=islands)
+        t_load = time.perf_counter() - t0
+    require(loaded.backend.kind == "routed", "WARD load: not routed")
+    for beam in (1, 4):
+        require(same_dists_ids(loaded.search(q, k=K, beam=beam),
+                               sharded.search(q, k=K, beam=beam)),
+                f"WARD: saved sharded, loaded routed, beam={beam}: results differ")
+    out.update(save_s=t_save, load_s=t_load, seconds=time.perf_counter() - t_phase)
+    log(f"[layout] WARD one ingest batch of 1,024 on single and sharded: ids, accepts, "
+        f"rebuilds ({len(single.rebuild_log)}) and delta state equal (bitwise: "
+        f"{', '.join(n for n, v in same.items() if v)}; sum_x within the summation bound); "
+        f"saved sharded {t_save:.2f} s, loaded routed {t_load:.2f} s, searches bitwise "
+        f"equal; phase {out['seconds']:.1f} s ({smi})")
+    return out
+
+
+def same_dists_ids(a, b) -> bool:
+    import numpy as np
+
+    return np.array_equal(a.dists, b.dists) and np.array_equal(a.ids, b.ids)
+
+
+def hold_layout(res, ref, what: str, *, exact: bool) -> int:
+    """A sharded or routed result against the single layout's: bitwise equal
+    per query, except (``mode="forest"`` only) queries where an island with
+    fewer than k eligible members spilled into other indexes' buckets and
+    found strictly closer rows than the single layout's routed scan, which
+    the JAX package's sharded layout does too.  Returns that count."""
+    import numpy as np
+
+    differ = ~((res.dists == ref.dists).all(1) & (res.ids == ref.ids).all(1))
+    if exact:
+        require(not differ.any(), f"{what}: {int(differ.sum())} queries differ from the "
+                "single layout's")
+    better = res.dists[:, -1] < ref.dists[:, -1]
+    require(bool((better | ~differ).all()),
+            f"{what}: a query differs from the single layout's without closer rows")
+    return int(differ.sum())
+
+
+def tracking_router_phase(tracking, islands, smi: str) -> dict:
+    """Tracking VBM (24 indexes) under the routed layout, fanout auto: the
+    router's eligible and pruned hosts per query and its targeted/fan-all
+    choice on the card, held to a CPU twin's (the same forest on four CPU
+    islands), and the results bitwise equal to the single layout's."""
+    import numpy as np
+
+    from repro_torch.api import LayoutConfig
+
+    lay = layouts()["routed auto"]
+    card = layout_twin(tracking, lay, islands)
+    host = layout_twin(tracking, lay, ["cpu"] * LAYOUT_SHARDS)
+    q = make_queries(tracking.x_all, SEED + 18)
+    rc, rh = router_stats(card, q), router_stats(host, q)
+    for f in ("eligible_hosts", "pruned_hosts", "targeted"):
+        require(np.array_equal(rc[f], rh[f]), f"Tracking router: {f} differs from the CPU twin's")
+    for f in ("wire_targeted", "wire_fanall", "cost_targeted", "cost_fanall"):
+        require(bool(np.isclose(rc[f], rh[f], rtol=1e-6)), f"Tracking router: {f} off the CPU's")
+    single = layout_twin(tracking, LayoutConfig(), islands[0])
+    fanall = layout_twin(tracking, layouts()["sharded"], islands)
+    res = card.search(q, k=K)
+    require(same_dists_ids(res, fanall.search(q, k=K)),
+            "Tracking routed: results differ from the sharded fan-all's")
+    spill = hold_layout(res, single.search(q, k=K), "Tracking routed", exact=False)
+    hold_layout(card.search(q, k=K, mode="all"), single.search(q, k=K, mode="all"),
+                "Tracking routed mode=all", exact=True)
+    out = dict(n_indexes=tracking.forest.n_indexes, spill_queries=spill,
+               eligible_hosts=int(rc["eligible_hosts"].sum()),
+               pruned_hosts=int(rc["pruned_hosts"].sum()), targeted=bool(rc["targeted"]),
+               cost_targeted=float(rc["cost_targeted"]), cost_fanall=float(rc["cost_fanall"]),
+               host_counts=card.backend.table.host_counts.cpu().numpy().tolist())
+    log(f"[layout] Tracking VBM ({out['n_indexes']} indexes) routed auto over "
+        f"{LAYOUT_SHARDS} islands, {len(q)} queries: eligible hosts {out['eligible_hosts']} of "
+        f"{len(q) * LAYOUT_SHARDS}, pruned {out['pruned_hosts']}, "
+        f"{'targeted' if out['targeted'] else 'fan-all'} (priced {out['cost_targeted']:.4g} "
+        f"vs {out['cost_fanall']:.4g} bytes), host members {out['host_counts']}; equal to "
+        f"the CPU twin's decision; results bitwise equal to the sharded fan-all's, and to "
+        f"the single layout's but for {spill} queries where an island's underfilled scan "
+        f"found closer rows (mode all: bitwise equal) ({smi})")
+    return out
+
+
+def routed_serve_phase(dev, model, serve, islands, smi: str) -> dict:
+    """qwen2-0.5b at full width on phase 15's 65,536 x 896 forest datastore,
+    served from the single layout, the sharded layout and a routed layout
+    (fanout auto) of four islands, each with phase 15's 16 requests and 16
+    inserts.  Held: ``forest_knn`` on 1,024 queries equal to the single
+    layout's but where an island's underfilled scan found strictly closer
+    rows (as in the JAX package); the routed run's greedy tokens equal to
+    the sharded fan-all run's (host pruning is invisible) and every run's
+    accepts equal; the share of requests whose tokens equal the single
+    run's printed, with K1 and K2 launches a decode step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import OverlapIndex
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import IngestRequest, Request, ServeEngine
+    from repro_torch.serve.retrieval import forest_knn
+
+    ix = serve["ix"]
+    srcs = {"single": ix}
+    for name in ("sharded", "routed auto"):
+        srcs[name] = OverlapIndex._wire(
+            ix.x_all, ix.forest, dataclasses.replace(ix.cfg, layout=layouts()[name]),
+            ix.build_report, islands)
+    # the datastores' retrievals before any insert: the spill rule
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 20)
+    x_rows = torch.from_numpy(ix.x_all).to(dev)
+    rows = torch.randint(0, x_rows.shape[0], (NQ,), generator=g, device=dev)
+    q = x_rows[rows] + 0.5 * torch.randn(x_rows[rows].shape, generator=g, device=dev)
+    d_ref, v_ref = forest_knn(q, ix.to_datastore(serve["values"]), SERVE_K)
+    spill = {}
+    for name in ("sharded", "routed auto"):
+        d, v = forest_knn(q, srcs[name].to_datastore(serve["values"]), SERVE_K)
+        differ = ~((d == d_ref).all(1) & (v == v_ref).all(1))
+        require(bool((d[:, -1] < d_ref[:, -1])[differ].all()),
+                f"forest_knn {name}: a query differs from the single layout's without "
+                "closer rows")
+        spill[name] = int(differ.sum())
+    runs = {}
+    for name, src in srcs.items():
+        ds = src.to_datastore(serve["values"], stream_capacity=STREAM_CAPACITY)
+        eng = ServeEngine(model, num_slots=8, max_len=256, datastore=ds)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=32)
+                for i, p in enumerate(serve["prompts"])]
+        ings = [IngestRequest(rid=100 + i, keys=serve["stream"][i * 64:(i + 1) * 64],
+                              values=serve["tokens"][i * 64:(i + 1) * 64]) for i in range(16)]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        for r, ing in zip(reqs, ings):
+            eng.submit(r)
+            eng.submit(ing)
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        require(all(r.done and len(r.out_tokens) == 32 for r in reqs),
+                f"layout serving ({name}): a request did not complete")
+        steps = max(eng.steps, 1)
+        runs[name] = dict(tokens=[list(r.out_tokens) for r in reqs],
+                          accepted=[i.accepted for i in ings], steps=eng.steps, wall_s=wall,
+                          step_ms=float(np.median(eng._step_times)) * 1e3, launches=launches,
+                          k1_per_step=launches["bucket_scan_topk"] / steps,
+                          k2_per_step=launches["pairwise_sq_l2"] / steps)
+    require(runs["routed auto"]["tokens"] == runs["sharded"]["tokens"],
+            "layout serving: the routed run's tokens differ from the sharded fan-all run's")
+    require(runs["routed auto"]["accepted"] == runs["sharded"]["accepted"]
+            == runs["single"]["accepted"], "layout serving: accepted inserts differ")
+    require(runs["routed auto"]["launches"]["bucket_scan_topk"] > 0
+            and runs["routed auto"]["launches"]["pairwise_sq_l2"] > 0,
+            "layout serving: K1/K2 did not launch")
+    same = float(np.mean([a == b for a, b in zip(runs["routed auto"]["tokens"],
+                                                  runs["single"]["tokens"])]))
+    for r in runs.values():
+        r.pop("tokens")
+    out = dict(runs=runs, forest_knn_spill=spill, same_tokens_share=same)
+    log(f"[layout] {SERVE_ARCH} full width on the 65,536 x {SERVE_D} forest datastore over "
+        f"{LAYOUT_SHARDS} islands: forest_knn of {NQ} queries equal to the single layout's "
+        f"but for {spill} queries with closer rows from an island's spill; 16 requests x 32 "
+        f"tokens with 16 inserts: routed tokens equal the sharded fan-all run's, accepts "
+        f"equal on every layout, {same:.0%} of requests' tokens equal the single run's; "
+        f"decode step median single {runs['single']['step_ms']:.2f} ms, sharded "
+        f"{runs['sharded']['step_ms']:.2f} ms, routed {runs['routed auto']['step_ms']:.2f} "
+        f"ms; K1 / K2 launches a decode step (K2 inserts included): "
+        + ", ".join(f"{n} {r['k1_per_step']:.2f} / {r['k2_per_step']:.2f}"
+                    for n, r in runs.items()) + f" ({smi})")
+    return out
+
+
+def flat_sharded_phase(model, keys, values, xq, scale, islands, smi: str) -> dict:
+    """The flat 2^20 x 896 datastore (f32, K6) and its int8 twin (K7 + the
+    stable selection) split over four islands in ``knn_logits`` under
+    ``use_mesh``: at Q = 8 the top-k (d^2 and values) and p_knn equal the
+    single-shard result bit for bit, with K6 / K7 once per island a call."""
+    import torch
+
+    from repro_torch.distributed import Mesh, use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.serve.retrieval import Datastore, _local_topk, _sharded_topk, knn_logits
+
+    cfg = model.cfg  # phase 11's retrieval settings: k = SERVE_K
+    q = retrieval_problem(keys, 8, SEED + 19)
+    mesh = Mesh(islands)
+    out = {}
+    for name, ds, kname in (("f32", Datastore(keys=keys, values=values), "knn_topk"),
+                            ("int8", Datastore(keys=xq, values=values, scale=scale),
+                             "pairwise_sq_l2_int8")):
+        want_d, want_i = _local_topk(q, ds, SERVE_K)
+        want_v = values[want_i.long()]
+        ops.reset_launch_counts()
+        got_d, got_v = _sharded_topk(q, ds, SERVE_K, mesh)
+        torch.cuda.synchronize()
+        n_launch = ops.launch_counts()[kname]
+        require(n_launch == LAYOUT_SHARDS, f"flat {name}: {kname} launched {n_launch} times")
+        require(torch.equal(got_d, want_d) and torch.equal(got_v, want_v),
+                f"flat {name}: the sharded top-k differs from the single-shard one")
+        with use_mesh(mesh):
+            p_sh = knn_logits(q, ds, cfg)
+        require(torch.equal(p_sh, knn_logits(q, ds, cfg)),
+                f"flat {name}: sharded p_knn differs")
+        ms_single = device_ms(lambda: _local_topk(q, ds, SERVE_K), reps=11)
+        ms_sharded = device_ms(lambda: _sharded_topk(q, ds, SERVE_K, mesh), reps=11,
+                               launches_hint=LAYOUT_SHARDS)
+        out[name] = dict(launches=n_launch, single_ms=ms_single, sharded_ms=ms_sharded)
+        log(f"[layout] flat {name} {SERVE_N} x {SERVE_D} over {LAYOUT_SHARDS} islands, Q = 8: "
+            f"top-k and p_knn bitwise equal to one scan; {kname} {n_launch} launches a call; "
+            f"device ms single {ms_single:.3f}, sharded {ms_sharded:.3f} ({smi})")
+    return out
+
+
+def layout_phase(dev, ward, tracking, model, serve, store, smi: str) -> dict:
+    """Phase 17: the sharded and routed layouts on forests built above."""
+    islands = layout_islands()
+    log(f"[layout] islands {islands}")
+    t0 = time.perf_counter()
+    out = dict(islands=islands)
+    out["ward"] = ward_layout_phase(ward, islands, smi)
+    out["tracking"] = tracking_router_phase(tracking, islands, smi)
+    out["serve"] = routed_serve_phase(dev, model, serve, islands, smi)
+    out["flat"] = flat_sharded_phase(model, *store, islands, smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[layout] phase 17 {out['seconds']:.1f} s")
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2847,16 +3341,18 @@ def main(argv=None) -> int:
     eps_rows = time_eps(sl["built"], ov, smi, k6_ms)
     prof_rows = profile_searches(sl["built"], sl["results"])
     model, sv = serve_phase(dev, gen, *store)
-    del store
-    torch.cuda.empty_cache()
     stream = bench_stream_phase(dev, smi)
     ward_stream, ward_card = ward_stream_phase(
         dev, ov["builds"][("WARD", "vbm")]["idx"][False], smi)
     blob_obm = blob_obm_phase(dev, smi)
-    forest_serve = forest_serve_phase(dev, model, smi)
+    forest_serve, serve_state = forest_serve_phase(dev, model, smi)
     persist_explain = persist_explain_phase(
         dev, ward_card, ov["builds"][("Tracking", "vbm")]["idx"][False],
         ov["builds"][("Blob", "vbm")]["idx"][False], smi)
+    layout = layout_phase(dev, ward_card, ov["builds"][("Tracking", "vbm")]["idx"][False],
+                          model, serve_state, store, smi)
+    del store, serve_state
+    torch.cuda.empty_cache()
 
     # how much of each search's wall time its one K1 launch accounts for
     walls = {(n, qz, bm): w for n, qz, bm, _, w in sl["results"]}
@@ -2910,7 +3406,7 @@ def main(argv=None) -> int:
                       eps_data=eps_data, builds=builds, searches=ov["searches"],
                       dbscan=db, profile=prof_rows, serve=sv, stream=stream,
                       ward_stream=ward_stream, blob_obm=blob_obm, forest_serve=forest_serve,
-                      persist_explain=persist_explain,
+                      persist_explain=persist_explain, layout=layout,
                       nvcc_s=t_build, seconds=time.perf_counter() - t_start)
         out = Path(args.json)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -3,6 +3,8 @@
     from repro_torch.api import OverlapIndex
 
     ix = OverlapIndex.build(x, cfg)        # the paper's overlap forest, on "cuda"
+    ix = OverlapIndex.build(x, Config(layout=LayoutConfig(kind="routed", shards=4)),
+                            device=["cuda:0"] * 4)   # islands: one device each
     ix = OverlapIndex.baseline(x)          # the BCCF baseline; device= names another
     res = ix.search(q, k=10)               # SearchResult(dists, ids, stats)
     rep = ix.explain(q, k=10)              # ExplainReport: contributing / wasted visits
@@ -20,11 +22,14 @@ from repro_torch.api.config import (
     Config,
     ConfigError,
     IndexConfig,
+    LayoutConfig,
     ObsConfig,
+    RoutingConfig,
     SearchConfig,
     StreamConfig,
     as_index_config,
 )
+from repro_torch.api.executor import make_backend
 from repro_torch.api.index import OverlapIndex
 from repro_torch.api.plan import PlanCache, PlanKey, SearchPlan, SearchResult
 from repro_torch.core.overlap import (
@@ -34,8 +39,8 @@ from repro_torch.core.overlap import (
 )
 
 __all__ = [
-    "Config", "ConfigError", "IndexConfig", "ObsConfig", "SearchConfig", "StreamConfig",
-    "as_index_config",
+    "Config", "ConfigError", "IndexConfig", "LayoutConfig", "ObsConfig", "RoutingConfig",
+    "SearchConfig", "StreamConfig", "as_index_config", "make_backend",
     "OverlapIndex", "PlanCache", "PlanKey", "SearchPlan", "SearchResult",
     "available_overlap_methods", "register_overlap_method",
     "unregister_overlap_method",

@@ -1,5 +1,5 @@
 """One frozen configuration tree for the index: ``Config(index=IndexConfig,
-search=SearchConfig, stream=StreamConfig, obs=ObsConfig)``.
+search=SearchConfig, stream=StreamConfig, layout=LayoutConfig, obs=ObsConfig)``.
 
 Every field is validated at construction with an actionable message
 (``ConfigError``), with the same texts as the JAX package's
@@ -15,6 +15,8 @@ from repro_torch.core.pipeline import IndexConfig as _CoreIndexConfig
 
 PIVOT_METHODS = ("gh", "kmeans")
 SEARCH_MODES = ("forest", "all")
+DEVICE_LAYOUTS = ("single", "sharded", "routed")
+FANOUT_MODES = ("auto", "targeted", "all")
 
 
 class ConfigError(ValueError):
@@ -167,6 +169,94 @@ class StreamConfig:
 
 
 @dataclass(frozen=True)
+class RoutingConfig:
+    """Routing-tier knobs for ``LayoutConfig(kind='routed')`` (the DIMS-style
+    layer, ``distributed/router/``).
+
+    ``fanout`` picks the dispatch: ``'auto'`` lets the cost model choose per
+    query batch between targeted routing (only the hosts whose regions can
+    hold an answer) and full fan-out; ``'targeted'``/``'all'`` force one
+    side.  ``overlap_method`` names the registered heuristic that rates the
+    overlap between host regions in the routing table.
+    """
+
+    fanout: str = "auto"  # auto | targeted | all
+    overlap_method: str = "dbm"  # host-region overlap rates in the table
+
+    def __post_init__(self) -> None:
+        _require(
+            self.fanout in FANOUT_MODES,
+            f"RoutingConfig.fanout={self.fanout!r} is unknown; choose 'auto' "
+            "(cost model picks per batch), 'targeted' (always prune hosts) "
+            "or 'all' (always fan out — DIMS homogeneous search)",
+        )
+        _check_method(
+            self.overlap_method, owner="RoutingConfig",
+            field_name="overlap_method",
+        )
+
+
+@dataclass(frozen=True)
+class LayoutConfig:
+    """Device layout of the executor layer (``api/executor.py``).
+
+    ``kind='single'`` (default) keeps the whole forest and delta on one
+    device.  ``kind='sharded'`` splits the bucket rows and delta buffers over
+    ``shards`` islands along the ``axis`` mesh axis
+    (``distributed/knn_island.py``), with results bitwise equal to the single
+    layout.  ``kind='routed'`` is the sharded layout plus the routing tier
+    (``distributed/router/``): a per-host routing table prunes the islands
+    each query must touch and a cost model picks targeted routing or full
+    fan-out, still bitwise equal to both other layouts.  The islands' devices
+    come from the entry point's ``device=`` list.
+    """
+
+    kind: str = "single"  # single | sharded | routed
+    shards: int | None = None  # sharded/routed: island count; None -> all
+    axis: str = "model"  # mesh axis name the rows shard over
+    routing: RoutingConfig = field(default_factory=RoutingConfig)
+
+    def __post_init__(self) -> None:
+        _require(
+            self.kind in DEVICE_LAYOUTS,
+            f"LayoutConfig.kind={self.kind!r} is unknown; choose 'single' "
+            "(one device, the default), 'sharded' (bucket rows + delta "
+            "buffers split over the model axis) or 'routed' (sharded plus "
+            "the per-host routing table + cost-model dispatch)",
+        )
+        _require(
+            self.shards is None or self.shards >= 1,
+            f"LayoutConfig.shards={self.shards} must be >= 1 or None "
+            "(None uses every local device under kind='sharded'/'routed')",
+        )
+        _require(
+            self.kind in ("sharded", "routed") or self.shards is None,
+            f"LayoutConfig.shards={self.shards} only applies to "
+            "kind='sharded'/'routed' (the single layout always uses one "
+            "device)",
+        )
+        _require(
+            isinstance(self.axis, str) and len(self.axis) > 0,
+            f"LayoutConfig.axis={self.axis!r} must be a non-empty mesh "
+            "axis name (the serving mesh calls it 'model')",
+        )
+        if not isinstance(self.routing, RoutingConfig):
+            raise ConfigError(
+                "LayoutConfig.routing must be a RoutingConfig (got "
+                f"{type(self.routing).__name__}); construct it as "
+                "LayoutConfig(kind='routed', routing=RoutingConfig(...))"
+            )
+
+    @classmethod
+    def from_dict(cls, d: dict | None) -> "LayoutConfig":
+        """The inverse of ``dataclasses.asdict`` for a snapshot's ``layout``
+        section (absent in pre-layout snapshots: the single layout)."""
+        d = dict(d or {})
+        d["routing"] = RoutingConfig(**d.get("routing", {}))
+        return cls(**d)
+
+
+@dataclass(frozen=True)
 class ObsConfig:
     """Telemetry knobs (``repro_torch.obs``): the per-index metrics registry.
 
@@ -225,11 +315,13 @@ class Config:
     index: IndexConfig = field(default_factory=IndexConfig)
     search: SearchConfig = field(default_factory=SearchConfig)
     stream: StreamConfig = field(default_factory=StreamConfig)
+    layout: LayoutConfig = field(default_factory=LayoutConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
 
     def __post_init__(self) -> None:
         for name, want in (("index", IndexConfig), ("search", SearchConfig),
-                           ("stream", StreamConfig), ("obs", ObsConfig)):
+                           ("stream", StreamConfig), ("layout", LayoutConfig),
+                           ("obs", ObsConfig)):
             got = getattr(self, name)
             if not isinstance(got, want):
                 raise ConfigError(

@@ -21,7 +21,13 @@ search executors and a telemetry ``Registry`` (``cfg.obs``).  Entry points
 run on ``cuda`` unless the caller passes a ``device``; with no device given
 and no CUDA available they raise rather than run on the CPU.  Snapshots are
 the JAX package's npz format (``api/persist.py``), readable by either
-package.  The sharded and routed layouts come with a later slice.
+package.
+
+``cfg.layout`` picks the device layout (``api/executor.py``): the single
+device, or the sharded or routed islands, whose devices ``device=`` lists
+one per island (``device=["cuda:0"] * 4`` puts four islands on one card).
+The build stages run on the first island's device; every layout returns
+the same results bit for bit.
 """
 from __future__ import annotations
 
@@ -34,10 +40,11 @@ from repro_torch.api.config import (
     SEARCH_MODES,
     Config,
     ConfigError,
+    LayoutConfig,
     as_index_config,
 )
 from repro_torch.api import persist
-from repro_torch.api.executor import IslandStats, SingleDeviceBackend
+from repro_torch.api.executor import IslandStats, make_backend
 from repro_torch.api.plan import PlanCache, PlanKey, SearchResult, results_to_host
 from repro_torch.core.forest import ForestArrays
 from repro_torch.core.knn import DeviceForest, route_points
@@ -49,7 +56,6 @@ from repro_torch.core.pipeline import (
     build_index_core,
     default_delta_capacity,
 )
-from repro_torch.device import resolve_device
 from repro_torch.obs import (
     EventLog,
     Registry,
@@ -60,7 +66,7 @@ from repro_torch.obs import (
     use_trace,
 )
 from repro_torch.obs.attribution import ExplainReport, attribute_visits
-from repro_torch.stream.ingest import DeltaBuffer, alloc_delta, delta_view, pull_delta_meta
+from repro_torch.stream.ingest import DeltaBuffer, alloc_delta, pull_delta_meta
 from repro_torch.stream.maintenance import (
     DriftReport,
     MaintenanceConfig,
@@ -103,18 +109,22 @@ class OverlapIndex:
     @classmethod
     def _wire(
         cls, x: np.ndarray, forest: ForestArrays, cfg: Config,
-        report: BuildReport, device: torch.device, *,
+        report: BuildReport, device, *,
         n_total: int | None = None,
         delta: DeltaBuffer | None = None,
         capacity: int | None = None,
         rebuild_log: list[dict[str, Any]] | None = None,
         monitor_baseline: np.ndarray | None = None,
+        clamp_layout: bool = False,
+        backend=None,
     ) -> "OverlapIndex":
         self = object.__new__(cls)
         self.cfg = cfg
         self.forest = forest
         self.build_report = report
-        self.backend = SingleDeviceBackend(device)
+        # the layout's backend: one device, or one device per island
+        self.backend = backend or make_backend(
+            cfg.layout, clamp=clamp_layout, devices=device)
         self._x_parts: list[np.ndarray] = [x]
         self._x_cache: np.ndarray | None = x
         self.n_total = len(x) if n_total is None else n_total
@@ -163,12 +173,14 @@ class OverlapIndex:
         """The paper's proposed pipeline (§4): overlap-optimized forest.
         DBSCAN (K3-K5) and the overlap rates run on ``device`` (default
         ``cuda``), where searches run too; the decision and the trees are
-        built on the host."""
-        dev = resolve_device(device)
+        built on the host.  Under a sharded or routed ``cfg.layout``,
+        ``device`` is a list of one device per island and the build stages
+        run on the first."""
         cfg = _as_config(cfg)
         x = _check_data(x)
-        forest, report = build_index_core(x, cfg.index, device=dev)
-        return cls._wire(x, forest, cfg, report, dev)
+        backend = make_backend(cfg.layout, devices=device)  # refuses a bad layout first
+        forest, report = build_index_core(x, cfg.index, device=backend.device)
+        return cls._wire(x, forest, cfg, report, device, backend=backend)
 
     @classmethod
     def baseline(
@@ -177,16 +189,18 @@ class OverlapIndex:
         """The BCCF-tree baseline: one tree over all data.  With no config
         this builds the paper's documented 2-means baseline; an explicit
         config is honored (see ``build_baseline_core``).  ``device`` is the
-        torch device searches run on (default ``cuda``)."""
-        dev = resolve_device(device)
+        torch device searches run on (default ``cuda``), or one per island
+        under a sharded or routed ``cfg.layout``."""
         x = _check_data(x)
+        layout = LayoutConfig() if cfg is None else _as_config(cfg).layout
+        backend = make_backend(layout, devices=device)
         if cfg is None:
             forest, report = build_baseline_core(x, None)
             cfg = Config(index=as_index_config(report.config))
         else:
             cfg = _as_config(cfg)
             forest, report = build_baseline_core(x, cfg.index)
-        return cls._wire(x, forest, cfg, report, dev)
+        return cls._wire(x, forest, cfg, report, device, backend=backend)
 
     # -- dataset bookkeeping -------------------------------------------------
     @property
@@ -237,6 +251,10 @@ class OverlapIndex:
             kernel=sc.kernel if kernel is None else bool(kernel),
             quantize=sc.quantize,
             delta_capacity=None if self._delta is None else self.capacity,
+            shards=self.backend.shards,
+            # routed layout: the dispatch policy is part of the executor
+            fanout=(self.cfg.layout.routing.fanout
+                    if self.backend.kind == "routed" else None),
         )
         if key.k < 1:
             raise ConfigError(f"search k={key.k} must be >= 1 neighbors")
@@ -249,15 +267,34 @@ class OverlapIndex:
             raise ConfigError(f"search beam={key.beam} must be >= 1")
         return key
 
-    def _record_search(self, stats: dict[str, Any], isl: IslandStats) -> None:
+    def _record_search(self, stats: dict[str, Any], isl: IslandStats, router=None) -> None:
         """Fold one search's host-side stats into the registry: the fleet
-        node-access counters and the per-island breakdown (one island on the
-        single layout; the routing tier's counters come with the routed
-        layout)."""
+        node-access counters, the per-island breakdown (one island on the
+        single layout) and, on the routed layout, the routing tier's
+        dispatch telemetry."""
         obs = self.obs
         obs.counter("search.queries").inc(len(stats["buckets_visited"]))
         for name in ("buckets_visited", "distances", "bound_distances"):
             obs.counter(f"search.{name}").inc(int(stats[name].sum()))
+        if router is not None:
+            mode = "targeted" if router.targeted else "all"
+            obs.counter("router.queries").inc(len(router.eligible_hosts))
+            obs.counter("router.eligible_hosts").inc(int(router.eligible_hosts.sum()))
+            obs.counter("router.pruned_hosts").inc(int(router.pruned_hosts.sum()))
+            obs.counter("router.fanout", mode=mode).inc(len(router.eligible_hosts))
+            obs.counter("router.est_bytes", mode="targeted").inc(int(router.wire_targeted))
+            obs.counter("router.est_bytes", mode="all").inc(int(router.wire_fanall))
+            obs.emit_event(
+                {
+                    "event": "router",
+                    "fanout": mode,
+                    "eligible_hosts": router.eligible_hosts.tolist(),
+                    "pruned_hosts": int(router.pruned_hosts.sum()),
+                    "est_bytes_targeted": float(router.wire_targeted),
+                    "est_bytes_fanall": float(router.wire_fanall),
+                },
+                traced_only=True,
+            )
         method = self.cfg.index.method
         for s_id in range(isl.buckets_visited.shape[0]):
             for name in ("buckets_visited", "distances", "bound_distances"):
@@ -303,14 +340,17 @@ class OverlapIndex:
                 key = self._plan_key(k, mode, beam, kernel)
                 plan = self.plans.plan(key, self.backend)
                 plan.calls += 1
-                delta = None if self._delta is None else delta_view(self._delta)
+                delta = None if self._delta is None else self.backend.delta_view(self._delta)
             with obs.span("device_execute"):
                 qt = torch.as_tensor(np.asarray(q, np.float32), device=self.backend.device)
-                d, i, s = plan.executor(self.backend.search_operands(self.device), qt, delta)
+                d, i, s, *tail = plan.executor(
+                    self.backend.search_operands(self.device), qt, delta)
             with obs.span("host_transfer"):
-                d, i, stats = results_to_host(d, i, s)
+                # the layout's telemetry rides in the results' one copy
+                d, i, stats, *tele = results_to_host(
+                    d, i, s, *self.backend.pack_telemetry(tail))
             if obs.enabled:
-                self._record_search(stats, self.backend.islands(stats))
+                self._record_search(stats, *self.backend.unpack_telemetry(stats, tele))
         kk = min(key.k, self.n_total)  # Def. 4: |X| <= k -> whole set
         if d.shape[1] > kk:
             d, i = d[:, :kk], i[:, :kk]
@@ -342,21 +382,23 @@ class OverlapIndex:
                 key = self._plan_key(k, mode, beam, kernel)._replace(explain=True)
                 plan = self.plans.plan(key, self.backend)
                 plan.calls += 1
-                delta = None if self._delta is None else delta_view(self._delta)
+                delta = None if self._delta is None else self.backend.delta_view(self._delta)
             with obs.span("device_execute"):
                 qt = torch.as_tensor(np.asarray(q, np.float32), device=self.backend.device)
-                d, i, s, rows = plan.executor(
+                d, i, s, rows, *tail = plan.executor(
                     self.backend.search_operands(self.device), qt, delta
                 )
                 _, home = route_points(self.device.index_centers, qt, kernel=key.kernel)
+                tele = self.backend.pack_telemetry(tail)
                 extra = [rows.order, rows.visits, home]
                 if delta is not None:  # the delta phase's evidence and member ids
                     extra += [rows.dorder, rows.dvisits, self.delta.ids, self.delta.count]
             with obs.span("host_transfer"):
-                d, i, stats, order, visits, home, *dx = results_to_host(d, i, s, *extra)
+                d, i, stats, *host = results_to_host(d, i, s, *tele, *extra)
+            tele, (order, visits, home, *dx) = host[:len(tele)], host[len(tele):]
             dorder, dvisits, delta_ids, delta_count = dx or (None,) * 4
             if obs.enabled:
-                self._record_search(stats, self.backend.islands(stats))
+                self._record_search(stats, *self.backend.unpack_telemetry(stats, tele))
             kk = min(key.k, self.n_total)
             if d.shape[1] > kk:
                 d, i = d[:, :kk], i[:, :kk]
@@ -406,8 +448,9 @@ class OverlapIndex:
             bucket_index=forest.bucket_index,
             bucket_ids=forest.bucket_ids,
             bucket_mask=forest.bucket_mask,
-            main_rows_per_shard=forest.n_buckets,
-            delta_rows_per_shard=forest.n_indexes,
+            # global row = island-local row + island * the padded rows per island
+            main_rows_per_shard=-(-forest.n_buckets // self.backend.shards),
+            delta_rows_per_shard=-(-forest.n_indexes // self.backend.shards),
             delta_ids=delta_ids,
             delta_count=delta_count,
             rates=rates,
@@ -607,23 +650,35 @@ class OverlapIndex:
         return persist.save_state(self, path)
 
     @classmethod
-    def load(cls, path, *, device=None) -> "OverlapIndex":
+    def load(cls, path, *, layout: LayoutConfig | None = None, device=None) -> "OverlapIndex":
         """Rebuild-free restart from ``save`` output (this package's or the
         JAX package's) onto ``device`` (default ``cuda``; without CUDA and
-        without a device it raises, as the other entry points do).
+        without a device it raises, as the other entry points do), or onto a
+        list of one device per island.
 
         Snapshots hold the logical, unpadded state, so they are
-        layout-independent: a JAX snapshot saved under a sharded or routed
-        layout loads here single-device and searches as the writer did."""
-        dev = resolve_device(device)
-        st = persist.load_state(path, device=dev)
+        layout-independent: ``layout`` re-shards the loaded index onto
+        another layout than it was saved under (searches stay bitwise
+        equal).  Without it the saved layout is used, clamped with a warning
+        to the islands ``device`` gives."""
+        st = persist.load_state(path, device="cpu")
+        cfg = st["cfg"]
+        if layout is not None:
+            from dataclasses import replace
+
+            cfg = replace(cfg, layout=layout)
+        backend = make_backend(cfg.layout, clamp=layout is None, devices=device)
+        delta = st["delta"]
+        if delta is not None:  # host copy -> the first island's device
+            delta = DeltaBuffer(*[t.to(backend.device) for t in delta])
         return cls._wire(
-            st["x_all"], st["forest"], st["cfg"], st["build_report"], dev,
+            st["x_all"], st["forest"], cfg, st["build_report"], device,
             n_total=st["n_total"],
-            delta=st["delta"],
+            delta=delta,
             capacity=st["capacity"],
             rebuild_log=st["rebuild_log"],
             monitor_baseline=st["monitor_baseline"],
+            backend=backend,
         )
 
     # -- serving -------------------------------------------------------------
@@ -660,9 +715,13 @@ class OverlapIndex:
           maintenance  drift-monitor checks, per-reason trigger counts,
                        rebuild totals, searches since the last swap;
           islands      per-executor-island node-access counters (the
-                       paper's cost currency), one island on this layout;
-          router       the routed layout's dispatch telemetry: present and
-                       zero here, ``table`` None (no routing tier);
+                       paper's cost currency), one row per island;
+          router       the routed layout's dispatch telemetry: queries,
+                       eligible and pruned host totals, fanout counts
+                       (``router.fanout{mode=...}``), the estimated wire
+                       bytes of both dispatches, and ``table`` (hosts,
+                       host member counts, the largest inter-host overlap
+                       rate; None off the routed layout);
           overlap_health  ``explain()``'s attribution rollup: contributing
                        vs wasted visit totals, the wasted fraction, the
                        per-(visited, home) wasted-pair counters and the
@@ -694,6 +753,16 @@ class OverlapIndex:
                 wasted_pairs[f"{lab['visited']}->{lab['home']}"] = val
         contributing = obs.value("explain.contributing")
         wasted = obs.value("explain.wasted")
+        table = getattr(self.backend, "table", None)
+        router_table = None
+        if table is not None:
+            host_counts = table.host_counts.cpu().numpy()
+            rates = table.host_rates.cpu().numpy()
+            router_table = {
+                "hosts": int(host_counts.shape[0]),
+                "host_counts": host_counts.tolist(),
+                "max_rate": float(rates.max()) if rates.size else 0.0,
+            }
         return {
             "enabled": obs.enabled,
             "search": {
@@ -734,7 +803,7 @@ class OverlapIndex:
                 "est_bytes": {
                     m: obs.value("router.est_bytes", mode=m) for m in ("targeted", "all")
                 },
-                "table": None,
+                "table": router_table,
             },
             "overlap_health": {
                 "explained_queries": obs.value("explain.queries"),
@@ -769,5 +838,7 @@ class OverlapIndex:
             f"OverlapIndex(n={self.n_total}, indexes={self.forest.n_indexes}, "
             f"buckets={self.forest.n_buckets}, method={self.cfg.index.method!r}, "
             f"delta={'on' if self._delta is not None else 'off'}, "
+            f"layout={self.backend.kind}"
+            f"{f'x{self.backend.shards}' if self.backend.shards > 1 else ''}, "
             f"device={self.backend.device}, plans={len(self.plans)})"
         )

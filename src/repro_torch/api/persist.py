@@ -13,10 +13,12 @@ need) are reassembled from concatenated node arrays and offsets, and
 writes buckets per tree in order, so (bucket_index, bucket_ids,
 bucket_mask) already encodes the ragged member lists).
 
-Snapshots hold the logical, unpadded state: a JAX snapshot written under a
-``sharded`` or ``routed`` layout loads here as a single-device index (its
-``layout`` section is read past), and neither package restores the ``obs``
-section (telemetry belongs to the process that serves, not to the file).
+Snapshots hold the logical, unpadded state and the ``layout`` section of
+the config (kind, shards, axis and the routing knobs), so a sharded or
+routed snapshot that either package writes loads in the other under the
+same layout, or re-sharded (``OverlapIndex.load(path, layout=...)``).
+Neither package restores the ``obs`` section (telemetry belongs to the
+process that serves, not to the file).
 """
 from __future__ import annotations
 
@@ -27,7 +29,13 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.api.config import Config, IndexConfig, SearchConfig, StreamConfig
+from repro_torch.api.config import (
+    Config,
+    IndexConfig,
+    LayoutConfig,
+    SearchConfig,
+    StreamConfig,
+)
 from repro_torch.core.bccf import BuildCounters, FlatTree, TreeStructure
 from repro_torch.core.forest import ForestArrays
 from repro_torch.core.pipeline import BuildReport
@@ -161,6 +169,8 @@ def load_state(path, *, device) -> dict[str, Any]:
             index=IndexConfig(**cfg_d["index"]),
             search=SearchConfig(**cfg_d["search"]),
             stream=StreamConfig(**cfg_d["stream"]),
+            # absent in pre-layout snapshots: the single layout
+            layout=LayoutConfig.from_dict(cfg_d.get("layout")),
         )
 
         forest_arrays = {n: z[f"forest_{n}"] for n in _FOREST_ARRAYS}

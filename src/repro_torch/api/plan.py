@@ -2,7 +2,7 @@
 
   * ``PlanKey``     — the static options an executor is specialized on:
                       ``(k, mode, beam, kernel, quantize, delta_capacity,
-                      explain)``;
+                      shards, explain, fanout)``;
   * ``SearchPlan``  — the key plus the layout backend's executor body with
                       those options baked in, and call / shape counters;
   * ``PlanCache``   — the per-index table of plans with hit/miss counters,
@@ -35,22 +35,37 @@ class PlanKey(NamedTuple):
     kernel: bool
     quantize: bool
     delta_capacity: int | None = None  # None: no delta phase
+    shards: int = 1  # device layout: 1 single, > 1 the sharded/routed islands
     # explain plans also return core.knn.VisitRows (the visited-row
     # evidence obs/attribution.py decodes); a separate plan keeps the
     # search executor's output contract untouched
     explain: bool = False
+    # routed layout only: the dispatch policy ('auto' | 'targeted' | 'all');
+    # None on the single and sharded layouts
+    fanout: str | None = None
+
+
+def _shapes(tree) -> tuple:
+    """Shapes of every tensor in a nest of tuples (forest, its islands, the
+    routing table, delta views)."""
+    if tree is None:
+        return ()
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape),)
+    return tuple(s for t in tree for s in _shapes(t))
 
 
 def _shape_signature(forest, q, delta) -> tuple:
-    return (tuple(tuple(t.shape) for t in forest if t is not None), tuple(q.shape),
-            None if delta is None else tuple(delta.x.shape))
+    return (_shapes(forest), tuple(q.shape), _shapes(delta))
 
 
 @dataclass
 class SearchPlan:
-    """A search program for one ``PlanKey``: ``executor(device_forest, q,
-    delta)`` returns the device triple ``(dists, ids, SearchStats)``, and
-    an explain plan (``key.explain``) appends ``core.knn.VisitRows``.
+    """A search program for one ``PlanKey``: ``executor(operands, q,
+    delta)`` returns the device triple ``(dists, ids, SearchStats)``, an
+    explain plan (``key.explain``) appends ``core.knn.VisitRows``, and the
+    sharded and routed layouts append their telemetry after those (see
+    ``api/executor.py``).
     ``calls`` counts executions through this plan, ``shapes`` the distinct
     operand shape signatures it ran."""
 

@@ -216,6 +216,7 @@ def _scan_phase(
     scan_ids: Tensor,
     scan_scale: Tensor | None,
     bucket_count: Tensor,
+    qmask: Tensor | None = None,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
     """One bounded best-first scan phase (main buckets or delta buckets) by
     ``phase``: a K1 dispatcher of ``kernels.ops`` or its plain version.
@@ -223,10 +224,16 @@ def _scan_phase(
     The carry's top-k streams through phases: the delta phase starts from
     the main phase's result.  Returns (top_d, top_i, visits, ndist, npad,
     steps), the counters of this phase only and ``steps`` a () tensor.
+
+    ``qmask`` (Q,) bool, if given, is a per-query kill switch: a False query
+    visits nothing in this phase, not even the +inf-bound spill that an
+    empty carry would otherwise make, so masking the selection alone would
+    not do.  The routed layout uses it to make a pruned (query, island)
+    pair zero work on that island.
     """
     top_d, top_i, visits, ndist, npad, qsteps = phase(
         q, scan_x, scan_ids, bucket_count, bounds.order, bounds.lb_sorted, beam,
-        top_d, top_i, scan_scale,
+        top_d, top_i, scan_scale, qmask=qmask,
     )
     steps = qsteps.max() if qsteps.numel() else qsteps.new_zeros(())
     return top_d, top_i, visits, ndist, npad, steps
@@ -306,10 +313,12 @@ def scan_sorted(
     kernel: bool = True,
     delta: DeltaView | None = None,
     dbounds: PhaseBounds | None = None,
+    qmask: Tensor | None = None,
 ) -> ScanOut:
     """STEP 2b/2c executor body: bounded best-first scan over the bucket
     rows (and delta rows), visiting in the precomputed ``PhaseBounds``
-    order."""
+    order.  ``qmask`` (Q,) bool masks queries out of both phases (see
+    ``_scan_phase``; the routing tier's host pruning)."""
     qn = q.shape[0]
     dev = q.device
     top_d = torch.full((qn, kk), float("inf"), device=dev)
@@ -319,7 +328,7 @@ def scan_sorted(
     top_d, top_i, visits, ndist, npad, steps = _scan_phase(
         kops.bucket_scan_phase if kernel else kref.bucket_scan_phase_ref,
         q, bounds, beam, top_d, top_i, forest.bucket_x, forest.bucket_ids,
-        forest.bucket_scale, bucket_count,
+        forest.bucket_scale, bucket_count, qmask,
     )
     visits_main = visits
 
@@ -328,7 +337,7 @@ def scan_sorted(
         dcount = torch.sum(delta.mask, dim=1, dtype=torch.int32)  # (I_d,)
         top_d, top_i, dv, dd, dp, dsteps = _scan_phase(
             kops.delta_scan_topk if kernel else kref.bucket_scan_phase_ref,
-            q, dbounds, beam, top_d, top_i, delta.x, delta.ids, None, dcount,
+            q, dbounds, beam, top_d, top_i, delta.x, delta.ids, None, dcount, qmask,
         )
         visits, ndist, npad = visits + dv, ndist + dd, npad + dp
         steps = steps + dsteps
@@ -372,6 +381,26 @@ def local_scan(
         forest, q, bounds, kk=kk, beam=beam, kernel=kernel,
         delta=delta, dbounds=dbounds,
     )
+
+
+def merge_shard_topk(
+    top_d: list[Tensor] | tuple[Tensor, ...],
+    top_i: list[Tensor] | tuple[Tensor, ...],
+    *,
+    k: int,
+) -> tuple[Tensor, Tensor]:
+    """Cross-island top-k merge: each island's (Q, kk) carry, in island
+    order, moves to island 0's device and the k smallest of the (Q, S * kk)
+    concatenation are kept, the lower position winning a tie (the JAX
+    package's all-gather + ``lax.top_k``).  k candidates per island make
+    the merge exact: the global top-k is a subset of the union of the
+    per-island top-ks.  ``top_i`` may hold ids or any values carried with
+    the distances (the flat datastore merges token values)."""
+    dev = top_d[0].device
+    d_all = torch.cat([d.to(dev) for d in top_d], dim=1)
+    i_all = torch.cat([i.to(dev) for i in top_i], dim=1)
+    vals, pos = kref.topk_smallest(d_all, k)
+    return vals, torch.gather(i_all, 1, pos)
 
 
 def scan_stats(

@@ -57,6 +57,12 @@
 // fmaf chains in feature order (an int8 member as float(x) * scale first),
 // then the uncontracted epilogue max(qq + xx - 2 q.x, 0).
 //
+// `qmask` (Q bytes, or null for all queries) masks whole queries out of the
+// phase: a query whose byte is 0 visits nothing, not even the +inf-bound
+// slots an unfilled carry would make active, and its block writes the carry
+// through with zero counters.  The routed layout uses it so that an island
+// a query's host-pruning dropped does no work for that query.
+//
 // The 16-byte copies fetch the aligned 16-byte blocks that enclose a tile's
 // bytes, so a row range at any alignment (int8 rows, a bucket that starts
 // mid-block) needs no scalar head or tail.  Those blocks lie within the
@@ -251,7 +257,22 @@ scan_phase_kernel(Phase<T, kScaled> ph, const float* __restrict__ q_all,
                   const float* __restrict__ top_d_in, const int* __restrict__ top_i_in,
                   float* __restrict__ top_d_out, int* __restrict__ top_i_out,
                   int* __restrict__ visits_out, int* __restrict__ ndist_out,
-                  int* __restrict__ npad_out, int* __restrict__ qsteps_out) {
+                  int* __restrict__ npad_out, int* __restrict__ qsteps_out,
+                  const uint8_t* __restrict__ qmask) {
+  if (qmask != nullptr && qmask[blockIdx.x] == 0) {  // the whole block takes this exit
+    const int64_t qi = blockIdx.x;
+    for (int j = threadIdx.x; j < ph.kk; j += kThreads) {
+      top_d_out[qi * ph.kk + j] = top_d_in[qi * ph.kk + j];
+      top_i_out[qi * ph.kk + j] = top_i_in[qi * ph.kk + j];
+    }
+    if (threadIdx.x == 0) {
+      visits_out[qi] = 0;
+      ndist_out[qi] = 0;
+      npad_out[qi] = 0;
+      qsteps_out[qi] = 0;
+    }
+    return;
+  }
   extern __shared__ __align__(16) char smem[];
   const int buf_bytes = ph.lay.buf_bytes();
   char* const bufs = smem;
@@ -457,8 +478,8 @@ template <typename T, bool kScaled>
 int launch(const float* q, const T* bx, const float* scale, const int* bids,
            const int* bcount, const int* order, const float* lb, const float* top_d,
            const int* top_i, float* out_d, int* out_i, int* visits, int* ndist, int* npad,
-           int* qsteps, int nq, int nb, int cap, int dim, int beam, int kk, int n_slots,
-           void* stream) {
+           int* qsteps, const uint8_t* qmask, int nq, int nb, int cap, int dim, int beam,
+           int kk, int n_slots, void* stream) {
   Phase<T, kScaled> ph;
   ph.bx = bx;
   ph.scale = scale;
@@ -482,7 +503,7 @@ int launch(const float* q, const T* bx, const float* scale, const int* bids,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<nq, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      ph, q, top_d, top_i, out_d, out_i, visits, ndist, npad, qsteps);
+      ph, q, top_d, top_i, out_d, out_i, visits, ndist, npad, qsteps, qmask);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -492,22 +513,24 @@ extern "C" int bucket_scan_phase_f32(const float* q, const float* bx, const int*
                                      const int* bcount, const int* order, const float* lb,
                                      const float* top_d, const int* top_i, float* out_d,
                                      int* out_i, int* visits, int* ndist, int* npad,
-                                     int* qsteps, int nq, int nb, int cap, int dim, int beam,
-                                     int kk, int n_slots, void* stream) {
+                                     int* qsteps, const uint8_t* qmask, int nq, int nb,
+                                     int cap, int dim, int beam, int kk, int n_slots,
+                                     void* stream) {
   return launch<float, false>(q, bx, nullptr, bids, bcount, order, lb, top_d, top_i, out_d,
-                              out_i, visits, ndist, npad, qsteps, nq, nb, cap, dim, beam,
-                              kk, n_slots, stream);
+                              out_i, visits, ndist, npad, qsteps, qmask, nq, nb, cap, dim,
+                              beam, kk, n_slots, stream);
 }
 
 extern "C" int bucket_scan_phase_i8(const float* q, const int8_t* bx, const float* scale,
                                     const int* bids, const int* bcount, const int* order,
                                     const float* lb, const float* top_d, const int* top_i,
                                     float* out_d, int* out_i, int* visits, int* ndist,
-                                    int* npad, int* qsteps, int nq, int nb, int cap, int dim,
-                                    int beam, int kk, int n_slots, void* stream) {
+                                    int* npad, int* qsteps, const uint8_t* qmask, int nq,
+                                    int nb, int cap, int dim, int beam, int kk, int n_slots,
+                                    void* stream) {
   return launch<int8_t, true>(q, bx, scale, bids, bcount, order, lb, top_d, top_i, out_d,
-                              out_i, visits, ndist, npad, qsteps, nq, nb, cap, dim, beam, kk,
-                              n_slots, stream);
+                              out_i, visits, ndist, npad, qsteps, qmask, nq, nb, cap, dim,
+                              beam, kk, n_slots, stream);
 }
 
 // Dynamic shared memory of one block (elt: 4 for f32 members, 1 for int8).

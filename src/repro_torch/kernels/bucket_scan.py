@@ -28,9 +28,9 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.library("bucket_scan")
     if lib.bucket_scan_phase_f32.argtypes is None:
-        lib.bucket_scan_phase_f32.argtypes = [_P] * 14 + [_I] * 7 + [_P]
+        lib.bucket_scan_phase_f32.argtypes = [_P] * 15 + [_I] * 7 + [_P]
         lib.bucket_scan_phase_f32.restype = _I
-        lib.bucket_scan_phase_i8.argtypes = [_P] * 15 + [_I] * 7 + [_P]
+        lib.bucket_scan_phase_i8.argtypes = [_P] * 16 + [_I] * 7 + [_P]
         lib.bucket_scan_phase_i8.restype = _I
         lib.bucket_scan_smem_bytes.argtypes = [_I] * 5
         lib.bucket_scan_smem_bytes.restype = ctypes.c_size_t
@@ -51,6 +51,7 @@ def bucket_scan_phase_cuda(
     top_d: Tensor,
     top_i: Tensor,
     scale: Tensor | None = None,
+    qmask: Tensor | None = None,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
     """One scan phase by the K1 kernel; returns (top_d, top_i, visits,
     ndist, npad, qsteps) as ``ref.bucket_scan_phase_ref`` does.
@@ -62,11 +63,15 @@ def bucket_scan_phase_cuda(
     device.  The per-search operands are cast and made contiguous; the
     datastore-sized ones (bucket_x, bucket_ids, scale) must already have the
     kernel's dtype and layout, since a copy there would cost a datastore pass.
+    ``qmask`` (Q,) bool, if given, masks queries out of the phase: a False
+    query keeps its carry and has zero counters.
     """
     dev = q.device
     ops = [q, bucket_x, bucket_ids, bucket_count, order, lb_sorted, top_d, top_i]
     if scale is not None:
         ops.append(scale)
+    if qmask is not None:
+        ops.append(qmask)
     if not all(t.is_cuda and t.device == dev for t in ops):
         raise ValueError(
             "bucket_scan_phase_cuda needs every operand on one CUDA device, got "
@@ -84,7 +89,7 @@ def bucket_scan_phase_cuda(
         bucket_ids.shape != (nb, cap) or bucket_count.shape != (nb,)
         or q.shape[0] != qn or top_i.shape != (qn, kk) or beam < 1
         or order.shape != (qn, n_slots) or lb_sorted.shape != (qn, n_slots)
-        or n_slots % beam
+        or n_slots % beam or (qmask is not None and qmask.shape != (qn,))
     ):
         raise ValueError(
             "bucket_scan_phase_cuda shape mismatch: q "
@@ -92,6 +97,7 @@ def bucket_scan_phase_cuda(
             f"{tuple(bucket_count.shape)}, order {tuple(order.shape)}, lb_sorted "
             f"{tuple(lb_sorted.shape)}, beam {beam}, top_d {tuple(top_d.shape)}, "
             f"top_i {tuple(top_i.shape)}"
+            + ("" if qmask is None else f", qmask {tuple(qmask.shape)}")
         )
     if bucket_ids.dtype != torch.int32 or not bucket_ids.is_contiguous():
         raise ValueError("bucket_ids must be contiguous int32")
@@ -114,6 +120,8 @@ def bucket_scan_phase_cuda(
     lb_sorted = lb_sorted.to(torch.float32).contiguous()
     top_d = top_d.to(torch.float32).contiguous()
     top_i = top_i.to(torch.int32).contiguous()
+    if qmask is not None:
+        qmask = qmask.to(torch.bool).contiguous()  # one byte a query, 0 or 1
     out_d = torch.empty_like(top_d)
     out_i = torch.empty_like(top_i)
     counters = torch.empty((4, qn), dtype=torch.int32, device=dev)
@@ -135,7 +143,8 @@ def bucket_scan_phase_cuda(
             bucket_ids.data_ptr(), bucket_count.data_ptr(), order.data_ptr(),
             lb_sorted.data_ptr(), top_d.data_ptr(), top_i.data_ptr(), out_d.data_ptr(),
             out_i.data_ptr(), visits.data_ptr(), ndist.data_ptr(), npad.data_ptr(),
-            qsteps.data_ptr(), qn, nb, cap, dim, beam, kk, n_slots, stream,
+            qsteps.data_ptr(), None if qmask is None else qmask.data_ptr(),
+            qn, nb, cap, dim, beam, kk, n_slots, stream,
         )
         if scale is None:
             err = lib.bucket_scan_phase_f32(q.data_ptr(), bucket_x.data_ptr(), *common)

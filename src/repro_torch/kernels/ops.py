@@ -70,15 +70,19 @@ def bucket_scan_phase(
     top_d: Tensor,
     top_i: Tensor,
     scale: Tensor | None = None,
+    qmask: Tensor | None = None,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
     """One whole forest-scan phase (K1): every step's gather, distances and
     top-k merge, each query until its first inactive step.  Returns
     (top_d, top_i, visits, ndist, npad, qsteps).
 
     See ``bucket_scan.py`` for the kernel and ``ref.bucket_scan_phase_ref``
-    for the plain version.  ``scale`` enables the int8 bucket storage path.
+    for the plain version.  ``scale`` enables the int8 bucket storage path;
+    ``qmask`` (Q,) bool masks queries out of the phase (they keep their
+    carry and do no work).
     """
-    args = (q, bucket_x, bucket_ids, bucket_count, order, lb_sorted, beam, top_d, top_i, scale)
+    args = (q, bucket_x, bucket_ids, bucket_count, order, lb_sorted, beam, top_d, top_i, scale,
+            qmask)
     if q.is_cuda:
         return bucket_scan_phase_cuda(*args)
     return ref.bucket_scan_phase_ref(*args)

@@ -117,6 +117,7 @@ def bucket_scan_phase_ref(
     top_d: Tensor,
     top_i: Tensor,
     scale: Tensor | None = None,
+    qmask: Tensor | None = None,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
     """One bounded best-first scan phase: the JAX package's ``while_loop``
     over ``bucket_scan_topk_ref`` steps, in lockstep over the queries.
@@ -130,6 +131,11 @@ def bucket_scan_phase_ref(
     query i32: visits, ndist, npad of this phase, and qsteps, the steps in
     which the query had an active slot).  A query's active steps form a
     prefix of the phase, so ``qsteps.max()`` is the loop's trip count.
+
+    ``qmask`` (Q,) bool, if given, masks whole queries out: a False query
+    has no active slot in any step (not even the +inf-bound ones an unfilled
+    carry makes active), so it keeps its carry and its counters stay zero,
+    as the JAX package's ``_scan_phase(qmask=)``.
     """
     qn = q.shape[0]
     cap = bucket_ids.shape[1]
@@ -140,6 +146,8 @@ def bucket_scan_phase_ref(
         lo = t * beam
         kth = torch.sqrt(top_d[:, -1])  # inf until kk found
         act = lb_sorted[:, lo : lo + beam] <= kth[:, None]  # (Q, beam)
+        if qmask is not None:
+            act = act & qmask[:, None]
         if not bool(act.any()):
             break
         bsel = order[:, lo : lo + beam]

@@ -1,5 +1,5 @@
 """kNN-LM retrieval at the LM head (the port of the JAX package's
-``repro/serve/retrieval.py``, single device).
+``repro/serve/retrieval.py``).
 
 The datastore holds (key, next-token) pairs.  At each decode step the
 hidden state queries it and the neighbour distribution is interpolated with
@@ -19,7 +19,14 @@ Datastore variants:
   with streaming delta buffers that ``ingest_keys`` appends to at serve
   time.
 
-The sharded scan comes with the distributed slice.
+Distributed layouts: a forest datastore made from a sharded or routed index
+(``datastore_from_index``) keeps the index's islands and searches through
+``distributed/knn_island.sharded_search`` or the routing tier's
+``routed_search``, with the same results as the single layout.  A flat
+datastore is split over the islands of the active mesh
+(``distributed.context.use_mesh``): each island scans its contiguous slice
+of rows with K6 (or K7 and the stable selection), and the islands' k
+candidates merge on island 0's device (``core.knn.merge_shard_topk``).
 """
 from __future__ import annotations
 
@@ -31,8 +38,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.knn import knn_search_impl
+from repro_torch.core.knn import knn_search_impl, merge_shard_topk
 from repro_torch.device import resolve_device
+from repro_torch.distributed import context as dctx
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import topk_smallest
 from repro_torch.stream.ingest import alloc_delta, delta_view, ingest_impl
@@ -76,13 +84,22 @@ class ForestDatastore:
     preallocated tail of ``values``.  ``next_id`` is the id high-water mark,
     kept on the datastore so every ingest path shares one id space and no
     id is handed out twice or past the values tail.
+
+    ``shards`` > 1 marks a datastore on the islands of a sharded or routed
+    index: ``forest`` and ``delta`` are then the islands' placement
+    (``distributed/knn_island``), ``mesh`` their devices, and a routed one
+    also carries the index's ``router_table`` and ``fanout``.
     """
 
-    forest: Any  # core.knn.DeviceForest
+    forest: Any  # core.knn.DeviceForest, or knn_island.IslandForest
     values: Tensor  # (N_objects + stream capacity,) i32, by global object id
-    delta: Any = None  # stream.ingest.DeltaBuffer | None
+    delta: Any = None  # stream.ingest.DeltaBuffer | knn_island.IslandDelta | None
     n_main: int = 0
     next_id: int = 0
+    shards: int = 1
+    mesh: Any = None  # distributed.context.Mesh of the islands (shards > 1)
+    router_table: Any = None  # distributed.router.RoutingTable (routed layout)
+    fanout: str | None = None  # routed layout's dispatch policy
 
 
 def datastore_from_index(
@@ -99,6 +116,10 @@ def datastore_from_index(
     no delta yet, per-index buffers of ``2 * stream_capacity / n_indexes``
     slots (floor 32): 2x headroom for routing skew without multiplying the
     memory by the index count.
+
+    The index's layout rides along: the forest upload and the delta
+    placement go through ``ix.backend``, so a sharded or routed index serves
+    a datastore on the same islands.
     """
     values = np.asarray(values)
     if len(values) != ix.n_total:
@@ -118,8 +139,14 @@ def datastore_from_index(
             capd = min(stream_capacity, -(-2 * stream_capacity // ix.forest.n_indexes))
             delta = ix.backend.place_delta(alloc_delta(ix.forest, max(32, capd), device=dev))
         vals = torch.cat([vals, torch.zeros((stream_capacity,), dtype=torch.int32, device=dev)])
-    return ForestDatastore(forest=device, values=vals, delta=delta, n_main=ix.n_total,
-                           next_id=ix.n_total)
+    return ForestDatastore(
+        forest=device, values=vals, delta=delta, n_main=ix.n_total, next_id=ix.n_total,
+        shards=ix.backend.shards,
+        mesh=getattr(ix.backend, "mesh", None),
+        # routed layout: the backend's table is live after the upload above
+        router_table=getattr(ix.backend, "table", None),
+        fanout=ix.cfg.layout.routing.fanout if ix.backend.kind == "routed" else None,
+    )
 
 
 def eps_heuristic(keys: np.ndarray, *, sample: int = 2048, chunk: int = 16) -> float:
@@ -189,10 +216,8 @@ def ingest_keys(ds: ForestDatastore, keys, values) -> tuple[ForestDatastore, int
         return ds, 0
     dev = ds.values.device
     kt = torch.as_tensor(keys, dtype=torch.float32, device=dev)
-    centers = ds.forest.index_centers
     # probe: the same state and the same routing give the same acceptance
-    _, acc = ingest_impl(centers, ds.delta, kt,
-                         torch.full((kt.shape[0],), -1, dtype=torch.int32, device=dev))
+    _, acc = _run_ingest(ds, kt, torch.full((kt.shape[0],), -1, dtype=torch.int32, device=dev))
     # dropping rejected rows cannot demote an accepted one: within each
     # destination run the kept rows' slot ranks only shrink
     take = np.flatnonzero(acc.cpu().numpy())[:room]
@@ -200,7 +225,7 @@ def ingest_keys(ds: ForestDatastore, keys, values) -> tuple[ForestDatastore, int
         return ds, 0
     ids = torch.arange(next_id, next_id + take.size, dtype=torch.int32, device=dev)
     tk = torch.from_numpy(take).to(dev)
-    new_delta, _ = ingest_impl(centers, ds.delta, kt[tk], ids)
+    new_delta, _ = _run_ingest(ds, kt[tk], ids)
     new_values = ds.values.clone()
     new_values[ids.long()] = torch.as_tensor(values, device=dev)[tk].to(torch.int32)
     return (
@@ -210,14 +235,44 @@ def ingest_keys(ds: ForestDatastore, keys, values) -> tuple[ForestDatastore, int
     )
 
 
+def _run_ingest(ds: ForestDatastore, keys: Tensor, ids: Tensor):
+    """Route and append one batch under the datastore's layout: the
+    single-device ``stream.ingest`` executor, or the islands' ingest when
+    the buffers are split."""
+    if ds.shards > 1:
+        from repro_torch.distributed import knn_island
+
+        return knn_island.sharded_ingest(ds.mesh, ds.forest.index_centers, ds.delta,
+                                         keys, ids)
+    return ingest_impl(ds.forest.index_centers, ds.delta, keys, ids)
+
+
 def forest_knn(hidden: Tensor, ds: ForestDatastore, k: int, *,
                kernel: bool = True) -> tuple[Tensor, Tensor]:
     """(squared distances (B, k), token values (B, k)) by the paper's Alg. 2
-    search over the forest, then its delta buffers.  ``kernel`` selects the
-    ``kernels.ops`` dispatch (K1/K2 on the card) or the plain versions."""
-    delta = None if ds.delta is None else delta_view(ds.delta)
-    d, ids, _ = knn_search_impl(ds.forest, hidden.float(), k=k, mode="forest",
-                                kernel=kernel, delta=delta)
+    search over the forest, then its delta buffers, on the datastore's
+    layout.  ``kernel`` selects the ``kernels.ops`` dispatch (K1/K2 on the
+    card) or the plain versions."""
+    q = hidden.float()
+    if ds.shards > 1:
+        from repro_torch.distributed import knn_island
+
+        delta = None if ds.delta is None else knn_island.island_delta_view(ds.delta)
+        if ds.router_table is not None:
+            from repro_torch.distributed import router
+
+            d, ids, *_ = router.routed_search(
+                ds.mesh, ds.forest, q, delta, ds.router_table, k=k, mode="forest",
+                kernel=kernel, fanout=ds.fanout or "auto")
+        else:
+            d, ids, _ = knn_island.sharded_search(
+                ds.mesh, ds.forest, q, delta, k=k, mode="forest", kernel=kernel)
+        ids = ids.to(ds.values.device)
+        d = d.to(ds.values.device)
+    else:
+        delta = None if ds.delta is None else delta_view(ds.delta)
+        d, ids, _ = knn_search_impl(ds.forest, q, k=k, mode="forest",
+                                    kernel=kernel, delta=delta)
     vals = ds.values[ids.long().clamp(0, ds.values.shape[0] - 1)]
     vals = torch.where(ids >= 0, vals, 0)
     d = torch.where(ids >= 0, d, float("inf"))
@@ -230,6 +285,30 @@ def _local_topk(q: Tensor, ds: Datastore, k: int) -> tuple[Tensor, Tensor]:
         d2 = ops.pairwise_sq_l2_int8(q, ds.keys, ds.scale)
         return topk_smallest(d2, k)
     return ops.knn_topk(q, ds.keys, k=k)
+
+
+def _sharded_topk(q: Tensor, ds: Datastore, k: int, mesh) -> tuple[Tensor, Tensor]:
+    """The flat datastore split over the mesh's islands: island ``s`` scans
+    rows ``[s*W, (s+1)*W)`` (W = N / S) on its device with ``_local_topk``,
+    and the islands' (d2, value) candidates merge on island 0's device,
+    ties to the lower island and row as in one scan of all rows."""
+    n = ds.keys.shape[0]
+    n_isl = mesh.shape[dctx.MODEL_AXIS]
+    if n % n_isl:
+        raise ValueError(
+            f"a flat datastore of {n} rows does not split evenly over {n_isl} islands")
+    w = n // n_isl
+    top_d, top_v = [], []
+    for s, dev in enumerate(mesh.devices):
+        part = Datastore(
+            keys=ds.keys[s * w:(s + 1) * w].to(dev),
+            values=ds.values[s * w:(s + 1) * w].to(dev),
+            scale=None if ds.scale is None else ds.scale[s * w:(s + 1) * w].to(dev),
+        )
+        d2_l, idx_l = _local_topk(q.to(dev), part, k)
+        top_d.append(d2_l)
+        top_v.append(part.values[idx_l.long()])
+    return merge_shard_topk(top_d, top_v, k=k)
 
 
 def knn_logits(hidden: Tensor, ds: Datastore | ForestDatastore, cfg: ModelConfig) -> Tensor:
@@ -246,10 +325,15 @@ def knn_logits(hidden: Tensor, ds: Datastore | ForestDatastore, cfg: ModelConfig
     q = hidden.float()
     if ds.proj is not None:
         q = q @ ds.proj.float()
-    d2, idx = _local_topk(q, ds, r.k)
-    # an id of -1 (fewer than k rows) reads the last value, as JAX's
-    # wrapping gather does; its weight exp(-inf) is 0
-    vals = ds.values[idx.long()]
+    mesh = dctx.current_mesh()
+    if dctx.model_axis_size(mesh) == 1:
+        d2, idx = _local_topk(q, ds, r.k)
+        # an id of -1 (fewer than k rows) reads the last value, as JAX's
+        # wrapping gather does; its weight exp(-inf) is 0
+        vals = ds.values[idx.long()]
+    else:
+        d2, vals = _sharded_topk(q, ds, r.k, mesh)
+        d2, vals = d2.to(hidden.device), vals.to(hidden.device)
     w = torch.softmax(-torch.sqrt(torch.clamp_min(d2, 0.0)) / r.temperature, dim=-1)
     p_knn = torch.zeros((hidden.shape[0], cfg.padded_vocab), dtype=torch.float32,
                         device=hidden.device)

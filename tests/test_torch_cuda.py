@@ -590,3 +590,53 @@ def test_load_and_explain_on_the_card(dev, blob_data, tmp_path, beam):
     ndist = ndist + prefix_sum(rows.dorder, rows.dvisits[0], dcount)
     assert int(rows.dvisits.sum()) > 0
     assert torch.equal(ndist.to(torch.int32), st.distances)
+
+
+@pytest.mark.parametrize("qn,nb,cap,dim,beam,kk", [
+    (5, 13, 4, 8, 4, 11), (64, 40, 1000, 5, 1, 10), (48, 30, 250, 20, 4, 10),
+])
+@pytest.mark.parametrize("int8", [False, True])
+def test_bucket_scan_qmask(dev, qn, nb, cap, dim, beam, kk, int8):
+    """K1 with a ``qmask``: bit for bit the plain phase's, a masked query
+    keeps its carry with zero counters, and an all-true mask equals none."""
+    g = np.random.default_rng(qn + cap + beam)
+    args = _phase_problem(g, qn, nb, cap, dim, beam, kk, int8=int8)
+    mask = torch.from_numpy(g.random(qn) < 0.5).to(dev)
+    mask[0] = False
+    got = bucket_scan_phase_cuda(*args, qmask=mask)
+    want = ref.bucket_scan_phase_ref(*args, qmask=mask)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    off = ~mask
+    assert torch.equal(got[0][off], args[7][off]) and torch.equal(got[1][off], args[8][off])
+    assert all(bool((c[off] == 0).all()) for c in got[2:])
+    full = bucket_scan_phase_cuda(*args, qmask=torch.ones_like(mask))
+    none = bucket_scan_phase_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip(full, none))
+
+
+@pytest.mark.parametrize("kind", ["sharded", "routed"])
+def test_layouts_on_the_card(dev, blob_data, kind):
+    """Four islands on one card: the sharded and routed searches (with a
+    delta) equal the single layout's and launch K1 once an island a phase."""
+    from repro_torch.api import Config, IndexConfig, LayoutConfig, OverlapIndex, StreamConfig
+
+    kw = dict(index=IndexConfig(method="vbm", eps=1.5, min_pts=8, xi_min=0.3, xi_max=0.7),
+              stream=StreamConfig(capacity=64))
+    single = OverlapIndex.build(blob_data, Config(**kw), device=dev)
+    ix = OverlapIndex._wire(single.x_all, single.forest,
+                            Config(**kw, layout=LayoutConfig(kind=kind, shards=4)),
+                            single.build_report, [dev] * 4)
+    g = np.random.default_rng(9)
+    batch = (blob_data[g.choice(len(blob_data), 40)] + 0.3 * g.normal(size=(40, 8))
+             ).astype(np.float32)
+    single.ingest(batch)
+    ix.ingest(batch)
+    q = (blob_data[g.choice(len(blob_data), 64)] + 0.3 * g.normal(size=(64, 8))).astype(np.float32)
+    for beam in (1, 4):
+        n0 = ops.launch_counts()["bucket_scan_topk"]
+        res = ix.search(q, k=10, beam=beam)
+        assert ops.launch_counts()["bucket_scan_topk"] == n0 + 8
+        ref_res = single.search(q, k=10, beam=beam)
+        np.testing.assert_array_equal(res.dists, ref_res.dists)
+        np.testing.assert_array_equal(res.ids, ref_res.ids)

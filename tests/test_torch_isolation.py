@@ -33,7 +33,11 @@ def test_import_loads_no_jax_and_no_repro():
               "repro_torch.stream.ingest", "repro_torch.stream.maintenance",
               "repro_torch.serve.retrieval", "repro_torch.api.persist",
               "repro_torch.core.metric", "repro_torch.obs.export",
-              "repro_torch.obs.attribution"):
+              "repro_torch.obs.attribution", "repro_torch.distributed",
+              "repro_torch.distributed.context", "repro_torch.distributed.knn_island",
+              "repro_torch.distributed.estimator", "repro_torch.distributed.router",
+              "repro_torch.distributed.router.table", "repro_torch.distributed.router.cost",
+              "repro_torch.distributed.router.exec"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -146,3 +150,33 @@ def test_streaming_entry_points_refuse_cpu(monkeypatch):
     ix = OverlapIndex.baseline(keys, device="cpu")
     ix.ingest(keys[:5] + 0.1)
     assert ix.device_delta.x.is_cpu and sum(ix.structure()["delta_fill"]) == 5
+
+
+def test_sharded_entry_points_refuse_cpu(monkeypatch, tmp_path):
+    """A sharded or routed build, baseline or load with no ``device=`` needs
+    the card: without CUDA it raises, and a list of host devices runs the
+    islands on the CPU."""
+    from repro_torch.api import Config, IndexConfig, LayoutConfig, OverlapIndex
+    from repro_torch.distributed.knn_island import default_mesh
+
+    g = np.random.default_rng(3)
+    x = np.concatenate([c + g.normal(size=(60, 3)) for c in (0.0, 12.0)]).astype(np.float32)
+    path = None
+    for kind in ("sharded", "routed"):
+        cfg = Config(index=IndexConfig(eps=1.5, min_pts=4),
+                     layout=LayoutConfig(kind=kind, shards=2))
+        ix = OverlapIndex.build(x, cfg, device=["cpu"] * 2)
+        assert ix.backend.kind == kind and ix.device.parts[1].bucket_x.is_cpu
+        path = ix.save(tmp_path / f"{kind}.npz")
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            OverlapIndex.build(x, cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            OverlapIndex.baseline(x, cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            OverlapIndex.load(path)
+        monkeypatch.undo()
+        assert OverlapIndex.load(path, device=["cpu"] * 2).backend.kind == kind
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="device="):
+        default_mesh(2)
