@@ -104,7 +104,21 @@ Phases, in order; any failure raises and the run exits non-zero:
     2^20 x 896 datastore and its int8 twin split over the islands in
     ``knn_logits`` under ``use_mesh``, equal to one scan, K6 / K7 once per
     island; the search walls (single / sharded / routed, in turns), each
-    island's K1 time and the routed pruning share.
+    island's K1 time and the routed pruning share;
+18. the model families (MoE, MLA, Mamba, RWKV, encoder-decoder, the vision
+    stub) serving with kNN-LM retrieval: the ten smoke configurations at
+    f32 compute on the card against the same seeded weights on the CPU;
+    deepseek-v2-236b at its published widths, depth 3 (the dense first
+    layer and 2 MoE layers, bf16 params, ~18.7 GB), and rwkv6-3b whole, each
+    first with its prefill + decode held to its forward at f32 compute, then
+    in ``ServeEngine(num_slots=8, max_len=256)`` with phase 11's request mix
+    on flat stores of 2^18 x 5,120 and 65,536 x 2,560 keys (K6) and their
+    int8 twins (K7), three captured steps' top-k held to the plain version;
+    whisper-tiny whole through ``Model.prefill(frames=...)`` and 32 decode
+    steps on a 65,536 x 384 store; qwen3-moe-235b-a22b, granite-20b,
+    deepseek-67b and pixtral-12b at full width, depth 2, jamba at its smoke
+    widths and its Mamba mixer alone at full width, decode held to forward;
+    K6 / K7 timed at D = 5,120, 2,560 and 384.
 
 The last lines are one JSON object of per-kernel numbers, then
 ``{"ok": true, "device": {...}}``; ``--json PATH`` also writes the full
@@ -1752,6 +1766,29 @@ class _TopkRecorder:
         return self.fn(q, ds, k)
 
 
+def hold_captured(ds, kept, k: int, what: str) -> int:
+    """The kernel top-k (K6, or K7 + the stable selection) of each captured
+    step's queries held to the plain version by ``hold_topk``; three steps
+    must have been captured."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    xf = ds.keys if ds.scale is None else ds.keys.float() * ds.scale[:, None]
+    xx_max = max_sq_norm(xf)
+    for q in kept:
+        if ds.scale is None:
+            kv, ki = ops.knn_topk(q, ds.keys, k=k)
+            rv, ri = ref.knn_topk_ref(q, ds.keys, k + 1)
+        else:
+            kv, ki = ref.topk_smallest(ops.pairwise_sq_l2_int8(q, ds.keys, ds.scale), k)
+            rv, ri = ref.topk_smallest(ref.pairwise_sq_l2_int8_ref(q, ds.keys, ds.scale), k + 1)
+        hold_topk(kv, ki.to(torch.int32), rv[:, :-1], ri[:, :-1].to(torch.int32),
+                  rv[:, -1], q, xf, xx_max, f"{what} step")
+    require(len(kept) == 3, f"{what}: {len(kept)} steps captured, want 3")
+    return len(kept)
+
+
 def serve_prompts(vocab: int, n: int, seed: int):
     import numpy as np
 
@@ -1768,7 +1805,7 @@ def run_serving(dev, model, datastores) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.serve import retrieval
     from repro_torch.serve.engine import Request, ServeEngine
 
@@ -1813,21 +1850,7 @@ def run_serving(dev, model, datastores) -> dict:
                     f"serving {name}: {other} launched {launches[other]} times, want {want}")
         checked = 0
         if ds is not None:
-            xf = ds.keys if ds.scale is None else ds.keys.float() * ds.scale[:, None]
-            xx_max = max_sq_norm(xf)
-            for q in rec.kept:
-                if ds.scale is None:
-                    kv, ki = ops.knn_topk(q, ds.keys, k=cfg.retrieval.k)
-                    rv, ri = ref.knn_topk_ref(q, ds.keys, cfg.retrieval.k + 1)
-                else:
-                    kv, ki = ref.topk_smallest(ops.pairwise_sq_l2_int8(q, ds.keys, ds.scale),
-                                               cfg.retrieval.k)
-                    rv, ri = ref.topk_smallest(
-                        ref.pairwise_sq_l2_int8_ref(q, ds.keys, ds.scale), cfg.retrieval.k + 1)
-                hold_topk(kv, ki.to(torch.int32), rv[:, :-1], ri[:, :-1].to(torch.int32),
-                          rv[:, -1], q, xf, xx_max, f"serving {name} step")
-                checked += 1
-            require(checked == 3, f"serving {name}: {checked} steps captured, want 3")
+            checked = hold_captured(ds, rec.kept, cfg.retrieval.k, f"serving {name}")
         hist = reg.snapshot()["histograms"]
         lat = hist["serve.request_latency_s"]
         step_ms = float(np.median(eng._step_times)) * 1e3
@@ -1836,7 +1859,7 @@ def run_serving(dev, model, datastores) -> dict:
                           step_ms=step_ms, prefill_ms=hist["serve.prefill"]["p50"] * 1e3,
                           launches={k: v for k, v in launches.items() if v},
                           checked_steps=checked)
-        log(f"[serve] {SERVE_ARCH} full width, retrieval {name}: 16 requests x 32 tokens in "
+        log(f"[serve] {cfg.name} ({cfg.num_layers} layers), retrieval {name}: 16 requests x 32 tokens in "
             f"{wall:.2f} s ({toks.size / wall:.1f} tok/s), {eng.steps} decode steps, median "
             f"step {step_ms:.2f} ms, p50 prefill {runs[name]['prefill_ms']:.1f} ms, request "
             f"latency p50 {lat['p50']:.3f} s p99 {lat['p99']:.3f} s; launches "
@@ -3275,6 +3298,359 @@ def layout_phase(dev, ward, tracking, model, serve, store, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 18: the model families (MoE, MLA, Mamba, RWKV, encoder-decoder, the
+# vision stub) serving with kNN-LM retrieval
+# --------------------------------------------------------------------------
+
+FAMILY_STORE_ROWS = {"deepseek-v2-236b": 1 << 18, "rwkv6-3b": 65_536, "whisper-tiny": 65_536}
+HOLD_ATOL, HOLD_RTOL = 2e-3, 1e-3  # the JAX package's test_prefill_decode_matches_forward
+CARD_CPU_TOL = 1e-4
+
+
+def family_config(arch: str, layers: int | None = None):
+    """The published configuration of ``arch``, its depth cut to ``layers``
+    where given (the CPU rehearsal swaps in the smoke configuration)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg.replace(num_layers=layers) if layers else cfg
+
+
+def family_inputs(cfg, b: int, s: int, seed: int, dev):
+    """(tokens (B, S), keyword inputs): frames (B, encoder_seq, D) for
+    whisper, stub patches (B, P, D) for pixtral, N(0, 0.1^2) each."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["frames"] = 0.1 * torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g,
+                                         device=dev)
+    if cfg.frontend == "vision_stub":
+        kw["patches"] = 0.1 * torch.randn((b, cfg.num_stub_patches, cfg.d_model), generator=g,
+                                          device=dev)
+    return toks, kw
+
+
+def hold_decode(model, what: str, *, b: int = 1, s0: int = 8, steps: int = 8) -> dict:
+    """Prefill of ``s0`` tokens, then ``steps`` teacher-forced decode steps,
+    held to the forward over all ``s0 + steps`` tokens; the model computes
+    in f32.  The tolerance is the JAX package's own for this check (atol
+    2e-3, rtol 1e-3, set on its smoke configs), its atol widened to 4x the
+    run's noise floor where that is larger: the gap between the prefill's
+    logits and the forward's at the same positions, the same computation in
+    another product shape, whose f32 reassociation noise grows with depth
+    (rwkv6-3b's 32 recurrent layers).
+
+    An MoE forward over T tokens drops the assignments past an expert's
+    capacity C(T) (8 slots at the published factor of 1.25 up to T ~ 100),
+    and the routing of a randomly initialised model is correlated across
+    tokens, so a forward over more than C(T) tokens may drop where one-token
+    decode steps do not (the JAX package's smoke configs raise the factor
+    to 4 for its check).  Where C(T) < T, prompt and steps are halved until
+    T <= C(T): an expert takes at most one choice of a token, so then
+    nothing drops in either."""
+    import torch
+
+    from repro_torch.models.moe import capacity
+
+    cfg = model.cfg
+    s0 = max(s0, cfg.num_stub_patches + 8) if cfg.frontend == "vision_stub" else s0
+    m = cfg.moe
+    while m is not None and capacity(b * (s0 + steps), m.top_k, m.num_experts,
+                                     m.capacity_factor) < b * (s0 + steps):
+        s0, steps = s0 // 2, steps // 2
+    toks, kw = family_inputs(cfg, b, s0 + steps, SEED + 18, model.device)
+    full, aux, _ = model.forward(toks, **kw)
+    logits, cache = model.prefill(toks[:, :s0], max_len=s0 + steps, **kw)
+    floor = float((logits - full[:, :s0]).abs().max())
+    pairs = [(model.decode_step(toks[:, p:p + 1], cache, p), full[:, p])
+             for p in range(s0, s0 + steps)]
+    torch.cuda.synchronize()
+    atol = max(HOLD_ATOL, 4.0 * floor)
+    err = max(float((g - w).abs().max()) for g, w in pairs)
+    ok = all(bool(((g - w).abs() <= atol + HOLD_RTOL * w.abs()).all()) for g, w in pairs)
+    require(bool(torch.isfinite(full).all()), f"{what}: non-finite logits")
+    require(ok, f"{what}: decode differs from the forward by {err:.3e} (atol {atol:.3e})")
+    out = dict(max_err=err, floor=floor, atol=atol, scale=float(full.abs().max()),
+               tokens=b * (s0 + steps), router_aux=float(aux["router_aux"]),
+               router_z=float(aux["router_z"]))
+    log(f"[families] {what}: prefill {s0} + {steps} decode steps (B = {b}) held to the "
+        f"forward, max |decode - forward| {err:.3e} (atol {atol:.1e}; prefill vs forward "
+        f"{floor:.3e}; logits up to {out['scale']:.2f}); router aux {out['router_aux']:.4f}, "
+        f"z {out['router_z']:.4f}")
+    return out
+
+
+def free_card() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def card_vs_cpu(dev) -> dict:
+    """Each of the ten smoke configurations with f32 compute: one seeded
+    model on the CPU, its weights copied to the card, forward logits and
+    router losses, prefill and two decode steps held to the CPU run at
+    1e-4 of the logits' scale (two f32 libraries' reassociation noise; the
+    CPU tests hold the port to the JAX package at 1e-5)."""
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.models.model import Model
+
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+        host = Model(cfg, device="cpu", seed=SEED)
+        card = Model(cfg, device=dev, seed=None)
+        card.load_state_dict(host.state_dict())
+        card.cast_weights()
+        toks, kw = family_inputs(cfg, 2, 8, SEED + 5, "cpu")
+        res = {}
+        for name, m in (("cpu", host), ("card", card)):
+            mk = {k: v.to(m.device) for k, v in kw.items()}
+            lg, aux, _ = m.forward(toks.to(m.device), **mk)
+            _, cache = m.prefill(toks[:, :6].to(m.device), max_len=12, **mk)
+            steps = [m.decode_step(toks[:, p:p + 1].to(m.device), cache, p) for p in (6, 7)]
+            res[name] = [t.float().cpu() for t in [lg, *steps]] + [
+                torch.stack([aux["router_aux"], aux["router_z"]]).cpu()]
+        err = 0.0
+        for got, want in zip(res["card"], res["cpu"]):
+            tol = CARD_CPU_TOL * max(1.0, float(want.abs().max()))
+            err = max(err, float((got - want).abs().max()))
+            require(bool(((got - want).abs() <= tol + CARD_CPU_TOL * want.abs()).all()),
+                    f"card vs CPU {arch}: {float((got - want).abs().max()):.3e}")
+        out[arch] = err
+        del host, card
+    free_card()
+    log(f"[families] card vs CPU, ten smoke configs at f32 compute (forward, router losses, "
+        f"prefill + 2 decode steps): max |card - cpu| "
+        f"{ {a: float(f'{e:.2e}') for a, e in out.items()} }")
+    return out
+
+
+def time_family_retrieval(keys, xq, scale, what: str) -> list[dict]:
+    """K6 and K7 at the engine's decode batch (Q = 8) on a family's store,
+    beside the plain versions (K6 also ``cdist`` + ``topk``) and the bound
+    (each input read once, each output written once; 2QND + 2(Q+N)D f32
+    operations, K7 N*D more for the dequantizing)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_int8_cuda
+    from repro_torch.kernels.topk import knn_topk_cuda
+
+    n, d = keys.shape
+    q = retrieval_problem(keys, 8, SEED + 8)
+    flops = 2.0 * 8 * n * d + 2.0 * (8 + n) * d
+    rows = []
+    for name, fn, plain, lib, nbytes, ops_ in (
+        ("knn_topk", lambda: knn_topk_cuda(q, keys, SERVE_K),
+         lambda: ref.knn_topk_ref(q, keys, SERVE_K),
+         lambda: torch.topk(torch.cdist(q, keys).square_(), SERVE_K, dim=1, largest=False),
+         4 * (8 * d + n * d) + 8 * 8 * SERVE_K, flops),
+        ("pairwise_sq_l2_int8", lambda: pairwise_sq_l2_int8_cuda(q, xq, scale),
+         lambda: ref.pairwise_sq_l2_int8_ref(q, xq, scale), None,
+         4 * 8 * d + n * d + 4 * n + 4 * 8 * n, flops + float(n) * d),
+    ):
+        ms = device_ms(fn, reps=21)
+        plain_ms = device_ms(plain, reps=21)
+        lib_ms = device_ms(lib, reps=21) if lib else None
+        b_ms, by = bound(nbytes, ops_)
+        rows.append(dict(name=name, shape=f"Q=8 N={n} D={d}" + (f" k={SERVE_K}" if lib else ""),
+                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                         bound_by=by, store=what))
+        log(f"[time] {name} on {what} (Q=8 N={n} D={d}): kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, " + (f"cdist+topk {lib_ms:.3f} ms, " if lib else "")
+            + f"bound {b_ms:.3f} ms by {by} ({b_ms / ms:.1%} of it)")
+    return rows
+
+
+def family_store(dev, cfg, rows: int):
+    """A flat f32 store of ``rows`` keys at the model's width drawn on the
+    card from ``embedding_datastore``'s recipe, and its int8 twin."""
+    from repro_torch.data.synthetic import embedding_datastore_on
+    from repro_torch.serve.retrieval import build_flat_datastore
+
+    keys, values = embedding_datastore_on(dev, rows, cfg.d_model, seed=SEED + 18)
+    vals = values % cfg.vocab_size
+    return {"f32": build_flat_datastore(keys, vals, device=dev),
+            "int8": build_flat_datastore(keys, vals, quantized=True, device=dev)}
+
+
+def family_serving(dev, arch: str, layers: int | None, runs: tuple[str, ...], smi: str) -> dict:
+    """A decoder-only family through ``ServeEngine(num_slots=8,
+    max_len=256)`` as phase 11 serves qwen2-0.5b: first its decode held to
+    its forward at f32 compute, then the serving model in its own compute
+    dtype (the same seeded weights) with retrieval off and/or on the flat
+    f32 store (K6) and its int8 twin (K7 + the stable selection), k = 8,
+    lambda = 0.25; a profiled window of decode steps on the f32 store."""
+    import torch
+
+    from repro_torch.configs.base import RetrievalConfig
+    from repro_torch.models.model import Model, param_bytes
+
+    base = family_config(arch, layers)
+    m32 = Model(base.replace(compute_dtype="float32"), device=dev, seed=SEED)
+    hold = hold_decode(m32, f"{arch} at f32 compute")
+    del m32
+    free_card()
+    rows = FAMILY_STORE_ROWS[arch]
+    cfg = base.replace(retrieval=RetrievalConfig(enabled=True, k=SERVE_K, lam=0.25,
+                                                 datastore_size=rows))
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    pbytes = param_bytes(model)
+    log(f"[families] {arch}: {cfg.num_layers} layers (published {family_config(arch).num_layers}), "
+        f"d_model {cfg.d_model}, params {pbytes / 1e9:.2f} GB in {cfg.param_dtype}, card "
+        f"memory after init {torch.cuda.memory_allocated() / 1e9:.2f} GB (seeded init "
+        f"{time.perf_counter() - t0:.1f} s); compute {cfg.compute_dtype}")
+    stores = family_store(dev, cfg, rows)
+    datastores = {name: (None if name == "off" else stores[name]) for name in runs}
+    serving = run_serving(dev, model, datastores)
+    prof = profile_serving(model, stores["f32"], serving["f32"]["step_ms"],
+                           what=f"{arch}, f32 store")
+    times = time_family_retrieval(stores["f32"].keys, stores["int8"].keys,
+                                  stores["int8"].scale, f"{arch}'s {rows} x {cfg.d_model} store")
+    del model, stores, datastores
+    free_card()
+    return dict(layers=cfg.num_layers, param_bytes=pbytes, hold=hold, runs=serving,
+                profile=prof, times=times)
+
+
+def whisper_phase(dev, smi: str) -> dict:
+    """whisper-tiny whole: ``Model.prefill(tokens, frames=(8, 1500, 384))``
+    and 32 greedy ``decode_step``s on a flat 65,536 x 384 store (K6) and on
+    its int8 twin (K7), three captured steps' top-k held to the plain
+    version as phase 11 holds them; K6 / K7 once a step."""
+    import torch
+
+    from repro_torch.configs.base import RetrievalConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.serve import retrieval
+
+    arch = "whisper-tiny"
+    base = family_config(arch)
+    m32 = Model(base.replace(compute_dtype="float32"), device=dev, seed=SEED)
+    hold = hold_decode(m32, f"{arch} at f32 compute", b=2)
+    del m32
+    rows = FAMILY_STORE_ROWS[arch]
+    cfg = base.replace(retrieval=RetrievalConfig(enabled=True, k=SERVE_K, lam=0.25,
+                                                 datastore_size=rows))
+    model = Model(cfg, device=dev, seed=SEED)
+    stores = family_store(dev, cfg, rows)
+    toks, kw = family_inputs(cfg, 8, 8, SEED + 9, dev)
+    out = dict(hold=hold)
+    for name, ds in stores.items():
+        rec = _TopkRecorder(retrieval._local_topk, keep=(2, 15, 30))
+        retrieval._local_topk = rec
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(toks, max_len=64, **kw)
+            nxt = torch.argmax(logits[:, -1], -1)[:, None]
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            step_s = []
+            for p in range(8, 40):
+                t1 = time.perf_counter()
+                nxt = torch.argmax(model.decode_step(nxt, cache, p, datastore=ds), -1)[:, None]
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t1)
+            launches = ops.launch_counts()
+        finally:
+            retrieval._local_topk = rec.fn
+        kname = "knn_topk" if name == "f32" else "pairwise_sq_l2_int8"
+        require(launches[kname] == 32, f"{arch} {name}: {kname} launched {launches[kname]} times")
+        hold_captured(ds, rec.kept, SERVE_K, f"{arch} {name}")
+        step_ms = statistics.median(step_s) * 1e3
+        out[name] = dict(prefill_ms=t_pre * 1e3, step_ms=step_ms, launches=launches[kname],
+                         tok_per_s=8 * 32 / (t_pre + sum(step_s)))
+        log(f"[families] {arch} whole, frames (8, {cfg.encoder_seq}, {cfg.d_model}), retrieval "
+            f"{name} on {rows} x {cfg.d_model}: prefill {t_pre * 1e3:.1f} ms, 32 decode steps, "
+            f"median step {step_ms:.2f} ms, {out[name]['tok_per_s']:.1f} tok/s; {kname} "
+            f"{launches[kname]} launches; top-k of 3 captured steps held to the plain version")
+    out["times"] = time_family_retrieval(stores["f32"].keys, stores["int8"].keys,
+                                         stores["int8"].scale, f"{arch}'s {rows} x {cfg.d_model} store")
+    del model, stores
+    free_card()
+    return out
+
+
+def mixer_phase(dev) -> dict:
+    """The other architectures' mixers at f32 compute, decode held to the
+    forward: qwen3-moe-235b-a22b, granite-20b (MQA), deepseek-67b and
+    pixtral-12b (256 stub patches) at full width and depth 2; jamba at its
+    smoke widths (one 8-layer unit is ~77 GB in bf16); and jamba's Mamba
+    mixer alone at its full widths (a 64-token forward, then 8 one-token
+    steps from its state, held to the 72-token forward)."""
+    import torch
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.mamba import Mamba
+    from repro_torch.models.model import Model, param_bytes
+
+    out = {}
+    for arch in ("qwen3-moe-235b-a22b", "granite-20b", "deepseek-67b", "pixtral-12b"):
+        m = Model(family_config(arch, 2).replace(compute_dtype="float32"), device=dev, seed=SEED)
+        out[arch] = hold_decode(m, f"{arch} full width, depth 2, {param_bytes(m) / 1e9:.2f} GB "
+                                f"of {m.cfg.param_dtype} params")
+        del m
+        free_card()
+    arch = "jamba-1.5-large-398b"
+    m = Model(get_smoke_config(arch).replace(compute_dtype="float32"), device=dev, seed=SEED)
+    out[arch] = hold_decode(m, f"{arch} smoke widths ({m.cfg.num_layers} layers)", b=2)
+    del m
+    cfg = get_config(arch).replace(compute_dtype="float32")
+    mix = Mamba(cfg, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    mix.init_(g)
+    mix.cast(torch.float32)
+    x = torch.randn((1, 72, cfg.d_model), generator=g, device=dev)
+    full, _ = mix(x)
+    _, state = mix(x[:, :64])
+    steps = [mix.decode(x[:, p:p + 1], state) for p in range(64, 72)]
+    torch.cuda.synchronize()
+    got, want = torch.cat(steps, 1), full[:, 64:]
+    err = float((got - want).abs().max())
+    require(bool(((got - want).abs() <= HOLD_ATOL + HOLD_RTOL * want.abs()).all()),
+            f"jamba Mamba mixer: decode differs from the forward by {err:.3e}")
+    d_in = mix.dims[0]
+    out["jamba-mamba-mixer"] = dict(max_err=err, d_inner=d_in, scale=float(want.abs().max()))
+    log(f"[families] jamba's Mamba mixer alone at full widths (d_model {cfg.d_model}, d_inner "
+        f"{d_in}, d_state {mix.dims[1]}): 64-token forward + 8 decode steps held to the "
+        f"72-token forward, max |decode - forward| {err:.3e} (outputs up to "
+        f"{out['jamba-mamba-mixer']['scale']:.2f})")
+    del mix, state, x, full
+    free_card()
+    return out
+
+
+def families_phase(dev, smi: str) -> dict:
+    """Phase 18: the model families on the card."""
+    t0 = time.perf_counter()
+    out = dict(card_vs_cpu=card_vs_cpu(dev))
+    out["deepseek-v2-236b"] = family_serving(dev, "deepseek-v2-236b", 3,
+                                             ("off", "f32", "int8"), smi)
+    out["rwkv6-3b"] = family_serving(dev, "rwkv6-3b", None, ("f32", "int8"), smi)
+    out["whisper-tiny"] = whisper_phase(dev, smi)
+    out["mixers"] = mixer_phase(dev)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[families] phase 18 {out['seconds']:.1f} s ({smi})")
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3351,8 +3727,9 @@ def main(argv=None) -> int:
         ov["builds"][("Blob", "vbm")]["idx"][False], smi)
     layout = layout_phase(dev, ward_card, ov["builds"][("Tracking", "vbm")]["idx"][False],
                           model, serve_state, store, smi)
-    del store, serve_state
+    del store, serve_state, model
     torch.cuda.empty_cache()
+    families = families_phase(dev, smi)
 
     # how much of each search's wall time its one K1 launch accounts for
     walls = {(n, qz, bm): w for n, qz, bm, _, w in sl["results"]}
@@ -3406,7 +3783,7 @@ def main(argv=None) -> int:
                       eps_data=eps_data, builds=builds, searches=ov["searches"],
                       dbscan=db, profile=prof_rows, serve=sv, stream=stream,
                       ward_stream=ward_stream, blob_obm=blob_obm, forest_serve=forest_serve,
-                      persist_explain=persist_explain, layout=layout,
+                      persist_explain=persist_explain, layout=layout, families=families,
                       nvcc_s=t_build, seconds=time.perf_counter() - t_start)
         out = Path(args.json)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -1,11 +1,9 @@
-"""Architecture registry of the port.
+"""Architecture registry of the port: one module per architecture of the
+JAX package's model zoo, each a copy of its ``configs/*.py``.
 
 ``get_config(arch_id)`` returns the full published configuration;
-``get_smoke_config(arch_id)`` a reduced same-family one for CPU tests.  The
-port runs the dense GQA architectures so far (qwen2-0.5b, smollm-135m);
-every other architecture the JAX package knows raises ``NotImplementedError``
-until the LM-substrate slice ports its modules (MoE, MLA, Mamba, RWKV,
-encoder-decoder, vision stub).
+``get_smoke_config(arch_id)`` a reduced same-family one for CPU tests
+(small widths, layers and experts; the same code paths).
 """
 from __future__ import annotations
 
@@ -33,20 +31,12 @@ ARCH_IDS = [
     "qwen3-moe-235b-a22b",
 ]
 
-PORTED = {
-    "qwen2-0.5b": "repro_torch.configs.qwen2_0_5b",
-    "smollm-135m": "repro_torch.configs.smollm_135m",
-}
+PORTED = {a: "repro_torch.configs." + a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
 
 def _module(arch: str):
-    if arch not in ARCH_IDS:
-        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     if arch not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: its modules come with the "
-            f"LM-substrate slice; ported so far: {sorted(PORTED)}"
-        )
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     return importlib.import_module(PORTED[arch])
 
 

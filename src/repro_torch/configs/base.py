@@ -1,8 +1,8 @@
 """Model / run configuration schema: the port's own copy of the JAX package's
 ``configs/base.py`` (plain frozen dataclasses, the same fields and defaults).
-
-The serving slice runs the dense GQA family; the MoE, MLA, SSM and RWKV
-sub-configs are carried so a configuration reads the same in both packages.
+The sharding and training fields (``remat``, ``attn_tp``, ``grad_accum``,
+``optimizer``, ...) are carried so a configuration reads the same in both
+packages; the serving path does not read them.
 """
 from __future__ import annotations
 

@@ -2,6 +2,11 @@
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --full-size-model [--quantized-datastore]
 
+``--arch`` takes every decoder-only architecture of the zoo (dense, MoE,
+MLA, RWKV, the Mamba hybrid, the vision stub without patches); the engine
+prefills tokens only, as the JAX package's does, so whisper-tiny (an
+encoder-decoder that needs frames) is refused here and runs through
+``Model.prefill(tokens, frames=...)`` and ``Model.decode_step``.
 Random weights from seed 0 (the published checkpoint is not in the
 repository), a flat datastore of 8,192 keys drawn on the device from
 ``embedding_datastore``'s recipe, and ``--requests`` prompts of 8 tokens,
@@ -16,7 +21,7 @@ import time
 import numpy as np
 
 from repro_torch.device import resolve_device
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs.base import RetrievalConfig
 from repro_torch.data.synthetic import embedding_datastore_on
 from repro_torch.models.model import Model
@@ -26,7 +31,7 @@ from repro_torch.serve.retrieval import build_flat_datastore
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=ARCH_IDS)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=64)
@@ -40,6 +45,9 @@ def main(argv=None) -> None:
 
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke_model else get_config(args.arch)
+    if cfg.family == "encdec":
+        ap.error(f"{args.arch} is an encoder-decoder: the engine prefills tokens only; "
+                 "run it through Model.prefill(tokens, frames=...) and Model.decode_step")
     if not args.no_retrieval:
         cfg = cfg.replace(retrieval=RetrievalConfig(
             enabled=True, k=8, lam=0.25, datastore_size=8192,

@@ -4,10 +4,14 @@
 ``repro.models.model.Model.init`` as numpy arrays (a test makes it with
 ``jax.tree.map(np.asarray, model.init(key))``; this module imports no JAX)
 and returns the port's ``Model`` holding the same numbers.  The JAX stages
-hold each layer weight with a leading layer axis when the stage is scanned
-(``stack_init``) and as a list of per-layer trees when it is not; both are
-unstacked here into the per-layer modules.  The layouts themselves match
-(wq (D, H, hd), wo (H, hd, D), ...), so every array is copied as it is.
+hold each sub-layer weight with a leading repeat axis when the stage is
+scanned (``stack_init``) and as a list of per-unit trees when it is not;
+each unit is a dict ``{"u0": ..., "u<j>": ...}`` of its sub-layers (Jamba's
+unit has eight).  Both are unstacked here, unit by unit, into the port's
+per-sub-layer modules, whose attribute paths are the JAX tree's key paths
+(``attn.wq``, ``moe.shared.w_in``, ``tm.lora_b``, ...).  The layouts match,
+so every array is copied as it is, into the parameter's own dtype (a bf16
+array widened to f32 on the way is exact).
 """
 from __future__ import annotations
 
@@ -15,30 +19,44 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, num_params
+from repro_torch.models.transformer import Stage, encoder_stage
 
-_ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
-_MLP = ("w_in", "w_gate", "w_out")
+_TOP = ("embed", "final_norm", "lm_head", "final_norm_bias", "frame_proj", "enc_norm",
+        "enc_norm_bias", "patch_proj")
 
 
-def _layer_trees(stage_tree, n: int) -> list[dict]:
-    """Per-layer ``{"u0": ...}`` trees of one stage, scanned or not."""
+def _sublayer_trees(stage: Stage, stage_tree) -> list[dict]:
+    """The per-sub-layer trees of one stage, in the port's layer order."""
     if isinstance(stage_tree, (list, tuple)):
-        return list(stage_tree)
+        units = list(stage_tree)
+    else:
+        def take(t, i):
+            if isinstance(t, dict):
+                return {k: take(v, i) for k, v in t.items()}
+            return np.asarray(t)[i]
 
-    def take(t, i):
-        if isinstance(t, dict):
-            return {k: take(v, i) for k, v in t.items()}
-        return np.asarray(t)[i]
-
-    return [take(stage_tree, i) for i in range(n)]
+        units = [take(stage_tree, i) for i in range(stage.n)]
+    return [u[f"u{j}"] for u in units for j in range(len(stage.unit))]
 
 
-def _copy(dst: torch.Tensor, src, name: str) -> None:
+def _copy(dst: torch.Tensor, src, name: str) -> int:
     a = np.array(src, np.float32)  # a writable copy
     if tuple(a.shape) != tuple(dst.shape):
         raise ValueError(f"{name}: JAX shape {a.shape} does not fit {tuple(dst.shape)}")
     dst.copy_(torch.from_numpy(a))
+    return a.size
+
+
+def _load(module, tree: dict, name: str) -> int:
+    """Copy every leaf of ``tree`` into ``module`` at the same key path."""
+    n = 0
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            n += _load(getattr(module, key), val, f"{name}.{key}")
+        else:
+            n += _copy(getattr(module, key), val, f"{name}.{key}")
+    return n
 
 
 @torch.no_grad()
@@ -46,22 +64,17 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> Model:
     """The port's ``Model`` of ``cfg`` on ``device`` (``cuda`` unless named)
     holding the weights of the JAX param tree ``tree`` (numpy leaves)."""
     model = Model(cfg, device=device, seed=None)
-    _copy(model.embed, tree["embed"], "embed")
-    _copy(model.final_norm, tree["final_norm"], "final_norm")
-    if model.lm_head is not None:
-        _copy(model.lm_head, tree["lm_head"], "lm_head")
-    layers = []
-    for stage, st_tree in zip(model.stages, tree["stages"]):
-        layers += [t["u0"] for t in _layer_trees(st_tree, stage.n)]
-    if len(layers) != len(model.layers):
-        raise ValueError(f"JAX tree has {len(layers)} layers, config {len(model.layers)}")
-    for i, (dst, src) in enumerate(zip(model.layers, layers)):
-        _copy(dst.ln1, src["ln1"], f"layer {i} ln1")
-        _copy(dst.ln2, src["ln2"], f"layer {i} ln2")
-        for name in _ATTN:
-            if name in src["attn"]:
-                _copy(getattr(dst.attn, name), src["attn"][name], f"layer {i} attn.{name}")
-        for name in _MLP:
-            _copy(getattr(dst, name), src["mlp"][name], f"layer {i} mlp.{name}")
+    n = sum(_copy(getattr(model, k), tree[k], k) for k in _TOP if k in tree)
+    for layers, stages, trees in (
+        (model.layers, model.stages, tree["stages"]),
+        (getattr(model, "enc", []), [encoder_stage(cfg)], [tree.get("enc")]),
+    ):
+        subs = [s for st, t in zip(stages, trees) if t is not None
+                for s in _sublayer_trees(st, t)]
+        if len(subs) != len(layers):
+            raise ValueError(f"JAX tree has {len(subs)} sub-layers, config {len(layers)}")
+        n += sum(_load(dst, src, f"layer {i}") for i, (dst, src) in enumerate(zip(layers, subs)))
+    if n != num_params(model):
+        raise ValueError(f"JAX tree filled {n} of the port's {num_params(model)} parameters")
     model.cast_weights()
     return model

@@ -1,16 +1,18 @@
-"""Shared model layers of the port: RMSNorm, RoPE, the SwiGLU MLP, prefill
-(online-softmax) and decode attention, the embedding and the weight init.
+"""Shared model layers of the port: RMSNorm and LayerNorm, RoPE and the
+sinusoidal tables, the SwiGLU and GELU MLPs, prefill (online-softmax) and
+decode attention, the embedding and the weight init.
 
 Each function mirrors the JAX package's ``repro/models/layers.py`` line for
-line in plain tensor ops: params may be f32 and are used in the compute
-dtype; norms, softmax and attention accumulate in f32.  The layouts are the
-JAX package's (activations (B, S, D), heads (B, S, H, hd), caches
-(B, S, KV, hd)), so the tests compare like with like.
+line in plain tensor ops: params are held in ``cfg.param_dtype`` (norms in
+f32) and used in the compute dtype; norms, softmax and attention accumulate
+in f32.  The layouts are the JAX package's (activations (B, S, D), heads
+(B, S, H, hd), caches (B, S, KV, hd)), so the tests compare like with like.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 Tensor = torch.Tensor
 
@@ -21,6 +23,11 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torc
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def param(shape, dtype: torch.dtype, device) -> nn.Parameter:
+    """An uninitialised, frozen parameter (the port serves; nothing trains)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
 
 # ---------------------------------------------------------------------------
@@ -55,6 +62,16 @@ def rms_norm(x: Tensor, scale: Tensor, eps: float) -> Tensor:
     return (nrm * (1.0 + scale.float())).to(dt)
 
 
+def layer_norm(x: Tensor, scale: Tensor, bias: Tensor, eps: float) -> Tensor:
+    """LayerNorm in f32 with the ``1 + scale`` weight and a bias (whisper)."""
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * (1.0 + scale.float()) + bias.float()).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -80,8 +97,26 @@ def rotate(x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
     return (xf * cos + torch.cat([x2, x1], -1) * sin).to(x.dtype)
 
 
+def _inv_timescales(dim: int, device) -> Tensor:
+    ar = torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+    return torch.exp(-torch.log(torch.tensor(10000.0, device=device)) * ar / dim)
+
+
+def sinusoidal_positions(seq: int, dim: int, device=None) -> Tensor:
+    """Whisper-style fixed sinusoidal table (seq, dim) in f32: [sin, cos]."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    ang = pos * _inv_timescales(dim, device)[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+def sinusoidal_at(positions: Tensor, dim: int) -> Tensor:
+    """The sinusoidal embedding at integer ``positions`` (B, S) -> (B, S, dim)."""
+    ang = positions.float()[..., None] * _inv_timescales(dim, positions.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 
 
@@ -91,6 +126,66 @@ def mlp_swiglu(w_gate_in: Tensor, w_out: Tensor, x: Tensor) -> Tensor:
     dot product); the weights already in x's dtype."""
     gate, inp = torch.chunk(x @ w_gate_in, 2, dim=-1)
     return (F.silu(gate) * inp) @ w_out
+
+
+def mlp_gelu(w_in: Tensor, b_in: Tensor, w_out: Tensor, b_out: Tensor, x: Tensor) -> Tensor:
+    """gelu(x W_in + b_in) W_out + b_out (whisper), with ``jax.nn.gelu``'s
+    default tanh approximation; the weights already in x's dtype."""
+    h = F.gelu(x @ w_in + b_in, approximate="tanh")
+    return h @ w_out + b_out
+
+
+class SwiGLU(nn.Module):
+    """The SwiGLU MLP's weights in ``dtype``: W_gate and W_in side by side
+    in one (D, 2F) parameter (one product for both); ``w_gate`` and ``w_in``
+    are views of it in the JAX package's layout.  ``cast(dtype)`` keeps the
+    compute-dtype weights: the parameters themselves when the dtypes agree,
+    else one cast copy."""
+
+    def __init__(self, d: int, f: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.f = f
+        self.w_gate_in = param((d, 2 * f), dtype, device)
+        self.w_out = param((f, d), dtype, device)
+        self.c: dict[str, Tensor] = {}
+
+    w_gate = property(lambda self: self.w_gate_in[:, :self.f])
+    w_in = property(lambda self: self.w_gate_in[:, self.f:])
+
+    def init_(self, g: torch.Generator) -> None:
+        for w in (self.w_in, self.w_gate, self.w_out):
+            dense_init_(w, g)
+
+    def cast(self, dtype: torch.dtype) -> None:
+        self.c = {"w_gate_in": self.w_gate_in.to(dtype), "w_out": self.w_out.to(dtype)}
+
+    def forward(self, x: Tensor) -> Tensor:
+        return mlp_swiglu(self.c["w_gate_in"], self.c["w_out"], x)
+
+
+class GeluMLP(nn.Module):
+    """Whisper's GELU MLP: w_in (D, F), b_in, w_out (F, D), b_out in
+    ``dtype``."""
+
+    NAMES = ("w_in", "b_in", "w_out", "b_out")
+
+    def __init__(self, d: int, f: int, dtype: torch.dtype, device=None):
+        super().__init__()
+        for name, shape in zip(self.NAMES, ((d, f), (f,), (f, d), (d,))):
+            setattr(self, name, param(shape, dtype, device))
+        self.c: dict[str, Tensor] = {}
+
+    def init_(self, g: torch.Generator) -> None:
+        dense_init_(self.w_in, g)
+        self.b_in.zero_()
+        dense_init_(self.w_out, g)
+        self.b_out.zero_()
+
+    def cast(self, dtype: torch.dtype) -> None:
+        self.c = {n: getattr(self, n).to(dtype) for n in self.NAMES}
+
+    def forward(self, x: Tensor) -> Tensor:
+        return mlp_gelu(*(self.c[n] for n in self.NAMES), x)
 
 
 # ---------------------------------------------------------------------------
@@ -109,8 +204,9 @@ def chunked_attention(
 ) -> Tensor:
     """Online-softmax (flash-style) attention over KV blocks.
 
-    q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) with H % KV == 0 (GQA groups
-    of H / KV query heads per KV head).  The recurrence over blocks of
+    q, k: (B, Sq|Skv, H|KV, hd); v: (B, Skv, KV, hd_v) with H % KV == 0
+    (GQA groups of H / KV query heads per KV head; MLA's v is narrower than
+    its q/k heads, which the JAX package pads with zeros and slices off).  The recurrence over blocks of
     ``kv_block`` keys carries (max, denominator, accumulator) in f32, as the
     JAX package's ``lax.scan`` does; ``q_offset`` is the absolute position
     of q[:, 0] for the causal mask.  Padding keys are masked, not computed.
@@ -126,7 +222,7 @@ def chunked_attention(
 
     m = torch.full((b, sq, kv, groups), NEG_INF, dtype=torch.float32, device=q.device)
     denom = torch.zeros((b, sq, kv, groups), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, sq, kv, groups, hd), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, kv, groups, v.shape[-1]), dtype=torch.float32, device=q.device)
     for lo in range(0, skv, kv_block):
         kb = kf[:, lo:lo + kv_block]
         vb = vf[:, lo:lo + kv_block]
@@ -141,7 +237,7 @@ def chunked_attention(
         acc = acc * corr[..., None] + torch.einsum("bsvgk,bkvh->bsvgh", p, vb)
         m = m_new
     out = acc / torch.clamp_min(denom, 1e-30)[..., None]
-    return out.reshape(b, sq, h, hd).to(q.dtype)
+    return out.reshape(b, sq, h, -1).to(q.dtype)
 
 
 def decode_mask(cur_len: Tensor, s: int) -> Tensor:

@@ -1,49 +1,68 @@
-"""The port's LM: embedding -> dense GQA layers -> tied or untied head, with
+"""The port's LM for every architecture family: embedding (and the whisper
+encoder or the vision stub) -> the planned layers -> the head, with
 teacher-forced forward, prefill and decode entry points and the kNN-LM
 retrieval hook at the head during decode (the JAX package's
-``repro/models/model.py`` for the dense families).
+``repro/models/model.py``).
 
     model = Model(cfg)                          # seeded random weights, on "cuda"
+    logits, aux, _ = model.forward(tokens)      # aux: summed router losses
     logits, cache = model.prefill(tokens, max_len=256)
     logits = model.decode_step(nxt, cache, pos, datastore=ds)
 
-Parameters are f32 (``cfg.param_dtype``); the layers compute in
-``cfg.compute_dtype`` from copies cast once at init or load
-(``cast_weights``).  The head is an f32 product with TF32 off, as in JAX.
+Weights are held in ``cfg.param_dtype`` as the JAX package holds them
+(norms, the router and the SSM/RWKV vectors in f32); the layers compute in
+``cfg.compute_dtype`` from the parameters themselves when the dtypes agree,
+else from copies cast once at init or load (``cast_weights``).  The head is
+an f32 product with TF32 off, as in JAX.
 
-The KV cache is a list with one ``{"k", "v"}`` dict per layer, each
-(B, max_len, KV, hd) in the compute dtype with the batch on axis 0: an
-explicit layout, so a serving engine merges a slot's lane without guessing
-axes.  ``decode_step`` writes the new position into it in place.
+The cache is a list with one flat dict per sub-layer, the batch on axis 0 of
+every leaf: ``{"k", "v"}`` (B, max_len, KV, hd) for GQA, ``{"c_kv",
+"k_rope"}`` (B, max_len, lora | rope) for MLA, ``{"conv", "ssm"}`` for
+Mamba, ``{"tm_shift", "tm_wkv", "cm_shift"}`` for RWKV and ``{"k", "v",
+"ck", "cv"}`` for whisper's decoder; attention leaves in the compute dtype,
+the SSM/WKV states in f32.  ``decode_step`` updates it in place.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import no_tf32
 from repro_torch.models.attention import DecodeStep
 from repro_torch.models.layers import (
     dense_init_,
     dtype_of,
     embedding_init_,
+    layer_norm,
+    param,
     rms_norm,
     rope_tables,
+    sinusoidal_at,
+    sinusoidal_positions,
 )
-from repro_torch.models.transformer import DenseLayer, Stage, plan_stages
+from repro_torch.models.transformer import (
+    Seq,
+    Stage,
+    cast_layer,
+    encoder_stage,
+    init_layer_,
+    plan_stages,
+    stage_layers,
+)
 
 Tensor = torch.Tensor
 Cache = list[dict[str, Tensor]]
 
 
 class Model(nn.Module):
-    """A dense GQA decoder LM of configuration ``cfg`` on ``device``
-    (``cuda`` unless the caller names one; without CUDA an unnamed device
-    raises).  ``seed`` draws the JAX package's init distributions from a
-    ``torch.Generator`` (other numbers than ``jax.random``); ``seed=None``
-    leaves the weights unset for ``params_from_jax`` to fill."""
+    """An LM of configuration ``cfg`` (any family of the JAX package's zoo)
+    on ``device`` (``cuda`` unless the caller names one; without CUDA an
+    unnamed device raises).  ``seed`` draws the JAX package's init
+    distributions from a ``torch.Generator`` (other numbers than
+    ``jax.random``); ``seed=None`` leaves the weights unset for
+    ``params_from_jax`` to fill."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, seed: int | None = 0):
         super().__init__()
@@ -54,105 +73,160 @@ class Model(nn.Module):
         self.cfg = cfg
         self.device = dev
         self.cdt = dtype_of(cfg.compute_dtype)
-        f32 = dict(dtype=torch.float32, device=dev)
-        self.embed = nn.Parameter(
-            torch.empty((cfg.padded_vocab, cfg.d_model), **f32), requires_grad=False
-        )
-        self.final_norm = nn.Parameter(torch.zeros((cfg.d_model,), **f32), requires_grad=False)
-        self.lm_head = None
-        if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(
-                torch.empty((cfg.d_model, cfg.padded_vocab), **f32), requires_grad=False
-            )
-        self.layers = nn.ModuleList([DenseLayer(cfg, dev) for _ in range(cfg.num_layers)])
+        d, v = cfg.d_model, cfg.padded_vocab
+        pdt, f32 = dtype_of(cfg.param_dtype), torch.float32
+        self.embed = param((v, d), pdt, dev)
+        self.final_norm = param((d,), f32, dev)
+        self.lm_head = None if cfg.tie_embeddings else param((d, v), pdt, dev)
+        if cfg.family == "encdec":
+            self.final_norm_bias = param((d,), f32, dev)
+            self.frame_proj = param((d, d), pdt, dev)
+            self.enc = stage_layers([encoder_stage(cfg)], cfg, dev)
+            self.enc_norm = param((d,), f32, dev)
+            self.enc_norm_bias = param((d,), f32, dev)
+        if cfg.frontend == "vision_stub":
+            self.patch_proj = param((d, d), pdt, dev)
+        self.layers = stage_layers(self.stages, cfg, dev)
+        # RoPE width: MLA rotates its rope slice; whisper and RWKV nothing
+        self.rope_dim = (cfg.mla.rope_head_dim if cfg.mla is not None
+                         else 0 if cfg.family in ("encdec", "ssm") else cfg.resolved_head_dim)
         if seed is not None:
             self.init_weights(seed)
+
+    def _all_layers(self):
+        return list(self.layers) + list(getattr(self, "enc", []))
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:
         g = torch.Generator(device=self.device)
         g.manual_seed(seed)
         embedding_init_(self.embed, g)
-        self.final_norm.zero_()
         if self.lm_head is not None:
             dense_init_(self.lm_head, g)
-        for layer in self.layers:
-            layer.init_(g)
+        for name in ("frame_proj", "patch_proj"):
+            if hasattr(self, name):
+                dense_init_(getattr(self, name), g)
+        for name in ("final_norm", "final_norm_bias", "enc_norm", "enc_norm_bias"):
+            if hasattr(self, name):
+                getattr(self, name).zero_()
+        for layer in self._all_layers():
+            init_layer_(layer, g)
         self.cast_weights()
 
     def cast_weights(self) -> None:
-        """(Re)make the compute-dtype copies of the layer weights; call after
+        """(Re)make the compute-dtype weights of the layers; call after
         changing parameters in place."""
-        for layer in self.layers:
-            layer.cast(self.cdt)
+        for layer in self._all_layers():
+            cast_layer(layer, self.cdt)
 
     # ------------------------------------------------------------- helpers
-    def _embed_tokens(self, tokens: Tensor) -> Tensor:
-        return self.embed[tokens.to(self.device).long()].to(self.cdt)
+    def _embed_tokens(self, tokens: Tensor, pos0: Tensor | None = None) -> Tensor:
+        x = self.embed[tokens.to(self.device).long()].to(self.cdt)
+        if self.cfg.family == "encdec":
+            # whisper: sinusoidal positions at each row's own offset
+            b, s = tokens.shape
+            positions = torch.arange(s, device=self.device).expand(b, s)
+            if pos0 is not None:  # (B,) decode positions
+                positions = positions + pos0[:, None]
+            x = x + sinusoidal_at(positions, self.cfg.d_model).to(self.cdt)
+        return x
+
+    def _frontend(self, x: Tensor, patches: Tensor | None) -> Tensor:
+        """vision stub: precomputed patch embeddings replace the leading
+        positions."""
+        if self.cfg.frontend != "vision_stub" or patches is None:
+            return x
+        p = torch.as_tensor(patches).to(self.device, self.cdt) @ self.patch_proj.to(self.cdt)
+        return torch.cat([p, x[:, p.shape[1]:]], 1)
+
+    def _encode(self, frames: Tensor) -> Tensor:
+        """audio stub: precomputed frame embeddings -> the encoder layers."""
+        c = self.cfg
+        x = torch.as_tensor(frames).to(self.device, self.cdt) @ self.frame_proj.to(self.cdt)
+        x = x + sinusoidal_positions(x.shape[1], c.d_model, self.device)[None].to(self.cdt)
+        aux = self._zero_aux()
+        for layer in self.enc:
+            x, _ = layer(x, Seq(rope=(None, None)), aux)
+        return layer_norm(x, self.enc_norm, self.enc_norm_bias, c.norm_eps)
 
     def _head(self, x: Tensor) -> Tensor:
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps).float()
+        c = self.cfg
+        if c.family == "encdec":
+            x = layer_norm(x, self.final_norm, self.final_norm_bias, c.norm_eps)
+        else:
+            x = rms_norm(x, self.final_norm, c.norm_eps)
+        x = x.float()
         if self.lm_head is None:
-            return torch.einsum("bsd,vd->bsv", x, self.embed)
-        return x @ self.lm_head
+            return torch.einsum("bsd,vd->bsv", x, self.embed.float())
+        return x @ self.lm_head.float()
+
+    def _zero_aux(self) -> dict[str, Tensor]:
+        z = torch.zeros((), dtype=torch.float32, device=self.device)
+        return {"router_aux": z, "router_z": z}
+
+    def _rope(self, positions: Tensor):
+        if not self.rope_dim:
+            return None, None
+        return rope_tables(positions, self.rope_dim, self.cfg.rope_theta)
 
     # ------------------------------------------------------------- forward
     @torch.no_grad()
-    def forward(self, tokens: Tensor, *, collect_cache: bool = False):
-        """Teacher-forced forward over (B, S) tokens.  Returns (logits
-        (B, S, V) f32, per-layer (k, v) or None); the JAX package's
-        ``forward`` also returns router losses, which dense layers lack."""
+    def forward(self, tokens: Tensor, *, frames: Tensor | None = None,
+                patches: Tensor | None = None, collect_cache: bool = False):
+        """Teacher-forced forward over (B, S) tokens (``frames`` (B, S_enc, D)
+        for whisper, ``patches`` (B, P, D) for the vision stub).  Returns
+        (logits (B, S, V) f32, {"router_aux", "router_z"} summed over the
+        layers (zero without MoE), per-layer caches or None)."""
         tokens = torch.as_tensor(tokens)
         b, s = tokens.shape
-        x = self._embed_tokens(tokens)
+        x = self._frontend(self._embed_tokens(tokens), patches)
+        enc = self._encode(frames) if self.cfg.family == "encdec" else None
         positions = torch.arange(s, device=self.device).expand(b, s)
-        rope = rope_tables(positions, self.cfg.resolved_head_dim, self.cfg.rope_theta)
+        seq = Seq(rope=self._rope(positions), enc=enc)
+        aux = self._zero_aux()
         caches = []
         for layer in self.layers:
-            x, kv = layer(x, rope)
-            caches.append(kv)
-        return self._head(x), (caches if collect_cache else None)
+            x, cache = layer(x, seq, aux)
+            caches.append(cache)
+        return self._head(x), aux, (caches if collect_cache else None)
 
     # ------------------------------------------------------------- prefill
     @torch.no_grad()
-    def prefill(self, tokens: Tensor, *, max_len: int) -> tuple[Tensor, Cache]:
+    def prefill(self, tokens: Tensor, *, frames: Tensor | None = None,
+                patches: Tensor | None = None, max_len: int) -> tuple[Tensor, Cache]:
         """Process (B, S) prompt tokens; return (logits (B, S, V), a cache of
-        ``max_len`` positions holding the prompt's K/V, zeros after it),
-        ready for ``decode_step`` at pos = S."""
+        ``max_len`` positions holding the prompt's, zeros after it, and the
+        final SSM/RWKV states), ready for ``decode_step`` at pos = S."""
         tokens = torch.as_tensor(tokens)
-        logits, kvs = self.forward(tokens, collect_cache=True)
+        logits, _, got = self.forward(tokens, frames=frames, patches=patches,
+                                      collect_cache=True)
         cache = self.init_cache(tokens.shape[0], max_len)
-        s = tokens.shape[1]
-        for lane, (k, v) in zip(cache, kvs):
-            lane["k"][:, :s] = k
-            lane["v"][:, :s] = v
+        for lane, new in zip(cache, got):
+            for name, t in new.items():  # the JAX package's pad-to-template
+                lane[name][tuple(slice(0, n) for n in t.shape)] = t
         return logits, cache
 
     # -------------------------------------------------------------- decode
     def init_cache(self, batch_size: int, max_len: int) -> Cache:
-        c = self.cfg
-        shape = (batch_size, max_len, c.num_kv_heads, c.resolved_head_dim)
-        return [
-            {"k": torch.zeros(shape, dtype=self.cdt, device=self.device),
-             "v": torch.zeros(shape, dtype=self.cdt, device=self.device)}
-            for _ in self.layers
-        ]
+        return [layer.init_cache(batch_size, max_len, self.cdt, self.device)
+                for layer in self.layers]
 
     @torch.no_grad()
     def decode_step(self, tokens: Tensor, cache: Cache, pos, *, datastore=None) -> Tensor:
         """One decode step of (B, 1) tokens at ``pos`` (a scalar, or a (B,)
-        vector: every row at its own cache position).  Writes the step's K/V
-        into ``cache`` in place and returns the (B, V) logits.
+        vector: every row at its own cache position).  Updates ``cache`` in
+        place and returns the (B, V) logits.
 
         With a ``datastore`` and ``cfg.retrieval.enabled``, the output is the
         kNN-LM interpolation ``log(lam p_knn + (1 - lam) p_lm)``, the
         pre-head hidden state querying the datastore
         (``repro_torch.serve.retrieval.knn_interpolate``)."""
         tokens = torch.as_tensor(tokens)
-        pos = torch.as_tensor(pos, device=self.device).to(torch.int64).reshape(-1)
-        step = DecodeStep(pos.expand(tokens.shape[0]), cache[0]["k"].shape[1],
-                          self.cfg.resolved_head_dim, self.cfg.rope_theta)
-        x = self._embed_tokens(tokens)
+        b = tokens.shape[0]
+        pos = torch.as_tensor(pos, device=self.device).to(torch.int64).reshape(-1).expand(b)
+        max_len = next((lane[n].shape[1] for lane in cache for n in ("k", "c_kv") if n in lane), 1)
+        step = DecodeStep(pos, max_len, self.rope_dim, self.cfg.rope_theta)
+        x = self._embed_tokens(tokens, pos)
         for layer, lane in zip(self.layers, cache):
             x = layer.decode(x, lane, step)
         logits = self._head(x)[:, 0, :]
@@ -165,3 +239,8 @@ class Model(nn.Module):
 
 def num_params(model: Model) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def param_bytes(model: Model) -> int:
+    """Bytes the parameters hold (each stored once, in its own dtype)."""
+    return sum(p.numel() * p.element_size() for p in model.parameters())

@@ -4,6 +4,10 @@ deadlines with admission control + load shedding — with kNN-LM retrieval
 package's ``repro/serve/engine.py``; it runs eagerly (no ``jit``: each step
 launches its kernels, the retrieval kernels K6/K7 among them, directly).
 
+Every decoder-only family of the model zoo serves here (dense, MoE, MLA,
+RWKV, the Mamba hybrid); the engine prefills tokens only, as the JAX
+package's does.
+
 The traffic model:
 
 * **continuous batching** — a fixed decode batch of ``num_slots``;
@@ -221,7 +225,10 @@ class ServeEngine:
         logits, one = self.model.prefill(
             torch.from_numpy(prompt[None, :]).to(self.device), max_len=self.max_len
         )
-        for lane, new in zip(self.cache, one):  # batch is axis 0 of every leaf
+        # batch is axis 0 of every leaf of every sub-layer's flat dict: K/V
+        # and MLA's compressed rows (padded to max_len by the prefill) and
+        # the Mamba / RWKV states alike
+        for lane, new in zip(self.cache, one):
             for name, leaf in lane.items():
                 leaf[slot] = new[name][0]
         return int(torch.argmax(logits[0, -1]))

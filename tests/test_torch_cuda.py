@@ -640,3 +640,64 @@ def test_layouts_on_the_card(dev, blob_data, kind):
         ref_res = single.search(q, k=10, beam=beam)
         np.testing.assert_array_equal(res.dists, ref_res.dists)
         np.testing.assert_array_equal(res.ids, ref_res.ids)
+
+
+FAMILY_ARCHS = ["whisper-tiny", "pixtral-12b", "jamba-1.5-large-398b", "granite-20b",
+                "deepseek-67b", "rwkv6-3b", "deepseek-v2-236b", "qwen3-moe-235b-a22b"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_model_families_on_the_card(dev, arch):
+    """Each family's smoke configuration at f32 compute on the card against
+    the same seeded weights on the CPU: forward logits and router losses,
+    prefill and two decode steps, to 1e-4 of the logits' scale (cuBLAS and
+    the CPU's f32 products in other orders)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+    host = Model(cfg, device="cpu", seed=3)
+    card = Model(cfg, device=dev, seed=None)
+    card.load_state_dict(host.state_dict())
+    card.cast_weights()
+    g = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), generator=g)
+    kw = {}
+    if cfg.family == "encdec":
+        kw["frames"] = 0.1 * torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=g)
+    if cfg.frontend == "vision_stub":
+        kw["patches"] = 0.1 * torch.randn((2, cfg.num_stub_patches, cfg.d_model), generator=g)
+    out = {}
+    for name, m in (("cpu", host), ("card", card)):
+        mk = {k: v.to(m.device) for k, v in kw.items()}
+        logits, aux, _ = m.forward(toks.to(m.device), **mk)
+        _, cache = m.prefill(toks[:, :6].to(m.device), max_len=12, **mk)
+        steps = [m.decode_step(toks[:, p:p + 1].to(m.device), cache, p) for p in (6, 7)]
+        out[name] = [t.cpu() for t in (logits, *steps, aux["router_aux"], aux["router_z"])]
+    for got, want in zip(out["card"], out["cpu"]):
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=tol)
+
+
+def test_moe_capacity_drops_on_the_card(dev):
+    """Forced drops (capacity factor 0.5): the card keeps and drops the
+    assignments the CPU does, and its MoE output equals the CPU's."""
+    from repro_torch.configs.base import ModelConfig, MoEConfig
+    from repro_torch.models import moe
+
+    cfg = ModelConfig(name="t", family="moe", num_layers=1, d_model=16, num_heads=2,
+                      num_kv_heads=2, d_ff=32, vocab_size=64,
+                      moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=16,
+                                    capacity_factor=0.5, num_shared=1))
+    host = moe.MoE(cfg, "cpu")
+    host.init_(torch.Generator().manual_seed(0))
+    host.cast(torch.float32)
+    card = moe.MoE(cfg, dev)
+    card.load_state_dict(host.state_dict())
+    card.cast(torch.float32)
+    x = torch.randn((2, 16, 16), generator=torch.Generator().manual_seed(1))
+    top_e, _, _ = moe.route(x.reshape(32, 16), host.router, 2)
+    _, _, row = moe.dispatch(top_e, 4, 8)
+    _, _, row_card = moe.dispatch(top_e.to(dev), 4, 8)
+    assert (row < 0).any() and torch.equal(row_card.cpu(), row)
+    torch.testing.assert_close(card(x.to(dev))[0].cpu(), host(x)[0], rtol=1e-5, atol=1e-5)

@@ -37,7 +37,14 @@ def test_import_loads_no_jax_and_no_repro():
               "repro_torch.distributed.context", "repro_torch.distributed.knn_island",
               "repro_torch.distributed.estimator", "repro_torch.distributed.router",
               "repro_torch.distributed.router.table", "repro_torch.distributed.router.cost",
-              "repro_torch.distributed.router.exec"):
+              "repro_torch.distributed.router.exec", "repro_torch.models.moe",
+              "repro_torch.models.mamba", "repro_torch.models.rwkv",
+              "repro_torch.models.transformer", "repro_torch.models.convert",
+              "repro_torch.configs.whisper_tiny", "repro_torch.configs.pixtral_12b",
+              "repro_torch.configs.jamba_1_5_large_398b", "repro_torch.configs.granite_20b",
+              "repro_torch.configs.deepseek_67b", "repro_torch.configs.rwkv6_3b",
+              "repro_torch.configs.deepseek_v2_236b",
+              "repro_torch.configs.qwen3_moe_235b_a22b"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -100,6 +107,26 @@ def test_serving_entry_points_refuse_cpu(monkeypatch):
         launch_serve.main(["--requests", "1"])
     assert Model(cfg, device="cpu").device.type == "cpu"
     assert build_flat_datastore(keys, np.zeros(4, np.int32), device="cpu").keys.is_cpu
+
+
+def test_family_models_refuse_cpu(monkeypatch):
+    """Every family other than dense GQA (MoE + MLA, SSM, hybrid,
+    encoder-decoder, the vision stub) builds on the card unless told
+    otherwise: with no device and no CUDA, ``Model`` raises before it holds
+    a byte, at full width too; ``device="cpu"`` runs the smoke widths, and
+    the launcher takes every architecture."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.model import Model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for arch in ("deepseek-v2-236b", "qwen3-moe-235b-a22b", "rwkv6-3b",
+                 "jamba-1.5-large-398b", "whisper-tiny", "pixtral-12b"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Model(get_config(arch))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            launch_serve.main(["--arch", arch, "--requests", "1"])
+        assert Model(get_smoke_config(arch), device="cpu").device.type == "cpu"
 
 
 def test_build_stages_without_device_refuse_cpu(monkeypatch):

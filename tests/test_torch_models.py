@@ -144,9 +144,10 @@ def test_forward_logits_match(pair):
     jm, params, tm, tol = pair
     toks = np.random.default_rng(6).integers(0, jm.cfg.vocab_size, (2, 9)).astype(np.int32)
     jl_, _, _ = jm.forward(params, {"tokens": jnp.asarray(toks)})
-    got, caches = tm.forward(_t(toks))
+    got, aux, caches = tm.forward(_t(toks))
     assert got.shape == (2, 9, jm.cfg.padded_vocab) and got.dtype == torch.float32
     assert caches is None
+    assert float(aux["router_aux"]) == float(aux["router_z"]) == 0.0  # no MoE layer
     _close(got, jl_, tol)
 
 
@@ -211,19 +212,35 @@ def test_seeded_init_draws_the_jax_distributions():
     assert abs(float(layer.attn.wq.std()) - d**-0.5) < 0.05 * d**-0.5
     hd_all = cfg.num_heads * cfg.resolved_head_dim
     assert abs(float(layer.attn.wo.std()) - hd_all**-0.5) < 0.05 * hd_all**-0.5
-    assert abs(float(layer.w_out.std()) - cfg.d_ff**-0.5) < 0.05 * cfg.d_ff**-0.5
+    assert abs(float(layer.mlp.w_out.std()) - cfg.d_ff**-0.5) < 0.05 * cfg.d_ff**-0.5
     assert not m.final_norm.any() and not layer.ln1.any() and not layer.attn.bq.any()
     again = Model(cfg, device="cpu", seed=11)
-    assert torch.equal(m.layers[1].w_in, again.layers[1].w_in)
+    assert torch.equal(m.layers[1].mlp.w_in, again.layers[1].mlp.w_in)
 
 
 def test_full_configs_and_unported_archs():
+    """Every architecture of the JAX package's zoo is ported: each of the
+    port's ten configuration modules equals the JAX package's ``CONFIG``
+    and ``SMOKE_CONFIG`` field for field (sub-configs included), and an
+    unknown architecture still raises ``KeyError``."""
+    import dataclasses
+
+    from repro.configs import ARCH_IDS as J_ARCH_IDS
+    from repro.configs import get_config as j_config
+    from repro_torch.configs import ARCH_IDS, PORTED
+
+    assert ARCH_IDS == J_ARCH_IDS and set(PORTED) == set(ARCH_IDS)
+    for arch in ARCH_IDS:
+        for port, ref in ((get_config(arch), j_config(arch)),
+                          (get_smoke_config(arch), j_smoke(arch))):
+            assert dataclasses.asdict(port) == dataclasses.asdict(ref), arch
+            assert [f.name for f in dataclasses.fields(port)] == \
+                [f.name for f in dataclasses.fields(ref)]
     cfg = get_config("qwen2-0.5b")
     assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.d_ff,
             cfg.padded_vocab, cfg.qkv_bias, cfg.tie_embeddings) == (
         24, 896, 14, 2, 4864, 151_936, True, True)  # 151,936 = 1,187 x 128: no padding
-    assert get_config("smollm-135m").num_layers == 30
-    with pytest.raises(NotImplementedError, match="LM-substrate slice"):
-        get_config("deepseek-v2-236b")
     with pytest.raises(KeyError):
         get_config("gpt-17")
+    with pytest.raises(KeyError):
+        get_smoke_config("gpt-17")
