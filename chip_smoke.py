@@ -118,7 +118,17 @@ Phases, in order; any failure raises and the run exits non-zero:
     steps on a 65,536 x 384 store; qwen3-moe-235b-a22b, granite-20b,
     deepseek-67b and pixtral-12b at full width, depth 2, jamba at its smoke
     widths and its Mamba mixer alone at full width, decode held to forward;
-    K6 / K7 timed at D = 5,120, 2,560 and 384.
+    K6 / K7 timed at D = 5,120, 2,560 and 384;
+19. training: one ``make_train_step`` step of each of the ten smoke
+    configurations (AdamW or Adafactor as each names) at f32 compute on the
+    card against the same seeded weights and batch on the CPU, loss,
+    gradients and updated leaves held; qwen2-0.5b at its published widths
+    and depth, first its f32 loss and gradients on 1 x 32 tokens card vs
+    CPU, then ``Trainer.run`` for 200 steps of ``TokenPipeline`` batches of
+    8 x 512 (bf16 compute, AdamW, remat), the loss held to fall by 2 nats,
+    checkpoints at steps 100 and 200, and a fresh trainer resumed from step
+    200 bit for bit; deepseek-v2-236b at its published widths, depth 3, its
+    loss held to the forward's cross-entropy and its bf16 gradients finite.
 
 The last lines are one JSON object of per-kernel numbers, then
 ``{"ok": true, "device": {...}}``; ``--json PATH`` also writes the full
@@ -3651,6 +3661,466 @@ def families_phase(dev, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 19: training (the trainable model, Model.loss, AdamW / Adafactor,
+# the train step, checkpoints, the token pipeline, the Trainer)
+# --------------------------------------------------------------------------
+
+TRAIN_RTOL = 1e-5
+TRAIN_GRAD_ATOL = 1e-4  # of a leaf's scale: f32 gradients of two evaluations
+TRAIN_UPDATE_ATOL = 1e-5  # of a leaf's largest |value|
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 200, 8, 512
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_MIN_DROP = 2.0  # nats from the first 5 losses' mean to the last 20's
+
+
+class _GradRecorder:
+    """Stands in for ``torch.autograd.grad`` while installed: records the
+    gradients each call returns, or, given ``replay``, returns those
+    instead of computing them (moved to each parameter's device)."""
+
+    def __init__(self, replay=None):
+        import torch
+
+        self.fn = torch.autograd.grad
+        self.replay = replay
+        self.got = []
+
+    def __call__(self, outputs, inputs, **kw):
+        if self.replay is None:
+            out = self.fn(outputs, inputs, **kw)
+        else:
+            out = tuple(None if g is None else g.to(p.device)
+                        for g, p in zip(self.replay[len(self.got)], inputs))
+        self.got.append(out)
+        return out
+
+    def __enter__(self):
+        import torch
+
+        torch.autograd.grad = self
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.autograd.grad = self.fn
+
+
+def train_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """``tests/test_models.py``'s batch as numpy: tokens and targets, frames
+    for whisper, stub patches for the vision stub."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+             "targets": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = (rng.normal(size=(b, cfg.encoder_seq, cfg.d_model)) * 0.1
+                           ).astype(np.float32)
+    if cfg.frontend == "vision_stub":
+        batch["patches"] = (rng.normal(size=(b, cfg.num_stub_patches, cfg.d_model)) * 0.1
+                            ).astype(np.float32)
+    return batch
+
+
+def jax_leaf_grads(model, grads) -> list:
+    """Per-parameter gradients (``model.parameters()`` order) as the JAX
+    tree's leaves, on the CPU."""
+    import torch
+
+    from repro_torch.models.convert import jax_tree
+    from repro_torch.tree import tree_leaves
+
+    by_param = {p: torch.zeros_like(p) if g is None else g
+                for p, g in zip(model.parameters(), grads)}
+    return [leaf.value(by_param).float().cpu() for leaf in tree_leaves(jax_tree(model))]
+
+
+def hold_leaves(got: list, want: list, atol_of_scale: float, what: str, *,
+                floor: float = 0.0) -> float:
+    """Each leaf to rtol 1e-5 and ``atol_of_scale`` x its scale (its largest
+    |value|, floored at ``floor`` x the largest of all leaves).  Returns the
+    largest gap relative to its leaf's scale."""
+    top = max(float(w.abs().max()) for w in want)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        scale = max(float(w.abs().max()), floor * top, 1e-30)
+        gap = (g.float() - w.float()).abs()
+        worst = max(worst, float(gap.max()) / scale)
+        require(bool((gap <= atol_of_scale * scale + TRAIN_RTOL * w.float().abs()).all()),
+                f"{what}: leaf {i} {tuple(w.shape)} differs by {float(gap.max()):.3e} "
+                f"(scale {scale:.3e})")
+    return worst
+
+
+def step_card_vs_cpu(dev) -> dict:
+    """Phase 19a: the ten smoke configurations at f32 compute, one
+    ``make_train_step`` step each with the optimizer the configuration
+    names, on the card and on the CPU from the same seeded weights and
+    batch.  Held: the loss (rtol 1e-5), every gradient leaf as the step
+    computed it (rtol 1e-5, atol 1e-4 of the leaf's scale floored at 1e-4 of
+    the largest gradient: f32 gradients of two evaluations differ by up to
+    ~5e-5 of a leaf's scale on deepseek-v2, a zero-gradient leaf holds only
+    noise), and every updated parameter and optimizer moment (rtol 1e-5,
+    atol 1e-5 of the leaf's largest |value|) against the CPU's step fed the
+    card's gradients: AdamW's and Adafactor's first updates are sign-like,
+    so a gradient element within rounding of zero may move either way."""
+    import torch
+
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.optim import cosine_with_warmup, get_optimizer
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+        batch = train_batch(cfg, 2, 8, SEED + 19)
+        models = {"cpu": Model(cfg, device="cpu", seed=SEED),
+                  "replay": Model(cfg, device="cpu", seed=SEED),
+                  "card": Model(cfg, device=dev, seed=None)}
+        models["card"].load_state_dict(models["cpu"].state_dict())
+        res = {}
+        for name in ("card", "cpu", "replay"):
+            m = models[name]
+            opt = get_optimizer(cfg.optimizer)
+            step = make_train_step(m, opt, cosine_with_warmup(1e-3, 0, 10))
+            replay = res["card"]["grads"] if name == "replay" else None
+            with _GradRecorder(replay) as rec:
+                state, met = step(init_train_state(m, opt), batch)
+            res[name] = dict(loss=float(met["loss"]), grads=rec.got,
+                             leaves=[t.value().float().cpu() if hasattr(t, "value")
+                                     else t.float().cpu() for t in tree_leaves(
+                                         {"params": state["params"], "opt": state["opt"]})])
+        card, cpu, rep = res["card"], res["cpu"], res["replay"]
+        loss_gap = abs(card["loss"] - cpu["loss"])
+        require(loss_gap <= TRAIN_RTOL * abs(cpu["loss"]),
+                f"{arch}: card loss {card['loss']} vs CPU {cpu['loss']}")
+        grad_gap = hold_leaves(jax_leaf_grads(models["card"], card["grads"][0]),
+                               jax_leaf_grads(models["cpu"], cpu["grads"][0]),
+                               TRAIN_GRAD_ATOL, f"{arch} gradients", floor=1e-4)
+        upd_gap = hold_leaves(card["leaves"], rep["leaves"], TRAIN_UPDATE_ATOL,
+                              f"{arch} updated leaves")
+        plain_gap = max(float((a - b).abs().max()) for a, b in zip(card["leaves"], cpu["leaves"]))
+        out[arch] = dict(optimizer=cfg.optimizer, loss=card["loss"], loss_gap=loss_gap,
+                         grad_gap=grad_gap, update_gap=upd_gap, update_gap_own_grads=plain_gap)
+        del models
+    free_card()
+    log(f"[train] 19a: one train step of each smoke config at f32 compute, card vs CPU: "
+        f"largest loss gap {max(v['loss_gap'] for v in out.values()):.2e}, gradient gap "
+        f"{max(v['grad_gap'] for v in out.values()):.2e} of a leaf's scale, updated "
+        f"params/moments gap {max(v['update_gap'] for v in out.values()):.2e} of a leaf's "
+        f"scale against the CPU step on the card's gradients (against the CPU's own "
+        f"gradients: up to {max(v['update_gap_own_grads'] for v in out.values()):.2e} "
+        f"absolute); " + ", ".join(f"{a} {v['optimizer']} {v['grad_gap']:.1e}"
+                                   for a, v in out.items()))
+    return out
+
+
+def qwen_grads_card_vs_cpu(dev) -> dict:
+    """Phase 19b, first: qwen2-0.5b at its published widths and depth with
+    f32 compute, ``Model.loss`` and its gradients on 1 x 32 tokens, the card
+    against the CPU from the same seeded weights, held as in 19a."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    cfg = get_config(TRAIN_ARCH).replace(compute_dtype="float32")
+    batch = train_batch(cfg, 1, 32, SEED + 20)
+    host = Model(cfg, device="cpu", seed=SEED)
+    card = Model(cfg, device=dev, seed=None)
+    card.load_state_dict(host.state_dict())
+    got = {}
+    for name, m in (("cpu", host), ("card", card)):
+        t0 = time.perf_counter()
+        loss, _ = m.loss(batch)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        got[name] = (float(loss.detach()), jax_leaf_grads(m, grads), time.perf_counter() - t0)
+        del grads
+    del host, card
+    free_card()
+    loss_gap = abs(got["card"][0] - got["cpu"][0])
+    require(loss_gap <= TRAIN_RTOL * abs(got["cpu"][0]),
+            f"{TRAIN_ARCH} f32 loss: card {got['card'][0]} vs CPU {got['cpu'][0]}")
+    gap = hold_leaves(got["card"][1], got["cpu"][1], TRAIN_GRAD_ATOL,
+                      f"{TRAIN_ARCH} f32 gradients", floor=1e-4)
+    log(f"[train] 19b: {TRAIN_ARCH} full width ({cfg.num_layers} layers, d {cfg.d_model}, "
+        f"vocab {cfg.vocab_size}), f32 compute, loss + gradients on 1 x 32 tokens: card vs "
+        f"CPU loss gap {loss_gap:.2e}, largest gradient gap {gap:.2e} of a leaf's scale")
+    return dict(loss=got["card"][0], loss_gap=loss_gap, grad_gap=gap,
+                cpu_s=got["cpu"][2], card_s=got["card"][2])
+
+
+def update_phase_ms(model, state) -> float:
+    """Device ms of what a train step does after its backward pass (the
+    gradients as the JAX leaves, the clip, the params stacked, the optimizer
+    update, the write-back), on gradients of one backward pass; it
+    changes the weights."""
+    import torch
+
+    from repro_torch.models.convert import Leaf
+    from repro_torch.optim import adamw, clip_by_global_norm
+    from repro_torch.tree import tree_leaves, tree_map
+
+    params = list(model.parameters())
+    by_param = {p: torch.full_like(p, 1e-3) for p in params}
+    leaves, opt = state["params"], adamw()
+    box = {"opt": state["opt"]}
+
+    def update():
+        grads, _ = clip_by_global_norm(tree_map(lambda lf: lf.value(by_param), leaves), 1.0)
+        new, box["opt"] = opt.update(grads, box["opt"], tree_map(Leaf.value, leaves),
+                                     torch.tensor(1e-6, device=model.device))
+        for leaf, v in zip(tree_leaves(leaves), tree_leaves(new)):
+            leaf.assign_(v)
+
+    return device_ms(update, reps=5, launches_hint=400)
+
+
+def profile_training(step_fn, state, pipeline, step0: int, step_ms: float, *,
+                     steps: int = 3) -> dict:
+    """Device time of ``steps`` train steps by torch.profiler (after the
+    run: the steps change the weights), against the run's median
+    unprofiled step: the busy share, the products (cuBLAS and CUTLASS
+    kernels: names with gemm, xmma, nvjet or cutlass) split into the f32
+    ones (f32f32 / sgemm in the name: the head and the attention einsums,
+    TF32 off) and the tensor-core rest (the layers' bf16 products), and the
+    largest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [pipeline.batch_at(step0 + i) for i in range(steps)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    per = {e.key: e.self_device_time_total / 1e3 / steps for e in kernels}
+    gemm = {k: v for k, v in per.items()
+            if any(w in k.lower() for w in ("gemm", "xmma", "nvjet", "cutlass"))}
+    f32 = sum(v for k, v in gemm.items() if "f32f32" in k or "sgemm" in k)
+    dev_ms = sum(per.values())
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    out = dict(steps=steps, device_ms_per_step=dev_ms, step_ms=step_ms, busy=dev_ms / step_ms,
+               gemm_f32_ms=f32, gemm_tensor_core_ms=sum(gemm.values()) - f32,
+               other_ms=dev_ms - sum(gemm.values()),
+               launches_per_step=sum(e.count for e in kernels) / steps,
+               top=[(k[:90], v) for k, v in top])
+    log(f"[profile] training, {steps} profiled steps: device time {dev_ms:.1f} ms per step "
+        f"against the run's median step of {step_ms:.1f} ms (busy {out['busy']:.1%}); f32 "
+        f"products {f32:.1f} ms, tensor-core products {out['gemm_tensor_core_ms']:.1f} ms, "
+        f"the rest {out['other_ms']:.1f} ms; {out['launches_per_step']:.0f} launches per "
+        "step; top: " + "; ".join(f"{k[:60]} {v:.1f} ms" for k, v in out["top"]))
+    return out
+
+
+def qwen_training(dev, smi: str) -> dict:
+    """Phase 19b: qwen2-0.5b at full width, its own configuration (f32
+    params, bf16 compute, AdamW, ``remat="full"``), through ``Trainer.run``
+    for 200 steps of ``TokenPipeline`` batches of 8 x 512 under the
+    launcher's ``cosine_with_warmup(3e-4, 100, steps)``, checkpoints at steps
+    100 and 200 (``keep=2``) in a temporary directory; then a fresh
+    ``Trainer`` and model resume from step 200 and must hold the saved
+    params and moments bit for bit."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.model import Model, param_bytes
+    from repro_torch.optim import cosine_with_warmup, get_optimizer
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    pipeline = TokenPipeline(DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                        vocab_size=cfg.vocab_size))
+    ckpt_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    timed = {"save": [], "restore": []}
+
+    def timing(kind, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            timed[kind].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    real_save, real_restore = trainer_mod.save_checkpoint, trainer_mod.restore_latest
+    trainer_mod.save_checkpoint = timing("save", real_save)
+    trainer_mod.restore_latest = timing("restore", real_restore)
+    try:
+        model = Model(cfg, device=dev, seed=SEED)
+        opt = get_optimizer(cfg.optimizer)
+        step_fn = make_train_step(model, opt, cosine_with_warmup(3e-4, 100, TRAIN_STEPS))
+        step_s = []
+
+        def timed_step(state, batch):
+            t0 = time.perf_counter()
+            out = step_fn(state, batch)
+            float(out[1]["loss"])
+            step_s.append(time.perf_counter() - t0)
+            return out
+
+        tcfg = trainer_mod.TrainerConfig(total_steps=TRAIN_STEPS, ckpt_every=100,
+                                         ckpt_dir=str(ckpt_dir), log_every=50,
+                                         keep_checkpoints=2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, rep = trainer_mod.Trainer(timed_step, pipeline, tcfg).run(
+            init_train_state(model, opt))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        losses = rep.losses
+        require(len(losses) == TRAIN_STEPS and all(l == l and abs(l) < float("inf")
+                                                   for l in losses),
+                f"{TRAIN_ARCH} training: {len(losses)} steps, a loss not finite")
+        first, last = statistics.mean(losses[:5]), statistics.mean(losses[-20:])
+        require(last <= first - TRAIN_MIN_DROP, f"{TRAIN_ARCH}: the loss fell from {first:.3f} "
+            f"(first 5) to {last:.3f} (last 20), less than {TRAIN_MIN_DROP} nats")
+        kept = sorted(d.name for d in ckpt_dir.iterdir() if d.is_dir())
+        require(kept == ["step_00000100", "step_00000200"], f"checkpoints kept: {kept}")
+        ckpt_bytes = sum(f.stat().st_size for f in (ckpt_dir / kept[-1]).iterdir())
+
+        saved = [t.value().clone() if hasattr(t, "value") else t.clone()
+                 for t in tree_leaves(state)]
+        del state, model, step_fn
+        free_card()
+        fresh = Model(cfg, device=dev, seed=SEED + 1)
+        opt = get_optimizer(cfg.optimizer)
+        step_fn = make_train_step(fresh, opt, cosine_with_warmup(3e-4, 100, TRAIN_STEPS))
+        t0 = time.perf_counter()
+        state2, rep2 = trainer_mod.Trainer(step_fn, pipeline, tcfg).run(
+            init_train_state(fresh, opt))
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        require(rep2.resumed_from == TRAIN_STEPS and not rep2.losses,
+                f"resume: from {rep2.resumed_from}, {len(rep2.losses)} steps run")
+        now = [t.value() if hasattr(t, "value") else t for t in tree_leaves(state2)]
+        require(len(now) == len(saved) and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(now, saved)),
+            "the resumed params and moments are not the saved ones bit for bit")
+        del saved, now
+        steady = step_s[5:]
+        step_ms = statistics.median(steady) * 1e3
+        prof = profile_training(step_fn, state2, pipeline, TRAIN_STEPS, step_ms)
+        upd_ms = update_phase_ms(fresh, state2)
+        pbytes = param_bytes(fresh)
+        del state2, fresh, step_fn
+        free_card()
+    finally:
+        trainer_mod.save_checkpoint, trainer_mod.restore_latest = real_save, real_restore
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tok_s = TRAIN_BATCH * TRAIN_SEQ * len(steady) / sum(steady)
+    out = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, param_bytes=pbytes,
+               loss_first5=first, loss_last20=last, loss_final=losses[-1],
+               step_ms=step_ms, step_ms_first=step_s[0] * 1e3, tokens_per_s=tok_s,
+               update_ms=upd_ms, update_share=upd_ms / step_ms, peak_bytes=peak,
+               save_s=timed["save"], restore_s=timed["restore"], resume_s=resume_s,
+               ckpt_bytes=ckpt_bytes, wall_s=rep.wall_time_s,
+               stragglers=len(rep.straggler_events), losses=losses, profile=prof)
+    log(f"[train] 19b: {TRAIN_ARCH} full width, {pbytes / 1e9:.2f} GB of f32 params, bf16 "
+        f"compute, AdamW, remat full: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens; loss {first:.3f} (mean of the first 5) -> {last:.3f} (last 20), final "
+        f"{losses[-1]:.3f}; median step {step_ms:.1f} ms (first {step_s[0] * 1e3:.0f} ms), "
+        f"{tok_s:,.0f} tokens/s; the update after the backward (leaf views, clip, AdamW, "
+        f"write-back) {upd_ms:.1f} ms, {upd_ms / step_ms:.1%} of a step; peak "
+        f"{peak / 1e9:.2f} GB allocated; checkpoints of {ckpt_bytes / 1e9:.2f} GB saved in "
+        f"{', '.join(f'{s:.1f}' for s in timed['save'])} s, restored in "
+        f"{', '.join(f'{s:.1f}' for s in timed['restore'])} s (resume {resume_s:.1f} s), "
+        f"bit for bit; {len(rep.straggler_events)} straggler events ({smi})")
+    return out
+
+
+def deepseek_grads(dev, smi: str) -> dict:
+    """Phase 19c: deepseek-v2-236b at its published widths, depth 3 (the
+    dense first layer and 2 MoE layers, bf16 params), ``Model.loss`` on
+    2 x 256 tokens and its gradients kept in bf16 (``grad_dtype`` of the
+    train step for bf16 params): the loss equal to the cross-entropy
+    recomputed from ``forward``'s logits, every gradient finite, the
+    routers' non-zero; the capacity drops counted from the routing of the
+    forward's MoE inputs.  No optimizer step: a full-width Adafactor step's
+    f32 temporaries would not fit beside the weights and the gradients."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, param_bytes
+
+    cfg = family_config("deepseek-v2-236b", 3)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=dev, seed=SEED)
+    batch = train_batch(cfg, 2, 256, SEED + 21)
+    inputs = []
+    hooks = [mod.register_forward_pre_hook(lambda m, a: inputs.append((m, a[0])))
+             for mod in model.modules() if isinstance(mod, moe.MoE)]
+    try:
+        logits, aux, _ = model.forward(batch["tokens"])
+    finally:
+        for h in hooks:
+            h.remove()
+    drops = 0
+    for mod, x in inputs:
+        top_e, _, _ = moe.route(x.reshape(-1, x.shape[-1]), mod.router, mod.m.top_k)
+        cap = moe.capacity(top_e.shape[0], mod.m.top_k, mod.m.num_experts,
+                           mod.m.capacity_factor)
+        drops += int((moe.dispatch(top_e, mod.m.num_experts, cap)[2] < 0).sum())
+    tgt = torch.as_tensor(batch["targets"]).to(dev, torch.int64)
+    ce = (torch.logsumexp(logits, -1) - logits.gather(-1, tgt[..., None])[..., 0]).mean()
+    want = float(ce + cfg.moe.router_aux_coef * aux["router_aux"]
+                 + cfg.moe.router_z_coef * aux["router_z"])
+    del logits, inputs
+    t0 = time.perf_counter()
+    loss, met = model.loss(batch)
+    params = list(model.parameters())
+    grads = [g.to(torch.bfloat16) for g in torch.autograd.grad(loss, params)]
+    torch.cuda.synchronize()
+    t_grad = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = float(loss.detach())
+    require(got == got and abs(got) < float("inf"), f"deepseek-v2 loss {got}")
+    require(abs(got - want) <= 1e-5 * abs(want),
+            f"deepseek-v2 loss {got} against the forward's cross-entropy {want}")
+    require(all(bool(torch.isfinite(g).all()) for g in grads), "deepseek-v2: a gradient not finite")
+    by_param = dict(zip(params, grads))
+    routers = [by_param[mod.router] for mod in model.modules() if isinstance(mod, moe.MoE)]
+    require(len(routers) == cfg.num_layers - cfg.moe.first_dense
+            and all(bool((g != 0).any()) for g in routers),
+            "deepseek-v2: a router's gradient is zero")
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    pbytes = param_bytes(model)
+    out = dict(layers=cfg.num_layers, param_bytes=pbytes, loss=got, forward_ce_loss=want,
+               grad_norm=float(gnorm), drops=drops, assignments=2 * 2 * 256 * cfg.moe.top_k,
+               peak_bytes=peak, loss_grad_s=t_grad, router_aux=float(met["router_aux"].detach()))
+    del model, grads, params, loss, by_param, routers
+    free_card()
+    log(f"[train] 19c: deepseek-v2-236b published widths, depth 3 ({pbytes / 1e9:.2f} GB of "
+        f"bf16 params), 2 x 256 tokens: loss {got:.4f} (forward's CE + router terms "
+        f"{want:.4f}), router aux {out['router_aux']:.4f}; bf16 gradients all finite, global "
+        f"norm {out['grad_norm']:.3f}, both routers' non-zero; {drops} of "
+        f"{out['assignments']} assignments dropped at capacity; loss + gradients "
+        f"{t_grad:.1f} s, peak {peak / 1e9:.2f} GB allocated ({smi})")
+    return out
+
+
+def training_phase(dev, smi: str) -> dict:
+    """Phase 19: training on the card."""
+    t0 = time.perf_counter()
+    out = dict(smoke=step_card_vs_cpu(dev), qwen_f32=qwen_grads_card_vs_cpu(dev),
+               qwen=qwen_training(dev, smi), deepseek=deepseek_grads(dev, smi))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[train] phase 19 {out['seconds']:.1f} s ({smi})")
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3730,6 +4200,7 @@ def main(argv=None) -> int:
     del store, serve_state, model
     torch.cuda.empty_cache()
     families = families_phase(dev, smi)
+    training = training_phase(dev, smi)
 
     # how much of each search's wall time its one K1 launch accounts for
     walls = {(n, qz, bm): w for n, qz, bm, _, w in sl["results"]}
@@ -3784,7 +4255,7 @@ def main(argv=None) -> int:
                       dbscan=db, profile=prof_rows, serve=sv, stream=stream,
                       ward_stream=ward_stream, blob_obm=blob_obm, forest_serve=forest_serve,
                       persist_explain=persist_explain, layout=layout, families=families,
-                      nvcc_s=t_build, seconds=time.perf_counter() - t_start)
+                      training=training, nvcc_s=t_build, seconds=time.perf_counter() - t_start)
         out = Path(args.json)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(detail, indent=1, default=float))

@@ -10,12 +10,15 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (
+    SHAPES,
     MLAConfig,
     ModelConfig,
     MoEConfig,
     RetrievalConfig,
     RWKVConfig,
+    ShapeConfig,
     SSMConfig,
+    shape_applicable,
 )
 
 ARCH_IDS = [
@@ -51,4 +54,5 @@ def get_smoke_config(arch: str) -> ModelConfig:
 __all__ = [
     "ARCH_IDS", "PORTED", "get_config", "get_smoke_config", "ModelConfig",
     "MoEConfig", "MLAConfig", "SSMConfig", "RWKVConfig", "RetrievalConfig",
+    "SHAPES", "ShapeConfig", "shape_applicable",
 ]

@@ -1,8 +1,9 @@
 """Model / run configuration schema: the port's own copy of the JAX package's
 ``configs/base.py`` (plain frozen dataclasses, the same fields and defaults).
-The sharding and training fields (``remat``, ``attn_tp``, ``grad_accum``,
-``optimizer``, ...) are carried so a configuration reads the same in both
-packages; the serving path does not read them.
+The training fields (``remat``, ``grad_accum``, ``optimizer``) are read by
+the train step; the sharding fields (``attn_tp``, ...) are carried so a
+configuration reads the same in both packages.  ``ShapeConfig`` and
+``SHAPES`` are the assigned input-shape cells.
 """
 from __future__ import annotations
 
@@ -122,3 +123,30 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned (input-shape) cell."""
+
+    name: str                    # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                    # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+# long_500k needs sub-quadratic attention: SSM / hybrid only
+LONG_CONTEXT_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> bool:
+    if shape.name == "long_500k":
+        return model.family in LONG_CONTEXT_FAMILIES
+    return True

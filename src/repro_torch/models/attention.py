@@ -12,11 +12,11 @@ The weights keep the JAX package's layouts: wq (D, H, hd), wk and wv
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (
     NEG_INF,
+    CastWeights,
     chunked_attention,
     decode_attention,
     decode_mask,
@@ -58,16 +58,16 @@ class DecodeStep:
         return cache
 
 
-class GQA(nn.Module):
+class GQA(CastWeights):
     """Grouped-query attention (MQA at ``num_kv_heads = 1``).
 
     Q, K and V are stored side by side in one (D, (H + 2 KV) hd) matrix in
     ``cfg.param_dtype``, so one product projects all three; ``wq``, ``wk``
     and ``wv`` are views of it in the JAX package's layouts (``bq``, ``bk``,
-    ``bv`` likewise of ``bqkv``).  ``cast(dtype)`` keeps the compute-dtype
-    weights: the parameters themselves when the dtypes agree, else one cast
-    copy.  ``rope=False`` rotates nothing and ``causal=False`` masks nothing
-    (whisper)."""
+    ``bv`` likewise of ``bqkv``; ``JAX_VIEWS``).  ``rope=False`` rotates
+    nothing and ``causal=False`` masks nothing (whisper)."""
+
+    JAX_VIEWS = {"wqkv": ("wq", "wk", "wv"), "bqkv": ("bq", "bk", "bv")}
 
     def __init__(self, cfg: ModelConfig, device=None, *, rope: bool = True,
                  causal: bool = True):
@@ -83,17 +83,21 @@ class GQA(nn.Module):
             self.bqkv = param((sum(self.split),), pdt, device)
         self.c: dict[str, Tensor] = {}
 
-    def _part(self, t: Tensor, i: int) -> Tensor:
+    def jax_view(self, name: str, t: Tensor) -> Tensor:
+        """The JAX leaf ``name`` (wq/wk/wv or bq/bk/bv) of a tensor shaped
+        like ``wqkv`` or ``bqkv`` (the parameter, or its gradient)."""
+        i = "qkv".index(name[1])
         lo = sum(self.split[:i])
         return t[..., lo:lo + self.split[i]].unflatten(-1, (-1, self.hd))
 
-    wq = property(lambda self: self._part(self.wqkv, 0))
-    wk = property(lambda self: self._part(self.wqkv, 1))
-    wv = property(lambda self: self._part(self.wqkv, 2))
-    bq = property(lambda self: self._part(self.bqkv, 0))
-    bk = property(lambda self: self._part(self.bqkv, 1))
-    bv = property(lambda self: self._part(self.bqkv, 2))
+    wq = property(lambda self: self.jax_view("wq", self.wqkv))
+    wk = property(lambda self: self.jax_view("wk", self.wqkv))
+    wv = property(lambda self: self.jax_view("wv", self.wqkv))
+    bq = property(lambda self: self.jax_view("bq", self.bqkv))
+    bk = property(lambda self: self.jax_view("bk", self.bqkv))
+    bv = property(lambda self: self.jax_view("bv", self.bqkv))
 
+    @torch.no_grad()
     def init_(self, g: torch.Generator) -> None:
         d, h, hd = self.wq.shape
         for w in (self.wq, self.wk, self.wv):
@@ -102,57 +106,58 @@ class GQA(nn.Module):
         if self.bias:
             self.bqkv.zero_()
 
-    def cast(self, dtype: torch.dtype) -> None:
-        self.c = {"wqkv": self.wqkv.to(dtype), "wo": self.wo.flatten(0, 1).to(dtype)}
+    def weights(self, dtype: torch.dtype) -> dict[str, Tensor]:
+        w = {"wqkv": self.wqkv.to(dtype), "wo": self.wo.flatten(0, 1).to(dtype)}
         if self.bias:
-            self.c["bqkv"] = self.bqkv.to(dtype)
+            w["bqkv"] = self.bqkv.to(dtype)
+        return w
 
-    def qkv(self, x: Tensor, cos: Tensor | None, sin: Tensor | None):
+    def qkv(self, w: dict, x: Tensor, cos: Tensor | None, sin: Tensor | None):
         b, s, _ = x.shape
-        y = x @ self.c["wqkv"]
+        y = x @ w["wqkv"]
         if self.bias:
-            y = y + self.c["bqkv"]
+            y = y + w["bqkv"]
         q, k, v = (t.reshape(b, s, -1, self.hd) for t in torch.split(y, self.split, dim=-1))
         if self.rope:
             q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         return q, k, v
 
-    def _out(self, o: Tensor) -> Tensor:
-        return o.flatten(2) @ self.c["wo"]
-
     def forward(self, x: Tensor, rope) -> tuple[Tensor, tuple[Tensor, Tensor]]:
         """Full-sequence attention (prefill, the encoder) with the sequence's
         RoPE tables (``(None, None)`` without rope). Returns (out, (k, v))."""
-        q, k, v = self.qkv(x, *rope)
-        return self._out(chunked_attention(q, k, v, causal=self.causal)), (k, v)
+        w = self.w
+        q, k, v = self.qkv(w, x, *rope)
+        return chunked_attention(q, k, v, causal=self.causal).flatten(2) @ w["wo"], (k, v)
 
     def cross_kv(self, enc: Tensor) -> tuple[Tensor, Tensor]:
         """Whisper's cross-attention K/V of the encoder output (no bias, no
         rope), (B, S_enc, KV, hd) each: the decoder caches them."""
         b, s, _ = enc.shape
-        kv = enc @ self.c["wqkv"][:, self.split[0]:]
+        kv = enc @ self.w["wqkv"][:, self.split[0]:]
         k, v = torch.split(kv, self.split[1:], dim=-1)
         return k.reshape(b, s, -1, self.hd), v.reshape(b, s, -1, self.hd)
 
     def cross(self, x: Tensor, k: Tensor, v: Tensor) -> Tensor:
         """Cross-attention of x's queries over precomputed encoder K/V."""
         b, s, _ = x.shape
-        q = x @ self.c["wqkv"][:, :self.split[0]]
+        w = self.w
+        q = x @ w["wqkv"][:, :self.split[0]]
         if self.bias:
-            q = q + self.c["bqkv"][:self.split[0]]
+            q = q + w["bqkv"][:self.split[0]]
         q = q.reshape(b, s, -1, self.hd)
-        return self._out(chunked_attention(q, k, v, causal=False))
+        return chunked_attention(q, k, v, causal=False).flatten(2) @ w["wo"]
 
     def decode(self, x: Tensor, cache: dict[str, Tensor], step: DecodeStep) -> Tensor:
         """One token per row at the step's positions; writes this token's K/V
         into ``cache`` in place and attends over positions ``<= pos``."""
-        q, k, v = self.qkv(x, step.cos, step.sin)
+        w = self.w
+        q, k, v = self.qkv(w, x, step.cos, step.sin)
         step.write_(cache["k"], k)
         step.write_(cache["v"], v)
-        return self._out(decode_attention(q, cache["k"], cache["v"], step.mask))
+        return decode_attention(q, cache["k"], cache["v"], step.mask).flatten(2) @ w["wo"]
 
 
-class MLA(nn.Module):
+class MLA(CastWeights):
     """DeepSeek-V2 multi-head latent attention.
 
     Prefill decompresses per-head K/V from the latent ``c_kv`` and runs the
@@ -180,51 +185,55 @@ class MLA(nn.Module):
             setattr(self, name, param(shape, pdt, device))
         self.c: dict[str, Tensor] = {}
 
+    @torch.no_grad()
     def init_(self, g: torch.Generator) -> None:
         for name in self.NAMES[:-1]:
             dense_init_(getattr(self, name), g)
         h, v, _ = self.wo.shape
         dense_init_(self.wo, g, (h * v) ** -0.5)
 
-    def cast(self, dtype: torch.dtype) -> None:
-        self.c = {name: getattr(self, name).to(dtype) for name in self.NAMES}
-        self.c["wo"] = self.c["wo"].flatten(0, 1)
+    def weights(self, dtype: torch.dtype) -> dict[str, Tensor]:
+        w = {name: getattr(self, name).to(dtype) for name in self.NAMES}
+        w["wo"] = w["wo"].flatten(0, 1)
+        return w
 
-    def _q(self, x: Tensor, cos: Tensor, sin: Tensor) -> tuple[Tensor, Tensor]:
-        q = torch.einsum("bsr,rhk->bshk", x @ self.c["wdq"], self.c["wuq"])
+    def _q(self, w: dict, x: Tensor, cos: Tensor, sin: Tensor) -> tuple[Tensor, Tensor]:
+        q = torch.einsum("bsr,rhk->bshk", x @ w["wdq"], w["wuq"])
         return q[..., :self.nope], rotate(q[..., self.nope:], cos, sin)
 
-    def _k_rope(self, x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
-        return rotate((x @ self.c["wk_rope"])[:, :, None, :], cos, sin)
+    def _k_rope(self, w: dict, x: Tensor, cos: Tensor, sin: Tensor) -> Tensor:
+        return rotate((x @ w["wk_rope"])[:, :, None, :], cos, sin)
 
     def forward(self, x: Tensor, rope) -> tuple[Tensor, tuple[Tensor, Tensor]]:
         """Full-sequence causal MLA. Returns (out, (c_kv, k_rope))."""
         b, s, _ = x.shape
-        q_nope, q_rope = self._q(x, *rope)
-        c_kv = x @ self.c["wdkv"]
-        k_rope = self._k_rope(x, *rope)
-        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, self.c["wuk"])
-        v = torch.einsum("bsr,rhk->bshk", c_kv, self.c["wuv"])
+        w = self.w
+        q_nope, q_rope = self._q(w, x, *rope)
+        c_kv = x @ w["wdkv"]
+        k_rope = self._k_rope(w, x, *rope)
+        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, w["wuk"])
+        v = torch.einsum("bsr,rhk->bshk", c_kv, w["wuv"])
         h = k_nope.shape[2]
         q = torch.cat([q_nope, q_rope], -1)
         k = torch.cat([k_nope, k_rope.expand(b, s, h, self.rope_dim)], -1)
         # v stays v_head_dim wide: the JAX package's zero padding to the q/k
         # width adds only zero columns, sliced off after
         o = chunked_attention(q, k, v, causal=True)
-        return o.flatten(2) @ self.c["wo"], (c_kv, k_rope[:, :, 0, :])
+        return o.flatten(2) @ w["wo"], (c_kv, k_rope[:, :, 0, :])
 
     def decode(self, x: Tensor, cache: dict[str, Tensor], step: DecodeStep) -> Tensor:
         """Absorbed one-token decode: scores = (q_nope W_uk) c_kv^T + q_rope
         k_rope^T over the compressed cache, written in place first."""
-        q_nope, q_rope = self._q(x, step.cos, step.sin)  # (B, 1, H, *)
-        step.write_(cache["c_kv"], x @ self.c["wdkv"])
-        step.write_(cache["k_rope"], self._k_rope(x, step.cos, step.sin)[:, :, 0, :])
+        w = self.w
+        q_nope, q_rope = self._q(w, x, step.cos, step.sin)  # (B, 1, H, *)
+        step.write_(cache["c_kv"], x @ w["wdkv"])
+        step.write_(cache["k_rope"], self._k_rope(w, x, step.cos, step.sin)[:, :, 0, :])
         c_cache, r_cache = cache["c_kv"], cache["k_rope"]
-        q_abs = torch.einsum("bshk,rhk->bshr", q_nope, self.c["wuk"])
+        q_abs = torch.einsum("bshk,rhk->bshr", q_nope, w["wuk"])
         s_c = torch.einsum("bshr,btr->bhst", q_abs, c_cache)
         s_r = torch.einsum("bshk,btk->bhst", q_rope, r_cache)
         scores = (s_c + s_r).float() * self.scale
         p = torch.softmax(torch.where(step.mask, scores, NEG_INF), dim=-1)
         o_c = torch.einsum("bhst,btr->bshr", p.to(x.dtype), c_cache)
-        o = torch.einsum("bshr,rhk->bshk", o_c, self.c["wuv"])
-        return o.flatten(2) @ self.c["wo"]
+        o = torch.einsum("bshr,rhk->bshk", o_c, w["wuv"])
+        return o.flatten(2) @ w["wo"]

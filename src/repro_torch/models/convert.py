@@ -1,4 +1,4 @@
-"""Carry the JAX package's LM weights across to the port.
+"""Carry LM weights between the JAX package's param tree and the port.
 
 ``params_from_jax(tree, cfg)`` takes the param pytree of
 ``repro.models.model.Model.init`` as numpy arrays (a test makes it with
@@ -12,15 +12,28 @@ per-sub-layer modules, whose attribute paths are the JAX tree's key paths
 (``attn.wq``, ``moe.shared.w_in``, ``tm.lora_b``, ...).  The layouts match,
 so every array is copied as it is, into the parameter's own dtype (a bf16
 array widened to f32 on the way is exact).
+
+The other way, ``jax_tree(model)`` is the JAX param tree's structure with a
+``Leaf`` at each leaf: the JAX leaf as views of the port's parameters (the
+unfused ``wq``/``wk``/``wv`` of ``wqkv``, ``w_gate``/``w_in`` of
+``w_gate_in``), one view a layer, stacked on a new axis 0 where the stage
+is scanned.  The optimizer and the checkpoint work on that tree, so
+Adafactor factors and clips each JAX leaf as the JAX package does, and a
+checkpoint names the JAX package's leaves.  ``params_to_jax(model)`` is its
+numpy tree, the inverse of ``params_from_jax``.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import Model, num_params
 from repro_torch.models.transformer import Stage, encoder_stage
+from repro_torch.tree import tree_map
 
 _TOP = ("embed", "final_norm", "lm_head", "final_norm_bias", "frame_proj", "enc_norm",
         "enc_norm_bias", "patch_proj")
@@ -40,6 +53,7 @@ def _sublayer_trees(stage: Stage, stage_tree) -> list[dict]:
     return [u[f"u{j}"] for u in units for j in range(len(stage.unit))]
 
 
+@torch.no_grad()
 def _copy(dst: torch.Tensor, src, name: str) -> int:
     a = np.array(src, np.float32)  # a writable copy
     if tuple(a.shape) != tuple(dst.shape):
@@ -78,3 +92,104 @@ def params_from_jax(tree: dict, cfg: ModelConfig, *, device=None) -> Model:
         raise ValueError(f"JAX tree filled {n} of the port's {num_params(model)} parameters")
     model.cast_weights()
     return model
+
+
+# ---------------------------------------------------------------------------
+# the port's parameters as the JAX package's leaves
+# ---------------------------------------------------------------------------
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+class Leaf:
+    """One leaf of the JAX param tree as views of the port's parameters:
+    ``parts`` holds a (parameter, view) pair per layer, ``view(t)`` the JAX
+    leaf's slice of a tensor shaped like that parameter (the parameter
+    itself, or its gradient); a scanned stage's leaf stacks its layers'
+    views on a new axis 0."""
+
+    def __init__(self, parts: list[tuple[nn.Parameter, Callable]], stacked: bool):
+        self.parts = parts
+        self.stacked = stacked
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        p, view = self.parts[0]
+        one = tuple(view(p).shape)
+        return (len(self.parts),) + one if self.stacked else one
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0][0].dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.parts[0][0].device
+
+    def value(self, of: dict | None = None) -> torch.Tensor:
+        """The JAX leaf of the parameters, or of ``of`` (parameter -> a tensor
+        shaped like it, such as its gradient).  An unstacked leaf is a view."""
+        ts = [view(p.detach() if of is None else of[p]) for p, view in self.parts]
+        return torch.stack(ts) if self.stacked else ts[0]
+
+    @torch.no_grad()
+    def assign_(self, value: torch.Tensor) -> None:
+        """Write the JAX leaf ``value`` into the parameters, in place."""
+        value = torch.as_tensor(value).to(self.device, self.dtype)
+        if tuple(value.shape) != self.shape:
+            raise ValueError(f"leaf of shape {self.shape} given {tuple(value.shape)}")
+        for (p, view), v in zip(self.parts, value if self.stacked else [value]):
+            view(p).copy_(v)
+
+
+def _module_tree(mod: nn.Module) -> dict:
+    """A sub-layer module's JAX subtree: its own parameters (fused ones
+    split by ``JAX_VIEWS``) and its children's subtrees."""
+    views = getattr(mod, "JAX_VIEWS", {})
+    tree: dict = {}
+    for name, p in mod.named_parameters(recurse=False):
+        for jname in views.get(name, (name,)):
+            view = (lambda t, m=mod, n=jname: m.jax_view(n, t)) if name in views else _whole
+            tree[jname] = Leaf([(p, view)], False)
+    for name, child in mod.named_children():
+        tree[name] = _module_tree(child)
+    return tree
+
+
+def _stack(units: list):
+    """Leaf trees of one shape, one a repeat, merged into one tree of
+    stacked leaves."""
+    first = units[0]
+    if isinstance(first, dict):
+        return {k: _stack([u[k] for u in units]) for k in first}
+    return Leaf([part for u in units for part in u.parts], True)
+
+
+def _stage_tree(stage: Stage, layers: list):
+    width = len(stage.unit)
+    units = [{f"u{j}": _module_tree(layers[r * width + j]) for j in range(width)}
+             for r in range(stage.n)]
+    return _stack(units) if stage.scan else units
+
+
+def jax_tree(model: Model) -> dict:
+    """The JAX package's param tree of ``model``'s configuration with a
+    ``Leaf`` at every leaf (the module docstring)."""
+    tree = {k: Leaf([(getattr(model, k), _whole)], False)
+            for k in _TOP if getattr(model, k, None) is not None}
+    layers, stages = list(model.layers), []
+    for st in model.stages:
+        stages.append(_stage_tree(st, layers[:st.n * len(st.unit)]))
+        layers = layers[st.n * len(st.unit):]
+    tree["stages"] = stages
+    if model.cfg.family == "encdec":
+        tree["enc"] = _stage_tree(encoder_stage(model.cfg), list(model.enc))
+    return tree
+
+
+def params_to_jax(model: Model) -> dict:
+    """``model``'s weights as the JAX package's param tree of numpy arrays
+    (bf16 widened to f32, exactly): ``params_from_jax``'s input."""
+    return tree_map(lambda leaf: leaf.value().float().cpu().numpy(), jax_tree(model))

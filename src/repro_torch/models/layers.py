@@ -5,7 +5,12 @@ decode attention, the embedding and the weight init.
 Each function mirrors the JAX package's ``repro/models/layers.py`` line for
 line in plain tensor ops: params are held in ``cfg.param_dtype`` (norms in
 f32) and used in the compute dtype; norms, softmax and attention accumulate
-in f32.  The layouts are the JAX package's (activations (B, S, D), heads
+in f32.  ``CastWeights`` is the base of every module whose products run in
+the compute dtype: while autograd records, it casts its weights inside the
+graph (the JAX package's ``.astype(cdt)``), so gradients reach the
+parameters; otherwise (serving, under ``no_grad``) it reads cast copies,
+made again after any parameter changed in place (an optimizer step, a
+restore).  The layouts are the JAX package's (activations (B, S, D), heads
 (B, S, H, hd), caches (B, S, KV, hd)), so the tests compare like with like.
 """
 from __future__ import annotations
@@ -26,8 +31,40 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def param(shape, dtype: torch.dtype, device) -> nn.Parameter:
-    """An uninitialised, frozen parameter (the port serves; nothing trains)."""
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+    """An uninitialised trainable parameter."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+class CastWeights(nn.Module):
+    """A module computing in ``cdt`` from weights held in the param dtype.
+
+    ``weights(dtype)`` (each subclass's) gives its compute-dtype weights as
+    a function of the parameters.  ``w`` is what the products read: while
+    autograd records, ``weights(cdt)`` itself, cast in the graph; otherwise
+    the detached copies of ``cast`` (the parameters themselves where the
+    dtypes agree), made again when a parameter's version counter shows an
+    in-place change since."""
+
+    cdt: torch.dtype | None = None
+    _cast_from: tuple = ()
+    _cast_at: tuple = ()
+
+    def weights(self, dtype: torch.dtype) -> dict[str, Tensor]:
+        raise NotImplementedError
+
+    def cast(self, dtype: torch.dtype) -> None:
+        self.cdt = dtype
+        self.c = {n: t.detach() for n, t in self.weights(dtype).items()}
+        self._cast_from = tuple(self.parameters(recurse=False))
+        self._cast_at = tuple(p._version for p in self._cast_from)
+
+    @property
+    def w(self) -> dict[str, Tensor]:
+        if torch.is_grad_enabled():
+            return self.weights(self.cdt)
+        if not self.c or self._cast_at != tuple(p._version for p in self._cast_from):
+            self.cast(self.cdt)
+        return self.c
 
 
 # ---------------------------------------------------------------------------
@@ -135,12 +172,12 @@ def mlp_gelu(w_in: Tensor, b_in: Tensor, w_out: Tensor, b_out: Tensor, x: Tensor
     return h @ w_out + b_out
 
 
-class SwiGLU(nn.Module):
+class SwiGLU(CastWeights):
     """The SwiGLU MLP's weights in ``dtype``: W_gate and W_in side by side
     in one (D, 2F) parameter (one product for both); ``w_gate`` and ``w_in``
-    are views of it in the JAX package's layout.  ``cast(dtype)`` keeps the
-    compute-dtype weights: the parameters themselves when the dtypes agree,
-    else one cast copy."""
+    are views of it in the JAX package's layout (``JAX_VIEWS``)."""
+
+    JAX_VIEWS = {"w_gate_in": ("w_gate", "w_in")}
 
     def __init__(self, d: int, f: int, dtype: torch.dtype, device=None):
         super().__init__()
@@ -149,21 +186,28 @@ class SwiGLU(nn.Module):
         self.w_out = param((f, d), dtype, device)
         self.c: dict[str, Tensor] = {}
 
-    w_gate = property(lambda self: self.w_gate_in[:, :self.f])
-    w_in = property(lambda self: self.w_gate_in[:, self.f:])
+    def jax_view(self, name: str, t: Tensor) -> Tensor:
+        """The JAX leaf ``name`` ("w_gate" or "w_in") of a tensor shaped
+        like ``w_gate_in`` (the parameter, or its gradient)."""
+        return t[:, :self.f] if name == "w_gate" else t[:, self.f:]
 
+    w_gate = property(lambda self: self.jax_view("w_gate", self.w_gate_in))
+    w_in = property(lambda self: self.jax_view("w_in", self.w_gate_in))
+
+    @torch.no_grad()
     def init_(self, g: torch.Generator) -> None:
         for w in (self.w_in, self.w_gate, self.w_out):
             dense_init_(w, g)
 
-    def cast(self, dtype: torch.dtype) -> None:
-        self.c = {"w_gate_in": self.w_gate_in.to(dtype), "w_out": self.w_out.to(dtype)}
+    def weights(self, dtype: torch.dtype) -> dict[str, Tensor]:
+        return {"w_gate_in": self.w_gate_in.to(dtype), "w_out": self.w_out.to(dtype)}
 
     def forward(self, x: Tensor) -> Tensor:
-        return mlp_swiglu(self.c["w_gate_in"], self.c["w_out"], x)
+        w = self.w
+        return mlp_swiglu(w["w_gate_in"], w["w_out"], x)
 
 
-class GeluMLP(nn.Module):
+class GeluMLP(CastWeights):
     """Whisper's GELU MLP: w_in (D, F), b_in, w_out (F, D), b_out in
     ``dtype``."""
 
@@ -175,17 +219,19 @@ class GeluMLP(nn.Module):
             setattr(self, name, param(shape, dtype, device))
         self.c: dict[str, Tensor] = {}
 
+    @torch.no_grad()
     def init_(self, g: torch.Generator) -> None:
         dense_init_(self.w_in, g)
         self.b_in.zero_()
         dense_init_(self.w_out, g)
         self.b_out.zero_()
 
-    def cast(self, dtype: torch.dtype) -> None:
-        self.c = {n: getattr(self, n).to(dtype) for n in self.NAMES}
+    def weights(self, dtype: torch.dtype) -> dict[str, Tensor]:
+        return {n: getattr(self, n).to(dtype) for n in self.NAMES}
 
     def forward(self, x: Tensor) -> Tensor:
-        return mlp_gelu(*(self.c[n] for n in self.NAMES), x)
+        w = self.w
+        return mlp_gelu(*(w[n] for n in self.NAMES), x)
 
 
 # ---------------------------------------------------------------------------

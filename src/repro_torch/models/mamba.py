@@ -14,10 +14,9 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init_, dtype_of, param
+from repro_torch.models.layers import CastWeights, dense_init_, dtype_of, param
 
 Tensor = torch.Tensor
 
@@ -37,7 +36,7 @@ def ssm_step(h: Tensor, xt: Tensor, dtt: Tensor, bt: Tensor, ct: Tensor, a: Tens
     return h, torch.einsum("bds,bs->bd", h, ct)
 
 
-class Mamba(nn.Module):
+class Mamba(CastWeights):
     """The mixer's weights: in_proj (D, 2 d_in), conv_w (d_conv, d_in),
     conv_b, x_proj (d_in, dt_rank + 2 ds), dt_proj (dt_rank, d_in),
     out_proj (d_in, D) in ``cfg.param_dtype``; dt_bias, a_log and d_skip in
@@ -61,6 +60,7 @@ class Mamba(nn.Module):
         self.out_proj = param((d_in, d), pdt, device)
         self.c: dict[str, Tensor] = {}
 
+    @torch.no_grad()
     def init_(self, g: torch.Generator) -> None:
         d_in, ds, dc, dtr = self.dims
         dense_init_(self.in_proj, g)
@@ -76,31 +76,32 @@ class Mamba(nn.Module):
         self.d_skip.fill_(1.0)
         dense_init_(self.out_proj, g)
 
-    def cast(self, dtype: torch.dtype) -> None:
-        self.c = {n: getattr(self, n).to(dtype) for n in self.CAST}
+    def weights(self, dtype: torch.dtype) -> dict[str, Tensor]:
+        return {n: getattr(self, n).to(dtype) for n in self.CAST}
 
-    def _ssm_inputs(self, u: Tensor):
+    def _ssm_inputs(self, w: dict, u: Tensor):
         """x_proj's split of the conv output: (delta f32 after softplus, B, C
         in f32)."""
         d_in, ds, _, dtr = self.dims
-        dt_in, b_in, c_in = torch.split(u @ self.c["x_proj"], [dtr, ds, ds], dim=-1)
+        dt_in, b_in, c_in = torch.split(u @ w["x_proj"], [dtr, ds, ds], dim=-1)
         delta = F.softplus(dt_in.float() @ self.dt_proj.float() + self.dt_bias.float())
         return delta, b_in.float(), c_in.float()
 
-    def _out(self, y: Tensor, u: Tensor, z: Tensor) -> Tensor:
+    def _out(self, w: dict, y: Tensor, u: Tensor, z: Tensor) -> Tensor:
         y = y + u.float() * self.d_skip.float()
-        return (y.to(z.dtype) * F.silu(z)) @ self.c["out_proj"]
+        return (y.to(z.dtype) * F.silu(z)) @ w["out_proj"]
 
     def forward(self, x: Tensor) -> tuple[Tensor, dict[str, Tensor]]:
         """Full-sequence mixer over x (B, S, D). Returns (out, final state)."""
         d_in, ds, dc, _ = self.dims
         b, s, _ = x.shape
-        xz = x @ self.c["in_proj"]
+        w = self.w
+        xz = x @ w["in_proj"]
         u0, z = torch.chunk(xz, 2, dim=-1)  # (B, S, d_in)
         pad = F.pad(u0.transpose(1, 2), (dc - 1, 0))  # (B, d_in, S + dc - 1)
-        conv = F.conv1d(pad, self.c["conv_w"].t()[:, None, :], groups=d_in).transpose(1, 2)
-        u = F.silu(conv + self.c["conv_b"])
-        delta, b_in, c_in = self._ssm_inputs(u)
+        conv = F.conv1d(pad, w["conv_w"].t()[:, None, :], groups=d_in).transpose(1, 2)
+        u = F.silu(conv + w["conv_b"])
+        delta, b_in, c_in = self._ssm_inputs(w, u)
         a = -torch.exp(self.a_log.float())
         uf = u.float()
         h = torch.zeros((b, d_in, ds), dtype=torch.float32, device=x.device)
@@ -108,23 +109,25 @@ class Mamba(nn.Module):
         for t in range(s):
             h, y = ssm_step(h, uf[:, t], delta[:, t], b_in[:, t], c_in[:, t], a)
             ys.append(y)
-        out = self._out(torch.stack(ys, 1), u, z)
+        out = self._out(w, torch.stack(ys, 1), u, z)
         conv_state = u0[:, -(dc - 1):] if s >= dc - 1 else F.pad(u0, (0, 0, dc - 1 - s, 0))
-        return out, {"conv": conv_state, "ssm": h}
+        # a copy, not a view of the chunk: ``decode`` writes the state in place
+        return out, {"conv": conv_state.clone(), "ssm": h}
 
     def decode(self, x: Tensor, state: dict[str, Tensor]) -> Tensor:
         """One-token step on x (B, 1, D); updates ``state`` in place."""
         d_in, ds, dc, _ = self.dims
-        xz = x[:, 0] @ self.c["in_proj"]
+        w = self.w
+        xz = x[:, 0] @ w["in_proj"]
         u0, z = torch.chunk(xz, 2, dim=-1)
         window = torch.cat([state["conv"].to(x.dtype), u0[:, None, :]], 1)  # (B, dc, d_in)
-        u = F.silu(torch.einsum("bwd,wd->bd", window, self.c["conv_w"]) + self.c["conv_b"])
-        delta, b_in, c_in = self._ssm_inputs(u)
+        u = F.silu(torch.einsum("bwd,wd->bd", window, w["conv_w"]) + w["conv_b"])
+        delta, b_in, c_in = self._ssm_inputs(w, u)
         a = -torch.exp(self.a_log.float())
         h, y = ssm_step(state["ssm"], u.float(), delta, b_in, c_in, a)
         state["conv"].copy_(window[:, 1:])
         state["ssm"].copy_(h)
-        return self._out(y, u, z)[:, None, :]
+        return self._out(w, y, u, z)[:, None, :]
 
     def init_state(self, batch: int, dtype: torch.dtype, device) -> dict[str, Tensor]:
         d_in, ds, dc, _ = self.dims

@@ -8,11 +8,17 @@ retrieval hook at the head during decode (the JAX package's
     logits, aux, _ = model.forward(tokens)      # aux: summed router losses
     logits, cache = model.prefill(tokens, max_len=256)
     logits = model.decode_step(nxt, cache, pos, datastore=ds)
+    loss, metrics = model.loss({"tokens": toks, "targets": tgts})  # differentiable
 
 Weights are held in ``cfg.param_dtype`` as the JAX package holds them
-(norms, the router and the SSM/RWKV vectors in f32); the layers compute in
-``cfg.compute_dtype`` from the parameters themselves when the dtypes agree,
-else from copies cast once at init or load (``cast_weights``).  The head is
+(norms, the router and the SSM/RWKV vectors in f32) and every parameter
+trains.  The serving entry points run under ``no_grad`` and the layers
+compute in ``cfg.compute_dtype`` from the parameters themselves when the
+dtypes agree, else from copies cast at init or load (``cast_weights``) and
+made again on first use after a parameter changed in place.
+``loss`` casts inside the autograd graph instead, and with ``cfg.remat``
+other than "none" recomputes each layer in the backward pass (one
+non-reentrant checkpoint a layer; "dots" is taken as "full").  The head is
 an f32 product with TF32 off, as in JAX.
 
 The cache is a list with one flat dict per sub-layer, the batch on axis 0 of
@@ -26,12 +32,14 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import no_tf32
 from repro_torch.models.attention import DecodeStep
 from repro_torch.models.layers import (
+    CastWeights,
     dense_init_,
     dtype_of,
     embedding_init_,
@@ -90,6 +98,9 @@ class Model(nn.Module):
         # RoPE width: MLA rotates its rope slice; whisper and RWKV nothing
         self.rope_dim = (cfg.mla.rope_head_dim if cfg.mla is not None
                          else 0 if cfg.family in ("encdec", "ssm") else cfg.resolved_head_dim)
+        for mod in self.modules():
+            if isinstance(mod, CastWeights):
+                mod.cdt = self.cdt
         if seed is not None:
             self.init_weights(seed)
 
@@ -114,8 +125,7 @@ class Model(nn.Module):
         self.cast_weights()
 
     def cast_weights(self) -> None:
-        """(Re)make the compute-dtype weights of the layers; call after
-        changing parameters in place."""
+        """(Re)make the compute-dtype weights of the layers."""
         for layer in self._all_layers():
             cast_layer(layer, self.cdt)
 
@@ -144,9 +154,7 @@ class Model(nn.Module):
         c = self.cfg
         x = torch.as_tensor(frames).to(self.device, self.cdt) @ self.frame_proj.to(self.cdt)
         x = x + sinusoidal_positions(x.shape[1], c.d_model, self.device)[None].to(self.cdt)
-        aux = self._zero_aux()
-        for layer in self.enc:
-            x, _ = layer(x, Seq(rope=(None, None)), aux)
+        x = self._run(self.enc, x, Seq(rope=(None, None)), self._zero_aux(), None)
         return layer_norm(x, self.enc_norm, self.enc_norm_bias, c.norm_eps)
 
     def _head(self, x: Tensor) -> Tensor:
@@ -169,6 +177,37 @@ class Model(nn.Module):
             return None, None
         return rope_tables(positions, self.rope_dim, self.cfg.rope_theta)
 
+    def _run(self, layers, x: Tensor, seq: Seq, aux: dict, caches: list | None) -> Tensor:
+        """x through ``layers`` in order, their router losses added into
+        ``aux`` and their caches appended to ``caches`` where given.  While
+        autograd records and ``cfg.remat`` is not "none", each layer is one
+        checkpoint that returns its router losses (a recompute in the
+        backward pass adds nothing to ``aux`` twice)."""
+        remat = torch.is_grad_enabled() and self.cfg.remat != "none"
+        for layer in layers:
+            if remat:
+                x, la, lz = checkpoint(_layer_with_losses, layer, x, seq,
+                                       use_reentrant=False, preserve_rng_state=False)
+                aux["router_aux"] = aux["router_aux"] + la
+                aux["router_z"] = aux["router_z"] + lz
+                continue
+            x, cache = layer(x, seq, aux)
+            if caches is not None:
+                caches.append(cache)
+        return x
+
+    def _forward(self, tokens, frames, patches, collect_cache: bool):
+        tokens = torch.as_tensor(tokens)
+        b, s = tokens.shape
+        x = self._frontend(self._embed_tokens(tokens), patches)
+        enc = self._encode(frames) if self.cfg.family == "encdec" else None
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        seq = Seq(rope=self._rope(positions), enc=enc)
+        aux = self._zero_aux()
+        caches = [] if collect_cache else None
+        x = self._run(self.layers, x, seq, aux, caches)
+        return self._head(x), aux, caches
+
     # ------------------------------------------------------------- forward
     @torch.no_grad()
     def forward(self, tokens: Tensor, *, frames: Tensor | None = None,
@@ -177,18 +216,35 @@ class Model(nn.Module):
         for whisper, ``patches`` (B, P, D) for the vision stub).  Returns
         (logits (B, S, V) f32, {"router_aux", "router_z"} summed over the
         layers (zero without MoE), per-layer caches or None)."""
-        tokens = torch.as_tensor(tokens)
-        b, s = tokens.shape
-        x = self._frontend(self._embed_tokens(tokens), patches)
-        enc = self._encode(frames) if self.cfg.family == "encdec" else None
-        positions = torch.arange(s, device=self.device).expand(b, s)
-        seq = Seq(rope=self._rope(positions), enc=enc)
-        aux = self._zero_aux()
-        caches = []
-        for layer in self.layers:
-            x, cache = layer(x, seq, aux)
-            caches.append(cache)
-        return self._head(x), aux, (caches if collect_cache else None)
+        return self._forward(tokens, frames, patches, collect_cache)
+
+    # ---------------------------------------------------------------- loss
+    def loss(self, batch: dict) -> tuple[Tensor, dict]:
+        """Mean next-token cross-entropy over the targets in [0,
+        vocab_size), the logsumexp over the padded vocabulary, plus
+        ``router_aux_coef`` x aux and ``router_z_coef`` x z where
+        ``cfg.moe``: the JAX package's ``Model.loss``.  ``batch`` holds
+        "tokens" and "targets" (B, S), and "frames" / "patches" where the
+        family takes them (arrays or tensors, anywhere).  Returns (loss,
+        {"ce", "tokens", "router_aux" (MoE)}), differentiable while autograd
+        records."""
+        c = self.cfg
+        logits, aux, _ = self._forward(batch["tokens"], batch.get("frames"),
+                                       batch.get("patches"), False)
+        targets = torch.as_tensor(batch["targets"]).to(self.device, torch.int64)
+        mask = (targets >= 0) & (targets < c.vocab_size)
+        tsafe = targets.clamp(0, c.padded_vocab - 1)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tsafe[..., None])[..., 0]
+        ce = (logz - gold) * mask
+        denom = mask.sum().clamp(min=1)
+        loss = ce.sum() / denom
+        metrics = {"ce": loss, "tokens": denom}
+        if c.moe is not None:
+            loss = loss + c.moe.router_aux_coef * aux["router_aux"]
+            loss = loss + c.moe.router_z_coef * aux["router_z"]
+            metrics["router_aux"] = aux["router_aux"]
+        return loss, metrics
 
     # ------------------------------------------------------------- prefill
     @torch.no_grad()
@@ -235,6 +291,15 @@ class Model(nn.Module):
 
             logits = knn_interpolate(logits, x[:, 0, :], datastore, self.cfg)
         return logits
+
+
+def _layer_with_losses(layer: nn.Module, x: Tensor, seq: Seq):
+    """One layer as a function of its input: (output, router aux, router z)
+    from an aux dict of its own."""
+    z = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"router_aux": z, "router_z": z}
+    x, _ = layer(x, seq, aux)
+    return x, aux["router_aux"], aux["router_z"]
 
 
 def num_params(model: Model) -> int:

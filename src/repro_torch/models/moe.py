@@ -18,10 +18,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import SwiGLU, dense_init_, dtype_of, param
+from repro_torch.models.layers import CastWeights, SwiGLU, dense_init_, dtype_of, param
 
 Tensor = torch.Tensor
 
@@ -78,7 +77,7 @@ def dispatch(top_e: Tensor, num_experts: int, cap: int) -> tuple[Tensor, Tensor,
     return slot_tok, valid, row
 
 
-class MoE(nn.Module):
+class MoE(CastWeights):
     """Routed experts (E, D, F) and (E, F, D) in ``cfg.param_dtype``, an f32
     router (D, E) and, for deepseek-v2, ``num_shared`` always-on experts as
     one SwiGLU of width ``num_shared * d_ff_expert`` (``shared``)."""
@@ -96,6 +95,7 @@ class MoE(nn.Module):
         self.shared = SwiGLU(d, m.num_shared * f, pdt, device) if m.num_shared else None
         self.c: dict[str, Tensor] = {}
 
+    @torch.no_grad()
     def init_(self, g: torch.Generator) -> None:
         dense_init_(self.router, g, self.router.shape[0] ** -0.5)
         for w in (self.w_in, self.w_gate, self.w_out):
@@ -103,8 +103,11 @@ class MoE(nn.Module):
         if self.shared is not None:
             self.shared.init_(g)
 
+    def weights(self, dtype: torch.dtype) -> dict[str, Tensor]:
+        return {n: getattr(self, n).to(dtype) for n in ("w_in", "w_gate", "w_out")}
+
     def cast(self, dtype: torch.dtype) -> None:
-        self.c = {n: getattr(self, n).to(dtype) for n in ("w_in", "w_gate", "w_out")}
+        super().cast(dtype)
         if self.shared is not None:
             self.shared.cast(dtype)
 
@@ -116,9 +119,10 @@ class MoE(nn.Module):
         top_e, top_p, aux = route(x2d, self.router, m.top_k)
         cap = capacity(b * s, m.top_k, m.num_experts, m.capacity_factor)
         slot_tok, valid, row = dispatch(top_e, m.num_experts, cap)
+        w = self.w
         xb = x2d[slot_tok] * valid[..., None].to(x.dtype)  # (E, C, D)
-        h = F.silu(torch.bmm(xb, self.c["w_gate"])) * torch.bmm(xb, self.c["w_in"])
-        y = torch.bmm(h, self.c["w_out"]).reshape(-1, d)  # (E*C, D)
+        h = F.silu(torch.bmm(xb, w["w_gate"])) * torch.bmm(xb, w["w_in"])
+        y = torch.bmm(h, w["w_out"]).reshape(-1, d)  # (E*C, D)
         kept = row >= 0
         gate = torch.where(kept, top_p.reshape(-1), 0.0).to(x.dtype)
         contrib = y[row.clamp(min=0)] * gate[:, None]  # (T*k, D)

@@ -17,10 +17,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init_, dtype_of, param
+from repro_torch.models.layers import CastWeights, dense_init_, dtype_of, param
 
 Tensor = torch.Tensor
 
@@ -46,7 +45,7 @@ def shifted(x: Tensor, prev: Tensor | None) -> Tensor:
     return torch.cat([prev.to(x.dtype), x[:, :-1]], 1)
 
 
-class TimeMix(nn.Module):
+class TimeMix(CastWeights):
     """Time-mix weights: wr, wk, wv, wg, wo (D, D), lora_a (D, 5 * 32),
     lora_b (5, 32, D), wd_a (D, decay_lora), wd_b (decay_lora, D) in
     ``cfg.param_dtype``; mu_x, mu (5, D), w0, u (H, hd), ln_scale, ln_bias in
@@ -73,6 +72,7 @@ class TimeMix(nn.Module):
         self.ln_bias = param((d,), f32, device)
         self.c: dict[str, Tensor] = {}
 
+    @torch.no_grad()
     def init_(self, g: torch.Generator) -> None:
         self.mu_x.zero_()
         self.mu.zero_()
@@ -86,21 +86,21 @@ class TimeMix(nn.Module):
         self.ln_scale.zero_()
         self.ln_bias.zero_()
 
-    def cast(self, dtype: torch.dtype) -> None:
-        self.c = {n: getattr(self, n).to(dtype) for n in self.CAST}
+    def weights(self, dtype: torch.dtype) -> dict[str, Tensor]:
+        return {n: getattr(self, n).to(dtype) for n in self.CAST}
 
-    def _rkvgw(self, x: Tensor, xx: Tensor):
+    def _rkvgw(self, w: dict, x: Tensor, xx: Tensor):
         dt = x.dtype
         b, s, d = x.shape
         diff = xx - x
-        lo = torch.tanh((x + diff * self.mu_x.to(dt)) @ self.c["lora_a"])
-        delta = torch.einsum("bsfr,frd->bsfd", lo.reshape(b, s, 5, LORA), self.c["lora_b"])
+        lo = torch.tanh((x + diff * self.mu_x.to(dt)) @ w["lora_a"])
+        delta = torch.einsum("bsfr,frd->bsfd", lo.reshape(b, s, 5, LORA), w["lora_b"])
         xr, xk, xv, xg, xw = (x + diff * (self.mu[i].to(dt) + delta[..., i, :]) for i in range(5))
-        r = (xr @ self.c["wr"]).reshape(b, s, self.h, self.hd)
-        k = (xk @ self.c["wk"]).reshape(b, s, self.h, self.hd)
-        v = (xv @ self.c["wv"]).reshape(b, s, self.h, self.hd)
-        gate = F.silu(xg @ self.c["wg"])
-        wdec = self.w0.float() + torch.tanh(xw @ self.c["wd_a"]).float() @ self.wd_b.float()
+        r = (xr @ w["wr"]).reshape(b, s, self.h, self.hd)
+        k = (xk @ w["wk"]).reshape(b, s, self.h, self.hd)
+        v = (xv @ w["wv"]).reshape(b, s, self.h, self.hd)
+        gate = F.silu(xg @ w["wg"])
+        wdec = self.w0.float() + torch.tanh(xw @ w["wd_a"]).float() @ self.wd_b.float()
         w = torch.exp(-torch.exp(wdec)).reshape(b, s, self.h, self.hd)
         return r, k, v, gate, w
 
@@ -108,7 +108,8 @@ class TimeMix(nn.Module):
         """Time-mix over x (B, S, D) from the carried (shift, wkv) state, or
         from zeros.  Returns (out, last position of x, final wkv state)."""
         b, s, d = x.shape
-        r, k, v, gate, w = self._rkvgw(x, shifted(x, shift))
+        wts = self.w
+        r, k, v, gate, w = self._rkvgw(wts, x, shifted(x, shift))
         st = wkv if wkv is not None else torch.zeros(
             (b, self.h, self.hd, self.hd), dtype=torch.float32, device=x.device)
         r, k, v, w = r.float(), k.float(), v.float(), w.float()
@@ -120,10 +121,10 @@ class TimeMix(nn.Module):
             st = w[:, t, :, :, None] * st + kv
         y = torch.stack(ys, 1).reshape(b, s, d).to(x.dtype)
         y = group_norm(y, self.ln_scale, self.ln_bias, self.h) * gate
-        return y @ self.c["wo"], x[:, -1:], st
+        return y @ wts["wo"], x[:, -1:], st
 
 
-class ChannelMix(nn.Module):
+class ChannelMix(CastWeights):
     """Channel-mix weights: wk (D, F), wv (F, D), wr (D, D) in
     ``cfg.param_dtype``; mu_k, mu_r in f32."""
 
@@ -140,20 +141,22 @@ class ChannelMix(nn.Module):
         self.wr = param((d, d), pdt, device)
         self.c: dict[str, Tensor] = {}
 
+    @torch.no_grad()
     def init_(self, g: torch.Generator) -> None:
         self.mu_k.zero_()
         self.mu_r.zero_()
         for name in self.CAST:
             dense_init_(getattr(self, name), g)
 
-    def cast(self, dtype: torch.dtype) -> None:
-        self.c = {n: getattr(self, n).to(dtype) for n in self.CAST}
+    def weights(self, dtype: torch.dtype) -> dict[str, Tensor]:
+        return {n: getattr(self, n).to(dtype) for n in self.CAST}
 
     def forward(self, x: Tensor, shift: Tensor | None = None) -> tuple[Tensor, Tensor]:
         """Returns (out, last position of x)."""
         dt = x.dtype
+        w = self.w
         diff = shifted(x, shift) - x
         xk = x + diff * self.mu_k.to(dt)
         xr = x + diff * self.mu_r.to(dt)
-        kk = torch.square(torch.relu(xk @ self.c["wk"]))
-        return torch.sigmoid(xr @ self.c["wr"]) * (kk @ self.c["wv"]), x[:, -1:]
+        kk = torch.square(torch.relu(xk @ w["wk"]))
+        return torch.sigmoid(xr @ w["wr"]) * (kk @ w["wv"]), x[:, -1:]

@@ -88,8 +88,7 @@ class Seq:
 
 
 def _norm(d: int, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros((d,), dtype=torch.float32, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.zeros((d,), dtype=torch.float32, device=device))
 
 
 def _add_aux(aux: dict, losses: dict) -> None:
@@ -253,6 +252,7 @@ def stage_layers(stages: list[Stage], cfg: ModelConfig, device=None) -> nn.Modul
     )
 
 
+@torch.no_grad()
 def init_layer_(layer: nn.Module, g: torch.Generator) -> None:
     """The JAX package's init distributions for every sub-module of a layer
     (norm scales and biases start at zero)."""

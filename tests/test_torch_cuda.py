@@ -701,3 +701,58 @@ def test_moe_capacity_drops_on_the_card(dev):
     _, _, row_card = moe.dispatch(top_e.to(dev), 4, 8)
     assert (row < 0).any() and torch.equal(row_card.cpu(), row)
     torch.testing.assert_close(card(x.to(dev))[0].cpu(), host(x)[0], rtol=1e-5, atol=1e-5)
+
+
+class _Grads:
+    """Stands in for ``torch.autograd.grad`` inside a train step: records
+    what it returns, or returns ``replay`` (moved to the CPU) instead."""
+
+    def __init__(self, replay=None):
+        self.fn, self.replay, self.got = torch.autograd.grad, replay, []
+
+    def __call__(self, outputs, inputs, **kw):
+        out = self.fn(outputs, inputs, **kw) if self.replay is None else tuple(
+            g.to(p.device) for g, p in zip(self.replay, inputs))
+        self.got.append(out)
+        return out
+
+
+def test_train_step_on_the_card(dev, monkeypatch):
+    """One smoke-config train step (AdamW, f32 compute) on the card against
+    the same seeded weights and batch on the CPU: the loss (rtol 1e-5), the
+    gradients (rtol 1e-5, atol 1e-4 of each parameter's largest gradient:
+    two f32 evaluations), and the updated parameters and moments (rtol
+    1e-5, atol 1e-5 of each leaf's largest |value|) against the CPU's step
+    fed the card's gradients, since AdamW's sign-like first update moves a
+    gradient element within rounding of zero either way."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.models.model import Model
+    from repro_torch.optim import get_optimizer
+    from repro_torch.tree import tree_leaves
+    from repro_torch.train.train_step import init_train_state, make_train_step
+
+    cfg = get_smoke_config("smollm-135m").replace(compute_dtype="float32")
+    batch = TokenPipeline(DataConfig(seq_len=16, global_batch=4, vocab_size=256)).batch_at(0)
+    models = {"cpu": Model(cfg, device="cpu", seed=0), "replay": Model(cfg, device="cpu", seed=0),
+              "card": Model(cfg, device=dev, seed=None)}
+    models["card"].load_state_dict(models["cpu"].state_dict())
+    out = {}
+    for name in ("card", "cpu", "replay"):
+        m = models[name]
+        opt = get_optimizer("adamw")
+        rec = _Grads(out["card"][1][0] if name == "replay" else None)
+        monkeypatch.setattr(torch.autograd, "grad", rec)
+        step = make_train_step(m, opt, lambda s: torch.tensor(1e-3, device=s.device))
+        state, met = step(init_train_state(m, opt), batch)
+        monkeypatch.undo()
+        out[name] = (float(met["loss"]), rec.got,
+                     [t.value().cpu() if hasattr(t, "value") else t.cpu()
+                      for t in tree_leaves({"params": state["params"], "opt": state["opt"]})])
+    np.testing.assert_allclose(out["card"][0], out["cpu"][0], rtol=1e-5)
+    for got, want in zip(out["card"][1][0], out["cpu"][1][0]):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                   atol=1e-4 * float(want.abs().max()))
+    for got, want in zip(out["card"][2], out["replay"][2]):
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-5 * max(float(want.float().abs().max()), 1e-30))

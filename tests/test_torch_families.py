@@ -63,6 +63,8 @@ def _t(a):
 
 
 def _np(a):
+    if isinstance(a, torch.Tensor):  # a module called outside no_grad records its graph
+        a = a.detach()
     return np.asarray(a, np.float32)
 
 

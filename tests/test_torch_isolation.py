@@ -44,7 +44,11 @@ def test_import_loads_no_jax_and_no_repro():
               "repro_torch.configs.jamba_1_5_large_398b", "repro_torch.configs.granite_20b",
               "repro_torch.configs.deepseek_67b", "repro_torch.configs.rwkv6_3b",
               "repro_torch.configs.deepseek_v2_236b",
-              "repro_torch.configs.qwen3_moe_235b_a22b"):
+              "repro_torch.configs.qwen3_moe_235b_a22b", "repro_torch.tree",
+              "repro_torch.optim", "repro_torch.optim.optimizer", "repro_torch.optim.schedule",
+              "repro_torch.train", "repro_torch.train.train_step", "repro_torch.train.trainer",
+              "repro_torch.checkpoint", "repro_torch.checkpoint.checkpointing",
+              "repro_torch.data.pipeline", "repro_torch.launch.train"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -107,6 +111,21 @@ def test_serving_entry_points_refuse_cpu(monkeypatch):
         launch_serve.main(["--requests", "1"])
     assert Model(cfg, device="cpu").device.type == "cpu"
     assert build_flat_datastore(keys, np.zeros(4, np.int32), device="cpu").keys.is_cpu
+
+
+def test_training_entry_points_refuse_cpu(monkeypatch, tmp_path):
+    """The train launcher runs on the card unless ``--device`` names
+    another device: without CUDA it raises before building anything, and
+    ``--device cpu`` trains."""
+    from repro_torch.launch import train as launch_train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--smoke-model", "--steps", "1", "--ckpt-dir", str(tmp_path)])
+    assert not tmp_path.joinpath("step_00000001").exists()
+    rep = launch_train.main(["--smoke-model", "--steps", "1", "--batch", "2", "--seq", "8",
+                             "--ckpt-dir", str(tmp_path), "--device", "cpu"])
+    assert len(rep.losses) == 1
 
 
 def test_family_models_refuse_cpu(monkeypatch):
