@@ -128,7 +128,24 @@ Phases, in order; any failure raises and the run exits non-zero:
     8 x 512 (bf16 compute, AdamW, remat), the loss held to fall by 2 nats,
     checkpoints at steps 100 and 200, and a fresh trainer resumed from step
     200 bit for bit; deepseek-v2-236b at its published widths, depth 3, its
-    loss held to the forward's cross-entropy and its bf16 gradients finite.
+    loss held to the forward's cross-entropy and its bf16 gradients finite;
+20. the launch tooling and MoE's expert-parallel islands: one MoE layer at
+    deepseek-v2-236b's published widths on four islands of the card under
+    (data, model) = (1, 4) and (2, 2), the weight-stationary (T = 8),
+    token-sharded (T = 2,048) and all-to-all paths each held to the
+    single-device layer (f32 compute, atol 1e-4 of the output's scale,
+    equal drop counts); qwen3-moe-235b-a22b at published widths, depth 2,
+    f32: one train step's loss and gradients under (1, 4) with moe_a2a held
+    to the single-device step's; deepseek-v2-236b depth 3 served with phase
+    18's request mix under (1, 4), the MoE on islands and the f32 store
+    split over them (K6 once per island per step), its teacher-forced
+    logits within the bf16 noise band of the single-device run's; the
+    train launcher with ``--mesh auto`` (20 steps) and ``--mesh prod``
+    refused (256 devices); the dry-run of {qwen2-0.5b, deepseek-v2-236b} x
+    {train_4k, decode_32k} x {single, multi} in a child process started at
+    the beginning of the run, each record ok and rendered by
+    ``benchmarks/roofline.py``, and qwen2-0.5b's (1, 1) train step at 8 x
+    512 counting the FLOPs that ``FlopCounterMode`` counts on the card.
 
 The last lines are one JSON object of per-kernel numbers, then
 ``{"ok": true, "device": {...}}``; ``--json PATH`` also writes the full
@@ -137,6 +154,7 @@ per-shape detail there.  Imports nothing of JAX or of ``repro``.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -4121,6 +4139,452 @@ def training_phase(dev, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 20: the launch tooling and MoE's expert-parallel islands
+# --------------------------------------------------------------------------
+
+ISLAND_SHAPES = ((1, 4), (2, 2))  # (data, model) over four islands of the card
+MOE_HOLD_ATOL = 1e-4  # tests/test_moe_paths.py, scaled by the output's max |value|
+MOE_CF = 4.0  # capacity factor of the holds: no drops on either side
+QWEN3_BATCH, QWEN3_SEQ = 1, 576  # 4,608 assignments > 4,096: the all-to-all path
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("qwen2-0.5b", "decode_32k"),
+                ("deepseek-v2-236b", "train_4k"), ("deepseek-v2-236b", "decode_32k"))
+DRYRUN_TIMEOUT = 600
+
+
+def island_mesh(dev, shape):
+    from repro_torch.distributed.context import Mesh
+
+    return Mesh([dev] * 4, shape=shape, axis_names=("data", "model"))
+
+
+def _island_bytes(mod, mesh) -> int:
+    """Bytes one island holds of the MoE's routed and shared weights (its
+    E / tp experts and F / tp shared columns, its D / fsdp slice)."""
+    tp, fsdp = mesh.shape["model"], mesh.shape["data"]
+    routed = sum(getattr(mod, n).numel() * getattr(mod, n).element_size()
+                 for n in ("w_in", "w_gate", "w_out")) // (tp * fsdp)
+    shared = 0 if mod.shared is None else sum(
+        p.numel() * p.element_size() for p in mod.shared.parameters()) // (tp * fsdp)
+    return routed + shared
+
+
+def moe_paths_phase(dev, smi: str) -> dict:
+    """20(a): one MoE layer at deepseek-v2-236b's published widths (d 5,120,
+    160 experts top-6, 2 shared, d_ff_expert 1,536; bf16 params, f32
+    compute for the hold) on four islands of the card under (1, 4) and
+    (2, 2): decode T = 8 (weight-stationary), T = 2 x 1,024 (token-sharded)
+    and the same with moe_a2a (all-to-all), each held to the single-device
+    layer on the same weights and tokens with equal drop counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.distributed.context import use_mesh
+    from repro_torch.models.moe import MoE
+
+    base = family_config("deepseek-v2-236b", 1)
+    cfg = base.replace(compute_dtype="float32",
+                       moe=dataclasses.replace(base.moe, capacity_factor=MOE_CF))
+    mod = MoE(cfg, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    mod.init_(g)
+    mod.cast(torch.float32)
+    wbytes = sum(getattr(mod, n).numel() * getattr(mod, n).element_size()
+                 for n in ("w_in", "w_gate", "w_out"))
+    log(f"[moe] 20(a): deepseek-v2 MoE layer, {wbytes / 1e9:.2f} GB of bf16 routed experts, "
+        f"f32 compute, capacity factor {MOE_CF} ({smi})")
+    out = {}
+    for path, b, s, a2a in (("weight-stationary", 1, 8, False), ("token-sharded", 2, 1024, False),
+                            ("all-to-all", 2, 1024, True)):
+        mod.a2a = a2a
+        x = torch.randn((b, s, cfg.d_model), generator=g, device=dev)
+        with torch.no_grad():
+            ref, _ = mod(x)
+            ref_drops = int(mod.dropped)
+            single_ms = device_ms(lambda: mod(x))
+        row = dict(tokens=b * s, single_ms=single_ms, drops=ref_drops, meshes={})
+        for shape in ISLAND_SHAPES:
+            mesh = island_mesh(dev, shape)
+            with torch.no_grad(), use_mesh(mesh):
+                got, _ = mod(x)
+                drops = int(mod.dropped)
+                ms = device_ms(lambda: mod(x))
+            scale = float(ref.abs().max())
+            gap = float((got - ref).abs().max())
+            require(drops == ref_drops, f"20(a) {path} {shape}: {drops} drops, single {ref_drops}")
+            require(gap <= MOE_HOLD_ATOL * scale,
+                    f"20(a) {path} {shape}: max |islands - single| {gap:.3e} > "
+                    f"{MOE_HOLD_ATOL} x {scale:.3e}")
+            row["meshes"][str(shape)] = dict(ms=ms, gap=gap, scale=scale,
+                                             island_bytes=_island_bytes(mod, mesh))
+            log(f"[moe] 20(a) {path} T={b * s} mesh {shape}: {ms:.3f} ms on islands vs "
+                f"{single_ms:.3f} ms single; max gap {gap:.3e} (output max {scale:.3e}, "
+                f"tol {MOE_HOLD_ATOL * scale:.3e}); drops {drops} = {ref_drops}; "
+                f"{_island_bytes(mod, mesh) / 1e9:.3f} GB of bf16 weights an island ({smi})")
+        out[path] = row
+    del mod
+    free_card()
+    return out
+
+
+def qwen3_island_step(dev, smi: str) -> dict:
+    """20(b): qwen3-moe-235b-a22b at published widths, depth 2, f32: the loss
+    and gradients of one train step under (1, 4) with moe_a2a against the
+    single-device step on the same weights and batch (the single step's
+    gradients held on the host meanwhile), with equal drop counts: the
+    seeded router sends far more than its share to some experts, so the
+    capacity factor is E / k, a buffer holds every token, and neither the
+    single layer nor the all-to-all cells (a quarter of the tokens each)
+    drop."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.distributed.context import use_mesh
+    from repro_torch.models.model import Model, param_bytes
+
+    base = family_config("qwen3-moe-235b-a22b", 2)
+    # capacity factor E / k: a buffer holds every token, so neither side drops
+    cf = base.moe.num_experts / base.moe.top_k
+    cfg = base.replace(param_dtype="float32", compute_dtype="float32", moe_a2a=True,
+                       moe=dataclasses.replace(base.moe, capacity_factor=cf))
+    model = Model(cfg, device=dev, seed=SEED)
+    params = list(model.parameters())
+    toks, _ = family_inputs(cfg, QWEN3_BATCH, QWEN3_SEQ + 1, SEED + 20, dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    moe_gb = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                 if ".moe.w_" in n) / 1e9
+    log(f"[moe] 20(b): qwen3-moe-235b-a22b depth 2, {param_bytes(model) / 1e9:.2f} GB of f32 "
+        f"params ({moe_gb:.2f} GB routed experts), batch {QWEN3_BATCH} x {QWEN3_SEQ}")
+
+    moes = [m for m in model.modules() if hasattr(m, "dropped")]
+
+    def step():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model.loss(batch)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        torch.cuda.synchronize()
+        return loss.detach(), grads, time.perf_counter() - t0
+
+    step()  # warm-up, untimed: cuBLAS handles and the allocator
+    loss_s, grads, t_single = step()
+    drops_s = sum(int(m.dropped) for m in moes)
+    host = [None if gr is None else gr.cpu() for gr in grads]
+    del grads
+    torch.cuda.reset_peak_memory_stats()
+    with use_mesh(island_mesh(dev, (1, 4))):
+        loss_m, grads, t_mesh = step()
+    peak = torch.cuda.max_memory_allocated()
+    drops_m = sum(int(m.dropped) for m in moes)
+    require(drops_m == drops_s, f"20(b): {drops_m} drops on islands, {drops_s} single")
+    loss_gap = abs(float(loss_m) - float(loss_s))
+    require(loss_gap <= 1e-5 * abs(float(loss_s)),
+            f"20(b): island loss {float(loss_m)} vs single {float(loss_s)}")
+    worst = 0.0
+    for (name, _), gm, gs in zip(model.named_parameters(), grads, host):
+        if gs is None:
+            require(gm is None, f"20(b): {name} has a gradient on islands only")
+            continue
+        gs = gs.to(dev)
+        scale = float(gs.abs().max())
+        rel = float((gm - gs).abs().max()) / scale if scale else 0.0
+        require(bool(torch.isfinite(gm).all()), f"20(b): {name} gradient not finite")
+        require(rel <= TRAIN_GRAD_ATOL, f"20(b): {name} gradient off by {rel:.2e} of its scale")
+        worst = max(worst, rel)
+    log(f"[moe] 20(b) loss {float(loss_m):.6f} on islands vs {float(loss_s):.6f} single "
+        f"(gap {loss_gap:.2e}); drops {drops_m} = {drops_s}; worst gradient gap "
+        f"{worst:.2e} of a leaf's scale; "
+        f"loss+grad {t_single * 1e3:.1f} ms single, {t_mesh * 1e3:.1f} ms on (1, 4) islands; "
+        f"peak {peak / 1e9:.2f} GB ({smi})")
+    del model, params, grads, host
+    free_card()
+    return dict(loss_single=float(loss_s), loss_islands=float(loss_m), loss_gap=loss_gap,
+                worst_grad_gap=worst, single_ms=t_single * 1e3, islands_ms=t_mesh * 1e3,
+                peak_bytes=peak)
+
+
+def _serve(model, ds, prompts):
+    """Phase 18's request mix (16 prompts, 32 new tokens each, 8 slots; here
+    ``prompts``) with the launch counts reset just before and read just
+    after."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    eng = ServeEngine(model, num_slots=8, max_len=256, datastore=ds)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=32) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    require(len(done) == len(reqs) and all(r.done and len(r.out_tokens) == 32 for r in reqs),
+            "20(c): a request did not complete")
+    toks = np.concatenate([r.out_tokens for r in reqs])
+    return dict(steps=eng.steps, wall_s=wall, tok_per_s=toks.size / wall,
+                launches=launches["knn_topk"], tokens=toks)
+
+
+def _teacher_forced(model, ds, toks, steps: int = 8):
+    """Prefill of toks[:, :8], then ``steps`` decode steps fed the next
+    tokens: the logits of every step, (steps, B, V) f32."""
+    import torch
+
+    logits, cache = model.prefill(toks[:, :8], max_len=64)
+    out = []
+    for p in range(8, 8 + steps):
+        out.append(model.decode_step(toks[:, p:p + 1], cache, p, datastore=ds).float())
+    return torch.stack(out)
+
+
+def deepseek_island_serving(dev, smi: str) -> dict:
+    """20(c): deepseek-v2-236b depth 3 serving, phase 18's model and request
+    mix on its flat f32 store, under a (1, 4) mesh: the MoE runs on islands
+    and the store splits over them, K6 once per island per step.  The
+    teacher-forced logits under the mesh are held to the single-device
+    run's within the families' bf16 noise band (rms to the f32-compute
+    model <= 1.5x the single bf16 run's + 1e-2 of its rms)."""
+    import torch
+
+    from repro_torch.configs.base import RetrievalConfig
+    from repro_torch.distributed.context import use_mesh
+    from repro_torch.models.model import Model
+
+    arch = "deepseek-v2-236b"
+    rows = FAMILY_STORE_ROWS[arch]
+    cfg = family_config(arch, 3).replace(retrieval=RetrievalConfig(
+        enabled=True, k=SERVE_K, lam=0.25, datastore_size=rows))
+    mesh = island_mesh(dev, (1, 4))
+    store = family_store(dev, cfg, rows)["f32"]
+    toks, _ = family_inputs(cfg, 4, 16, SEED + 21, dev)
+    with torch.no_grad():
+        m32 = Model(cfg.replace(compute_dtype="float32"), device=dev, seed=SEED)
+        ref = _teacher_forced(m32, store, toks)
+        del m32
+        free_card()
+        model = Model(cfg, device=dev, seed=SEED)
+        single = _teacher_forced(model, store, toks)
+        with use_mesh(mesh):
+            islands = _teacher_forced(model, store, toks)
+
+    def rms(a):
+        return float(torch.sqrt(torch.mean(torch.square(a))))
+
+    band = 1.5 * rms(single - ref) + 1e-2 * rms(ref)
+    gap = rms(islands - ref)
+    require(gap <= band, f"20(c): islands' logits rms {gap:.3e} from f32 > band {band:.3e}")
+    prompts = serve_prompts(cfg.vocab_size, 16, SEED)
+    _serve(model, store, prompts[:2])  # warm-up, uncounted
+    one = _serve(model, store, prompts)
+    with use_mesh(mesh):
+        _serve(model, store, prompts[:2])
+        isl = _serve(model, store, prompts)
+    require(one["launches"] == one["steps"], f"20(c): single K6 {one['launches']} launches")
+    require(isl["launches"] == 4 * isl["steps"],
+            f"20(c): K6 launched {isl['launches']} times on the islands, want 4 x {isl['steps']}")
+    agree = float((one["tokens"] == isl["tokens"]).mean())
+    k6 = _time_k6_island(store.keys[: rows // 4], smi)
+    log(f"[moe] 20(c) deepseek-v2 depth 3 serving on (1, 4) islands: {isl['tok_per_s']:.1f} "
+        f"tok/s vs {one['tok_per_s']:.1f} single; K6 {isl['launches']} launches in "
+        f"{isl['steps']} steps; teacher-forced logits rms {gap:.3e} from f32 (band "
+        f"{band:.3e}, single {rms(single - ref):.3e}); greedy tokens equal {agree:.1%} ({smi})")
+    del model, store
+    free_card()
+    return dict(tok_per_s=isl["tok_per_s"], single_tok_per_s=one["tok_per_s"],
+                steps=isl["steps"], launches=isl["launches"], logits_rms=gap, band=band,
+                token_agreement=agree, k6=k6)
+
+
+def _time_k6_island(keys, smi: str) -> dict:
+    """K6 on one island's quarter of 20(c)'s store at the decode batch (Q =
+    8), beside its plain version, cdist + topk and the bound (each input
+    read once, each output written once; 2QND + 2(Q+N)D f32 operations)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.topk import knn_topk_cuda
+
+    n, d = keys.shape
+    q = retrieval_problem(keys, 8, SEED + 8)
+    ms = device_ms(lambda: knn_topk_cuda(q, keys, SERVE_K), reps=21)
+    plain_ms = device_ms(lambda: ref.knn_topk_ref(q, keys, SERVE_K), reps=21)
+    lib_ms = device_ms(lambda: torch.topk(torch.cdist(q, keys).square_(), SERVE_K, dim=1,
+                                          largest=False), reps=21)
+    b_ms, by = bound(4 * (8 * d + n * d) + 8 * 8 * SERVE_K, 2.0 * 8 * n * d + 2.0 * (8 + n) * d)
+    log(f"[time] knn_topk on one island's store (Q=8 N={n} D={d}): kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, cdist+topk {lib_ms:.3f} ms, bound {b_ms:.3f} ms by {by} "
+        f"({b_ms / ms:.1%} of it) ({smi})")
+    return dict(shape=f"Q=8 N={n} D={d} k={SERVE_K}", ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=by)
+
+
+def launcher_on_card(smi: str) -> dict:
+    """20(d): the train launcher with --mesh auto on the card (phase 19's
+    8 x 512 batches: the train_4k cell's 256 x 4,096 would hold ~100 GB of
+    the smoke model's attention blocks for its backward), and the --mesh
+    prod refusal."""
+    import tempfile
+
+    free_card()  # the child needs the card this process has cached
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                              "smollm-135m", "--smoke-model", "--mesh", "auto", "--steps", "20",
+                              "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                              "--ckpt-dir", ck], env=env, capture_output=True, text=True,
+                             timeout=600)
+        auto_s = time.perf_counter() - t0
+    require(run.returncode == 0, f"20(d) --mesh auto exited {run.returncode}: {run.stderr[-2000:]}")
+    final = [ln for ln in run.stdout.splitlines() if ln.startswith("finished: 20 steps")]
+    require(bool(final), f"20(d) --mesh auto: no final loss in {run.stdout[-1000:]}")
+    prod = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke-model",
+                           "--mesh", "prod", "--steps", "1"], env=env, capture_output=True,
+                          text=True, timeout=300)
+    require(prod.returncode != 0 and "needs 256 devices" in prod.stderr,
+            f"20(d) --mesh prod: exit {prod.returncode}, {prod.stderr[-500:]}")
+    mesh_line = next((ln for ln in run.stdout.splitlines() if ln.startswith("mesh:")), "")
+    log(f"[launch] 20(d) --mesh auto: {mesh_line}; {final[0]} in {auto_s:.1f} s; --mesh prod "
+        f"refused: {prod.stderr.strip().splitlines()[-1]} ({smi})")
+    return dict(auto_s=auto_s, final=final[0], prod_exit=prod.returncode)
+
+
+DRYRUN_CHILD = r"""
+import json, sys, time
+from pathlib import Path
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.distributed.context import Mesh
+from repro_torch.launch import dryrun
+out_dir = Path(sys.argv[1])
+cells = json.loads(sys.argv[2])
+recs = []
+for arch, shape in cells:
+    for mk in ("single", "multi"):
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, mk)
+        rec["wall_s"] = time.perf_counter() - t0
+        (out_dir / f"{arch}_{shape}_{mk}.json").write_text(json.dumps(rec, indent=1))
+        recs.append(rec)
+one = Mesh(shape=(1, 1), axis_names=("data", "model"))
+rec = dryrun.run_cell("qwen2-0.5b", "train_4k", "single", mesh=one,
+                      shape=ShapeConfig("train_4k", "train", int(sys.argv[4]), int(sys.argv[3])))
+print("JSON" + json.dumps({"cells": recs, "one": rec}))
+"""
+
+
+class DryrunChild:
+    """20(e)'s dry-run in a child process, started at the beginning of the
+    run: it needs no card (meta tensors, a fake process group of 256 / 512
+    ranks of its own), so its CPU work overlaps phases 1-20."""
+
+    def __init__(self) -> None:
+        import tempfile
+
+        self.dir = tempfile.TemporaryDirectory()
+        d = Path(self.dir.name)
+        self.out, self.err = open(d / "out.txt", "w+"), open(d / "err.txt", "w+")
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CHILD, str(d), json.dumps(DRYRUN_CELLS),
+             str(TRAIN_BATCH), str(TRAIN_SEQ)], env=env, stdout=self.out, stderr=self.err)
+
+    def result(self) -> tuple[int, str, str, float]:
+        """(exit code, stdout, stderr, seconds from its start to its end)."""
+        code = self.proc.wait(timeout=DRYRUN_TIMEOUT)
+        waited = time.perf_counter() - self.t0
+        self.out.seek(0)
+        self.err.seek(0)
+        return code, self.out.read(), self.err.read(), waited
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+        self.err.close()
+        self.dir.cleanup()
+
+
+def dryrun_phase(dev, smi: str, train_peak: int, child: DryrunChild) -> dict:
+    """20(e): the dry-run of the required cells in a child process (its fake
+    process group of 256 / 512 ranks is per process), each record ok and
+    rendered by benchmarks/roofline.py's fmt_table; then qwen2-0.5b's train
+    step on a (1, 1) mesh at phase 19's 8 x 512 through the dry-run's cell
+    builder, its per-device FLOPs equal to FlopCounterMode over the same
+    step run on the card."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    sys.path.insert(0, str(ROOT))
+    from benchmarks.roofline import fmt_table
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.launch import dryrun
+
+    code, stdout, stderr, child_s = child.result()
+    require(code == 0, f"20(e) dry-run child exited {code}: {stderr[-3000:]}")
+    got = json.loads(next(ln for ln in stdout.splitlines() if ln.startswith("JSON"))[4:])
+    for rec in got["cells"]:
+        require(rec["status"] == "ok", f"20(e) {rec['arch']} {rec['shape']} {rec['mesh']}: "
+                f"{rec.get('error')}")
+        r = rec["roofline"]
+        log(f"[dryrun] {rec['arch']} {rec['shape']} {rec['mesh']}: {rec['wall_s']:.1f} s; "
+            f"per device {rec['hlo_cost']['flops']:.3e} FLOPs, collectives "
+            f"{rec['hlo_cost']['collective_bytes']:.3e} B, memory model "
+            f"{rec['memory_model']['total']:.3e} B; roofline compute {r['compute_s']:.3e} s, "
+            f"memory {r['memory_s']:.3e} s, collective {r['collective_s']:.3e} s "
+            f"({r['dominant']}); replicated ops {rec['replicated_ops']}")
+    for mk in ("single", "multi"):
+        table = fmt_table([r for r in got["cells"] if r["mesh"] == mk])
+        require(table.count("| ok |") == len(DRYRUN_CELLS), f"20(e) fmt_table {mk}: {table}")
+        for line in table.splitlines():
+            log(f"[dryrun] {mk} {line}")
+    one = got["one"]
+    cfg = dryrun.cell_config("qwen2-0.5b", "train_4k")
+    shape = ShapeConfig("train_4k", "train", TRAIN_SEQ, TRAIN_BATCH)
+    fn, args, _ = dryrun.build_cell(cfg, shape, Mesh(shape=(1, 1), axis_names=("data", "model")),
+                                    device=dev)
+    with FlopCounterMode(display=False) as fc:
+        fn(*args)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    require(one["hlo_cost"]["flops"] == card_flops,
+            f"20(e) (1, 1): dry-run {one['hlo_cost']['flops']} FLOPs, card {card_flops}")
+    log(f"[dryrun] 20(e) qwen2-0.5b train {TRAIN_BATCH} x {TRAIN_SEQ} on (1, 1): "
+        f"{card_flops:.6e} FLOPs a step, dry-run = card's FlopCounterMode; memory model "
+        f"{one['memory_model']['total'] / 1e9:.2f} GB of traffic, local state "
+        f"{one['memory']['argument_bytes'] / 1e9:.2f} GB beside phase 19's measured peak "
+        f"{train_peak / 1e9:.2f} GB allocated; the child took {child_s:.1f} s ({smi})")
+    del fn, args
+    free_card()
+    return dict(cells=got["cells"], one_flops=card_flops, child_s=child_s,
+                memory_model_total=one["memory_model"]["total"],
+                argument_bytes=one["memory"]["argument_bytes"], train_peak=train_peak)
+
+
+def launch_phase(dev, smi: str, train_peak: int, child: DryrunChild) -> dict:
+    """Phase 20: the launch tooling and MoE's expert-parallel islands on the
+    card.  The K6 launches of 20(c)'s island serving are counted from zero
+    just before it and read just after."""
+    t0 = time.perf_counter()
+    out = dict(moe=moe_paths_phase(dev, smi), qwen3=qwen3_island_step(dev, smi),
+               serving=deepseek_island_serving(dev, smi), launcher=launcher_on_card(smi),
+               dryrun=dryrun_phase(dev, smi, train_peak, child))
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[launch] phase 20 {out['seconds']:.1f} s ({smi})")
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4148,6 +4612,16 @@ def main(argv=None) -> int:
               "of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    child = DryrunChild()
+    try:
+        return run(args, child)
+    finally:
+        child.close()
+
+
+def run(args, child) -> int:
+    import torch
+
     from repro_torch.kernels import _build
     from repro_torch.kernels.ref import no_tf32
 
@@ -4201,6 +4675,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     families = families_phase(dev, smi)
     training = training_phase(dev, smi)
+    launch = launch_phase(dev, smi, training["qwen"]["peak_bytes"], child)
 
     # how much of each search's wall time its one K1 launch accounts for
     walls = {(n, qz, bm): w for n, qz, bm, _, w in sl["results"]}
@@ -4255,7 +4730,7 @@ def main(argv=None) -> int:
                       dbscan=db, profile=prof_rows, serve=sv, stream=stream,
                       ward_stream=ward_stream, blob_obm=blob_obm, forest_serve=forest_serve,
                       persist_explain=persist_explain, layout=layout, families=families,
-                      training=training, nvcc_s=t_build, seconds=time.perf_counter() - t_start)
+                      training=training, launch=launch, nvcc_s=t_build, seconds=time.perf_counter() - t_start)
         out = Path(args.json)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps(detail, indent=1, default=float))

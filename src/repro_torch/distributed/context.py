@@ -2,48 +2,117 @@
 
 The JAX package's mesh is a ``jax.sharding.Mesh`` that one process drives
 through ``shard_map``.  Here a ``Mesh`` is the same single-controller idea
-in plain torch: one torch device per island along one named axis.  A
-device may repeat (``["cuda:0"] * 4`` is four islands on one card, as a
-forced host platform count gives the JAX package four islands on one CPU),
-and islands run one after another on their device's current stream.
+in plain torch: named axes of a given shape, and one torch device per
+island, the islands in row-major order over the shape (as
+``jax.make_mesh`` orders its devices).  A device may repeat
+(``["cuda:0"] * 4`` is four islands on one card, as a forced host platform
+count gives the JAX package four islands on one CPU), and islands run one
+after another on their device's current stream.  ``Mesh(devices)`` is one
+``"model"`` axis over the devices; a mesh made without devices is abstract
+(shape and names only), which is all the sharding rules and the dry-run
+read.
 
 Code that wants the sharded path looks the active mesh up here
-(``serve.retrieval.knn_logits`` splits a flat datastore over it); with no
-mesh it runs on one device.
+(``serve.retrieval.knn_logits`` splits a flat datastore over the model
+axis, the MoE layer runs its expert-parallel islands); with no mesh it runs
+on one device.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from collections.abc import Iterator, Sequence
 
 import torch
 
+# Logical -> physical axis mapping (see distributed/sharding.py).
+BATCH_AXES = ("pod", "data")  # batch / fsdp axes present in the mesh
 MODEL_AXIS = "model"
 
 
 class Mesh:
-    """One-axis island mesh: ``devices[s]`` is island ``s``'s torch device.
+    """Named axes of ``shape`` and, unless abstract, one torch device per
+    island in row-major order: ``devices[s]`` is island ``s``'s device.
 
-    ``shape[axis]`` is the island count, as on a ``jax.sharding.Mesh``.
+    ``Mesh(devices)`` is one axis ``axis`` over ``devices``;
+    ``Mesh(devices, shape=(2, 2), axis_names=("data", "model"))`` lays the
+    devices out row-major; ``Mesh(shape=..., axis_names=...)`` has no
+    devices.  ``shape`` reads as a ``{name: size}`` dict, as on a
+    ``jax.sharding.Mesh``.
     """
 
-    def __init__(self, devices: Sequence, axis: str = MODEL_AXIS) -> None:
-        if len(devices) < 1:
-            raise ValueError("a Mesh needs at least one device")
-        self.devices: tuple[torch.device, ...] = tuple(torch.device(d) for d in devices)
-        self.axis = axis
+    def __init__(self, devices: Sequence | None = None, axis: str = MODEL_AXIS, *,
+                 shape: Sequence[int] | None = None,
+                 axis_names: Sequence[str] | None = None) -> None:
+        names = tuple(axis_names) if axis_names is not None else (axis,)
+        if shape is None:
+            if devices is None:
+                raise ValueError("a Mesh needs devices or a shape")
+            shape = (len(devices),)
+        shape = tuple(int(n) for n in shape)
+        if len(shape) != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"mesh shape {shape} does not fit axis names {names}")
+        if math.prod(shape) < 1:
+            raise ValueError("a Mesh needs at least one island")
+        self._shape = shape
+        self._names = names
+        self.devices: tuple[torch.device, ...] | None = None
+        if devices is not None:
+            if len(devices) != math.prod(shape):
+                raise ValueError(
+                    f"a mesh of shape {shape} needs {math.prod(shape)} devices, "
+                    f"given {len(devices)}")
+            self.devices = tuple(torch.device(d) for d in devices)
 
     @property
     def axis_names(self) -> tuple[str, ...]:
-        return (self.axis,)
+        return self._names
 
     @property
     def shape(self) -> dict[str, int]:
-        return {self.axis: len(self.devices)}
+        return dict(zip(self._names, self._shape))
 
     @property
     def size(self) -> int:
-        return len(self.devices)
+        return math.prod(self._shape)
+
+    @property
+    def abstract(self) -> bool:
+        return self.devices is None
+
+    def coords(self, s: int) -> dict[str, int]:
+        """Island ``s``'s index along each axis."""
+        out = {}
+        for name, n in zip(reversed(self._names), reversed(self._shape)):
+            out[name] = s % n
+            s //= n
+        return {a: out[a] for a in self._names}
+
+    def index(self, coords: dict[str, int]) -> int:
+        """The island at ``coords`` (axes not named are at index 0)."""
+        s = 0
+        for name, n in zip(self._names, self._shape):
+            s = s * n + coords.get(name, 0)
+        return s
+
+    def group(self, s: int, axes: Sequence[str]) -> list[int]:
+        """The islands that share island ``s``'s index on every axis but
+        ``axes``, ordered row-major over ``axes`` (the members of a
+        collective over ``axes``, in the order ``all_gather`` tiles them)."""
+        c = self.coords(s)
+        members = [dict(c)]
+        for a in axes:
+            members = [dict(m, **{a: i}) for m in members for i in range(self.shape[a])]
+        return [self.index(m) for m in members]
+
+    def islands(self, axis: str, at: dict[str, int] | None = None) -> list[int]:
+        """The islands along ``axis`` at index ``at`` on the other axes
+        (0 where not named)."""
+        return self.group(self.index(at or {}), (axis,))
+
+    def __repr__(self) -> str:
+        where = "abstract" if self.abstract else f"{len(set(self.devices))} device(s)"
+        return f"Mesh({self.shape}, {where})"
 
 
 _ACTIVE: list[Mesh | None] = [None]
@@ -61,6 +130,13 @@ def use_mesh(mesh: Mesh | None) -> Iterator[None]:
         yield
     finally:
         _ACTIVE[0] = prev
+
+
+def batch_axes(mesh: Mesh | None = None) -> tuple[str, ...]:
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return ()
+    return tuple(a for a in BATCH_AXES if a in mesh.axis_names)
 
 
 def model_axis_size(mesh: Mesh | None = None) -> int:

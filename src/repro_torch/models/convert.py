@@ -189,6 +189,57 @@ def jax_tree(model: Model) -> dict:
     return tree
 
 
+def _cache_unit(lane: dict) -> dict:
+    """One sub-layer's flat cache dict in the JAX package's nesting (RWKV's
+    ``tm_shift`` is ``{"tm": {"shift"}}``)."""
+    out: dict = {}
+    for name, t in lane.items():
+        head, _, rest = name.partition("_")
+        if head in ("tm", "cm") and rest:
+            out.setdefault(head, {})[rest] = t
+        else:
+            out[name] = t
+    return out
+
+
+def jax_cache_tree(model: Model, cache: list) -> list:
+    """The JAX package's decode-cache tree of ``model``'s cache (one flat
+    dict a sub-layer): a list over stages, a scanned stage's unit
+    ``{"u<j>": ...}`` with its repeats stacked on a new axis 0 (leaves
+    ``CacheLeaf``), an unscanned stage a list of units."""
+    out, lanes = [], list(cache)
+    for st in model.stages:
+        width = len(st.unit)
+        units = [{f"u{j}": _cache_unit(lanes[r * width + j]) for j in range(width)}
+                 for r in range(st.n)]
+        lanes = lanes[st.n * width:]
+        out.append(_stack_cache(units) if st.scan else units)
+    return out
+
+
+class CacheLeaf:
+    """A scanned stage's cache leaf: its layers' tensors (``parts``) seen
+    as one stacked array (``shape``, ``dtype``) without stacking them."""
+
+    def __init__(self, parts: list):
+        self.parts = parts
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        return (len(self.parts),) + tuple(self.parts[0].shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+
+def _stack_cache(units: list):
+    first = units[0]
+    if isinstance(first, dict):
+        return {k: _stack_cache([u[k] for u in units]) for k in first}
+    return CacheLeaf(units)
+
+
 def params_to_jax(model: Model) -> dict:
     """``model``'s weights as the JAX package's param tree of numpy arrays
     (bf16 widened to f32, exactly): ``params_from_jax``'s input."""

@@ -31,11 +31,13 @@ the SSM/WKV states in f32.  ``decode_step`` updates it in place.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.kernels.ref import no_tf32
 from repro_torch.models.attention import DecodeStep
 from repro_torch.models.layers import (
@@ -131,7 +133,10 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------- helpers
     def _embed_tokens(self, tokens: Tensor, pos0: Tensor | None = None) -> Tensor:
-        x = self.embed[tokens.to(self.device).long()].to(self.cdt)
+        tok = tokens.to(self.device).long()
+        # one flat lookup: a vocab-sharded table's masked partial lookup
+        # (the dry-run's sharded run) reduces over a 1-d index only
+        x = F.embedding(tok.reshape(-1), self.embed).reshape(*tok.shape, -1).to(self.cdt)
         if self.cfg.family == "encdec":
             # whisper: sinusoidal positions at each row's own offset
             b, s = tokens.shape
@@ -139,7 +144,7 @@ class Model(nn.Module):
             if pos0 is not None:  # (B,) decode positions
                 positions = positions + pos0[:, None]
             x = x + sinusoidal_at(positions, self.cfg.d_model).to(self.cdt)
-        return x
+        return logical_constraint(x, ("batch", "seq", "embed"))
 
     def _frontend(self, x: Tensor, patches: Tensor | None) -> Tensor:
         """vision stub: precomputed patch embeddings replace the leading
@@ -165,8 +170,10 @@ class Model(nn.Module):
             x = rms_norm(x, self.final_norm, c.norm_eps)
         x = x.float()
         if self.lm_head is None:
-            return torch.einsum("bsd,vd->bsv", x, self.embed.float())
-        return x @ self.lm_head.float()
+            logits = torch.einsum("bsd,vd->bsv", x, self.embed.float())
+        else:
+            logits = x @ self.lm_head.float()
+        return logical_constraint(logits, ("batch", "seq", "vocab"))
 
     def _zero_aux(self) -> dict[str, Tensor]:
         z = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -185,6 +192,7 @@ class Model(nn.Module):
         backward pass adds nothing to ``aux`` twice)."""
         remat = torch.is_grad_enabled() and self.cfg.remat != "none"
         for layer in layers:
+            x = logical_constraint(x, ("batch", "seq", "embed"))
             if remat:
                 x, la, lz = checkpoint(_layer_with_losses, layer, x, seq,
                                        use_reentrant=False, preserve_rng_state=False)
@@ -235,7 +243,12 @@ class Model(nn.Module):
         mask = (targets >= 0) & (targets < c.vocab_size)
         tsafe = targets.clamp(0, c.padded_vocab - 1)
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, tsafe[..., None])[..., 0]
+        if hasattr(logits, "device_mesh"):
+            # the dry-run's vocab-sharded logits: DTensor's masked gather
+            # cannot reduce a 3-d index, a one-hot contraction can
+            gold = (logits * F.one_hot(tsafe, logits.shape[-1]).to(logits.dtype)).sum(-1)
+        else:
+            gold = torch.gather(logits, -1, tsafe[..., None])[..., 0]
         ce = (logz - gold) * mask
         denom = mask.sum().clamp(min=1)
         loss = ce.sum() / denom
@@ -249,14 +262,18 @@ class Model(nn.Module):
     # ------------------------------------------------------------- prefill
     @torch.no_grad()
     def prefill(self, tokens: Tensor, *, frames: Tensor | None = None,
-                patches: Tensor | None = None, max_len: int) -> tuple[Tensor, Cache]:
+                patches: Tensor | None = None, max_len: int,
+                cache: Cache | None = None) -> tuple[Tensor, Cache]:
         """Process (B, S) prompt tokens; return (logits (B, S, V), a cache of
         ``max_len`` positions holding the prompt's, zeros after it, and the
-        final SSM/RWKV states), ready for ``decode_step`` at pos = S."""
+        final SSM/RWKV states), ready for ``decode_step`` at pos = S.  The
+        prompt's entries are written into ``cache`` where given (an
+        ``init_cache`` of zeros, or the dry-run's sharded one)."""
         tokens = torch.as_tensor(tokens)
         logits, _, got = self.forward(tokens, frames=frames, patches=patches,
                                       collect_cache=True)
-        cache = self.init_cache(tokens.shape[0], max_len)
+        if cache is None:
+            cache = self.init_cache(tokens.shape[0], max_len)
         for lane, new in zip(cache, got):
             for name, t in new.items():  # the JAX package's pad-to-template
                 lane[name][tuple(slice(0, n) for n in t.shape)] = t

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.models import rwkv
 from repro_torch.models.attention import GQA, MLA, DecodeStep
 from repro_torch.models.layers import GeluMLP, SwiGLU, dtype_of, layer_norm, rms_norm
@@ -96,6 +97,15 @@ def _add_aux(aux: dict, losses: dict) -> None:
         aux[name] = aux[name] + v
 
 
+def _post(cfg: ModelConfig, h: Tensor) -> Tensor:
+    """Sequence-parallel TP (Korthikanti et al.): pin a sub-layer's output to
+    the seq-sharded layout, where ``cfg.constrain_sublayer_outputs`` asks
+    (the identity outside the dry-run's sharded run)."""
+    if cfg.constrain_sublayer_outputs:
+        return logical_constraint(h, ("batch", "seq", "embed"))
+    return h
+
+
 class Block(nn.Module):
     """``gqa|mla|mamba`` x ``dense|moe``: x + mix(norm(x)), then
     x + ffn(norm(x)), with RMSNorm."""
@@ -134,8 +144,8 @@ class Block(nn.Module):
         else:
             h, (a, b) = self.attn(h_in, seq.rope)
             cache = {"c_kv": a, "k_rope": b} if self.mix == "mla" else {"k": a, "v": b}
-        x = x + h
-        return x + self._ffn(rms_norm(x, self.ln2, self.eps), aux), cache
+        x = x + _post(self.cfg, h)
+        return x + _post(self.cfg, self._ffn(rms_norm(x, self.ln2, self.eps), aux)), cache
 
     def decode(self, x: Tensor, cache: dict[str, Tensor], step: DecodeStep) -> Tensor:
         h_in = rms_norm(x, self.ln1, self.eps)
@@ -170,9 +180,9 @@ class RWKVBlock(nn.Module):
 
     def forward(self, x: Tensor, seq: Seq, aux: dict) -> tuple[Tensor, dict]:
         h, tm_shift, tm_wkv = self.tm(rms_norm(x, self.ln1, self.eps))
-        x = x + h
+        x = x + _post(self.cfg, h)
         h, cm_shift = self.cm(rms_norm(x, self.ln2, self.eps))
-        return x + h, {"tm_shift": tm_shift, "tm_wkv": tm_wkv, "cm_shift": cm_shift}
+        return x + _post(self.cfg, h), {"tm_shift": tm_shift, "tm_wkv": tm_wkv, "cm_shift": cm_shift}
 
     def decode(self, x: Tensor, cache: dict[str, Tensor], step: DecodeStep) -> Tensor:
         h, tm_shift, tm_wkv = self.tm(rms_norm(x, self.ln1, self.eps),

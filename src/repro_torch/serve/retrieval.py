@@ -288,18 +288,21 @@ def _local_topk(q: Tensor, ds: Datastore, k: int) -> tuple[Tensor, Tensor]:
 
 
 def _sharded_topk(q: Tensor, ds: Datastore, k: int, mesh) -> tuple[Tensor, Tensor]:
-    """The flat datastore split over the mesh's islands: island ``s`` scans
-    rows ``[s*W, (s+1)*W)`` (W = N / S) on its device with ``_local_topk``,
+    """The flat datastore split over the islands along the mesh's model
+    axis (at index 0 on its other axes, where the JAX package replicates
+    it): island ``s`` of S scans rows ``[s*W, (s+1)*W)`` (W = N / S) on its
+    device with ``_local_topk``,
     and the islands' (d2, value) candidates merge on island 0's device,
     ties to the lower island and row as in one scan of all rows."""
     n = ds.keys.shape[0]
-    n_isl = mesh.shape[dctx.MODEL_AXIS]
+    devices = [mesh.devices[i] for i in mesh.islands(dctx.MODEL_AXIS)]
+    n_isl = len(devices)
     if n % n_isl:
         raise ValueError(
             f"a flat datastore of {n} rows does not split evenly over {n_isl} islands")
     w = n // n_isl
     top_d, top_v = [], []
-    for s, dev in enumerate(mesh.devices):
+    for s, dev in enumerate(devices):
         part = Datastore(
             keys=ds.keys[s * w:(s + 1) * w].to(dev),
             values=ds.values[s * w:(s + 1) * w].to(dev),
@@ -326,7 +329,9 @@ def knn_logits(hidden: Tensor, ds: Datastore | ForestDatastore, cfg: ModelConfig
     if ds.proj is not None:
         q = q @ ds.proj.float()
     mesh = dctx.current_mesh()
-    if dctx.model_axis_size(mesh) == 1:
+    # an abstract mesh (the dry-run's sharded run) has no islands: torch's
+    # sharding propagation splits the scan over the store's placement
+    if dctx.model_axis_size(mesh) == 1 or mesh.abstract:
         d2, idx = _local_topk(q, ds, r.k)
         # an id of -1 (fewer than k rows) reads the last value, as JAX's
         # wrapping gather does; its weight exp(-inf) is 0

@@ -21,8 +21,9 @@ those leaves and "step" an int32 scalar on the model's device.
   them for its cross-replica reduction.
 
 A step whose loss is not finite changes nothing (the update is in place;
-the JAX package's trainer drops such a step's new state), and
-``abstract_train_state`` (the dry-run's shape-only state) is not ported.
+the JAX package's trainer drops such a step's new state).
+``abstract_train_state`` is the dry-run's shape-only state: the same tree
+over a model on the ``meta`` device, nothing allocated.
 """
 from __future__ import annotations
 
@@ -74,7 +75,8 @@ def make_train_step(
         del by_param
         lr = lr_schedule(step)
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr}
-        if not bool(torch.isfinite(loss)):
+        # on the meta device (the dry-run) there is no value to test
+        if loss.device.type != "meta" and not bool(torch.isfinite(loss)):
             return state, metrics
         values = tree_map(Leaf.value, leaves)
         new_values, new_opt = optimizer.update(grads, opt_state, values, lr)
@@ -92,6 +94,17 @@ def init_train_state(model: Model, optimizer: Optimizer) -> dict:
     leaves = jax_tree(model)
     return {"params": leaves, "opt": optimizer.init(leaves),
             "step": torch.zeros((), dtype=torch.int32, device=model.device)}
+
+
+def abstract_train_state(model: Model, optimizer: Optimizer) -> dict:
+    """The train state of ``model``'s configuration on the ``meta`` device:
+    the leaves' shapes and dtypes of ``init_train_state``, no storage.  The
+    port's init draws from a torch generator, and on ``meta`` there is
+    nothing to draw, so only the shapes are made (``model`` may be any
+    device's; a meta twin of its configuration is built)."""
+    if model.device.type != "meta":
+        model = Model(model.cfg, device="meta", seed=None)
+    return init_train_state(model, optimizer)
 
 
 def load_state(state: dict, restored: dict) -> dict:

@@ -756,3 +756,34 @@ def test_train_step_on_the_card(dev, monkeypatch):
     for got, want in zip(out["card"][2], out["replay"][2]):
         torch.testing.assert_close(got, want, rtol=1e-5,
                                    atol=1e-5 * max(float(want.float().abs().max()), 1e-30))
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("tokens,a2a", [(8, False), (4096, False), (4096, True)],
+                         ids=["weight-stationary", "token-sharded", "all-to-all"])
+def test_moe_island_paths_on_the_card(dev, shape, tokens, a2a):
+    """The MoE layer's three island paths on four islands of the card
+    (``["cuda:0"] * 4``) at the CPU tests' widths, held to the single-device
+    layer on the card (f32, atol 1e-4 of the output's scale, no drops)."""
+    from repro_torch.configs.base import ModelConfig, MoEConfig
+    from repro_torch.distributed.context import Mesh, use_mesh
+    from repro_torch.models import moe
+
+    cfg = ModelConfig(name="t", family="moe", num_layers=1, d_model=16, num_heads=2,
+                      num_kv_heads=2, d_ff=32, vocab_size=64, moe_a2a=a2a,
+                      param_dtype="float32", compute_dtype="float32",
+                      moe=MoEConfig(num_experts=8, top_k=2, d_ff_expert=16,
+                                    capacity_factor=8.0, num_shared=1))
+    layer = moe.MoE(cfg, dev)
+    layer.init_(torch.Generator(device=dev).manual_seed(0))
+    layer.cast(torch.float32)
+    x = torch.randn((1, tokens, 16), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    mesh = Mesh([dev] * 4, shape=shape, axis_names=("data", "model"))
+    with torch.no_grad():
+        ref, _ = layer(x)
+        assert int(layer.dropped) == 0
+        with use_mesh(mesh):
+            got, _ = layer(x)
+        assert int(layer.dropped) == 0
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))

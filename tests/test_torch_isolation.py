@@ -48,7 +48,11 @@ def test_import_loads_no_jax_and_no_repro():
               "repro_torch.optim", "repro_torch.optim.optimizer", "repro_torch.optim.schedule",
               "repro_torch.train", "repro_torch.train.train_step", "repro_torch.train.trainer",
               "repro_torch.checkpoint", "repro_torch.checkpoint.checkpointing",
-              "repro_torch.data.pipeline", "repro_torch.launch.train"):
+              "repro_torch.data.pipeline", "repro_torch.launch.train",
+              "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+              "repro_torch.distributed.elastic", "repro_torch.distributed.sharding",
+              "repro_torch.distributed.collectives", "repro_torch.distributed.step_cost",
+              "repro_torch.distributed.roofline"):
         assert m in mods
     code = (
         "import importlib, sys\n"
@@ -226,3 +230,48 @@ def test_sharded_entry_points_refuse_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(ValueError, match="device="):
         default_mesh(2)
+
+
+def test_dryrun_sets_no_xla_flags_and_loads_no_jax():
+    """The port's dry-run runs a cell in a process of its own without
+    touching ``XLA_FLAGS`` and without loading JAX (its 256 / 512 devices
+    are a fake process group, not forced host devices)."""
+    code = (
+        "import os, sys\n"
+        "from repro_torch.configs import get_smoke_config\n"
+        "from repro_torch.configs.base import ShapeConfig\n"
+        "from repro_torch.distributed.context import Mesh\n"
+        "from repro_torch.launch import dryrun\n"
+        "rec = dryrun.run_cell('smollm-135m', 'decode_32k', 'single',\n"
+        "                      mesh=Mesh(shape=(2, 2), axis_names=('data', 'model')),\n"
+        "                      shape=ShapeConfig('decode_32k', 'decode', 16, 4),\n"
+        "                      base=get_smoke_config('smollm-135m'))\n"
+        "assert rec['status'] == 'ok', rec\n"
+        "assert 'XLA_FLAGS' not in os.environ\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = str(PORT.parent)
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+    assert "XLA_FLAGS" not in (PORT / "launch" / "dryrun.py").read_text()
+
+
+def test_mesh_builders_refuse_cpu(monkeypatch):
+    """``MeshPlan.build()`` and ``make_host_mesh()`` lay islands over the
+    local cards; with no CUDA and no devices named they raise instead of
+    putting the islands on the CPU."""
+    from repro_torch.distributed.elastic import plan_mesh
+    from repro_torch.launch.mesh import make_host_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        plan_mesh(4).build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh()
+    assert plan_mesh(4).build(devices=["cpu"] * 4).shape == {"data": 1, "model": 4}
+    assert make_host_mesh("cpu").devices == (torch.device("cpu"),)

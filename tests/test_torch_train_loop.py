@@ -200,7 +200,7 @@ def test_launcher_trains_on_the_host(tmp_path, capsys):
     assert "finished: 3 steps" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         launch_train.main(["--smoke-model", "--device", "cpu", "--mesh", "prod"])
-    assert "5c" in capsys.readouterr().err
+    assert "needs 256 devices" in capsys.readouterr().err
 
 
 def test_pipeline_feeds_both_packages_alike():
