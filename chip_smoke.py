@@ -138,12 +138,14 @@ Phases, in order; any failure raises and the run exits non-zero:
     f32: one train step's loss and gradients under (1, 4) with moe_a2a held
     to the single-device step's; deepseek-v2-236b depth 3 served with phase
     18's request mix under (1, 4), the MoE on islands and the f32 store
-    split over them (K6 once per island per step), its teacher-forced
-    logits within the bf16 noise band of the single-device run's; the
-    train launcher with ``--mesh auto`` (20 steps) and ``--mesh prod``
-    refused (256 devices); the dry-run of {qwen2-0.5b, deepseek-v2-236b} x
-    {train_4k, decode_32k} x {single, multi} in a child process started at
-    the beginning of the run, each record ok and rendered by
+    split over them (K6 once per island per step), the split top-k and
+    p_knn equal to one scan's bit for bit, its teacher-forced logits within
+    1.5x the single bf16 run's own gap to f32 of that run; the train
+    launcher with ``--mesh auto`` (20 steps) and ``--mesh prod`` refused
+    (256 devices); the dry-run of {qwen2-0.5b, deepseek-v2-236b} x
+    {train_4k, decode_32k} x {single, multi} in a child process started
+    after phase 19 on a host core of its own, each record ok (no
+    propagation error, replicated ops within the limit) and rendered by
     ``benchmarks/roofline.py``, and qwen2-0.5b's (1, 1) train step at 8 x
     512 counting the FLOPs that ``FlopCounterMode`` counts on the card.
 
@@ -4150,6 +4152,11 @@ QWEN3_BATCH, QWEN3_SEQ = 1, 576  # 4,608 assignments > 4,096: the all-to-all pat
 DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("qwen2-0.5b", "decode_32k"),
                 ("deepseek-v2-236b", "train_4k"), ("deepseek-v2-236b", "decode_32k"))
 DRYRUN_TIMEOUT = 600
+# 20(c): the island run's logits rms from the single bf16 run's, at most this
+# multiple of the single run's own rms from the f32-compute model (the
+# families' noise factor: two bf16 runs that sum in other orders differ by
+# about their own noise, and the split retrieval is held bit for bit apart)
+ISLAND_LOGITS_TOL = 1.5
 
 
 def island_mesh(dev, shape):
@@ -4350,14 +4357,18 @@ def deepseek_island_serving(dev, smi: str) -> dict:
     """20(c): deepseek-v2-236b depth 3 serving, phase 18's model and request
     mix on its flat f32 store, under a (1, 4) mesh: the MoE runs on islands
     and the store splits over them, K6 once per island per step.  The
-    teacher-forced logits under the mesh are held to the single-device
-    run's within the families' bf16 noise band (rms to the f32-compute
-    model <= 1.5x the single bf16 run's + 1e-2 of its rms)."""
+    store's split and merge are exact by design (ties to the lower island
+    and row), so the split top-k (d^2 and values) and p_knn equal the
+    single scan's bit for bit at the decode batch.  The teacher-forced
+    logits under the mesh are held to the single bf16 run's directly,
+    within ``ISLAND_LOGITS_TOL`` x the single run's own gap to the
+    f32-compute model, and to f32 within the families' noise band."""
     import torch
 
     from repro_torch.configs.base import RetrievalConfig
     from repro_torch.distributed.context import use_mesh
     from repro_torch.models.model import Model
+    from repro_torch.serve.retrieval import _local_topk, _sharded_topk, knn_logits
 
     arch = "deepseek-v2-236b"
     rows = FAMILY_STORE_ROWS[arch]
@@ -4365,6 +4376,16 @@ def deepseek_island_serving(dev, smi: str) -> dict:
         enabled=True, k=SERVE_K, lam=0.25, datastore_size=rows))
     mesh = island_mesh(dev, (1, 4))
     store = family_store(dev, cfg, rows)["f32"]
+    q = retrieval_problem(store.keys, 8, SEED + 22)
+    with torch.no_grad():
+        want_d, want_i = _local_topk(q, store, SERVE_K)
+        got_d, got_v = _sharded_topk(q, store, SERVE_K, mesh)
+        with use_mesh(mesh):
+            p_split = knn_logits(q, store, cfg)
+        p_one = knn_logits(q, store, cfg)
+    require(torch.equal(got_d, want_d) and torch.equal(got_v, store.values[want_i.long()]),
+            "20(c): the split store's top-k differs from one scan's")
+    require(torch.equal(p_split, p_one), "20(c): the split store's p_knn differs from one scan's")
     toks, _ = family_inputs(cfg, 4, 16, SEED + 21, dev)
     with torch.no_grad():
         m32 = Model(cfg.replace(compute_dtype="float32"), device=dev, seed=SEED)
@@ -4379,8 +4400,13 @@ def deepseek_island_serving(dev, smi: str) -> dict:
     def rms(a):
         return float(torch.sqrt(torch.mean(torch.square(a))))
 
-    band = 1.5 * rms(single - ref) + 1e-2 * rms(ref)
+    sound = rms(single - ref)
+    direct = rms(islands - single)
+    band = 1.5 * sound + 1e-2 * rms(ref)
     gap = rms(islands - ref)
+    require(direct <= ISLAND_LOGITS_TOL * sound,
+            f"20(c): islands' logits rms {direct:.3e} from the single run's > "
+            f"{ISLAND_LOGITS_TOL} x {sound:.3e}")
     require(gap <= band, f"20(c): islands' logits rms {gap:.3e} from f32 > band {band:.3e}")
     prompts = serve_prompts(cfg.vocab_size, 16, SEED)
     _serve(model, store, prompts[:2])  # warm-up, uncounted
@@ -4395,12 +4421,15 @@ def deepseek_island_serving(dev, smi: str) -> dict:
     k6 = _time_k6_island(store.keys[: rows // 4], smi)
     log(f"[moe] 20(c) deepseek-v2 depth 3 serving on (1, 4) islands: {isl['tok_per_s']:.1f} "
         f"tok/s vs {one['tok_per_s']:.1f} single; K6 {isl['launches']} launches in "
-        f"{isl['steps']} steps; teacher-forced logits rms {gap:.3e} from f32 (band "
-        f"{band:.3e}, single {rms(single - ref):.3e}); greedy tokens equal {agree:.1%} ({smi})")
+        f"{isl['steps']} steps; split top-k and p_knn bitwise equal to one scan at Q = 8; "
+        f"teacher-forced logits rms {direct:.3e} from the single bf16 run (tol "
+        f"{ISLAND_LOGITS_TOL} x its {sound:.3e} from f32), {gap:.3e} from f32 (band "
+        f"{band:.3e}); greedy tokens equal {agree:.1%} ({smi})")
     del model, store
     free_card()
     return dict(tok_per_s=isl["tok_per_s"], single_tok_per_s=one["tok_per_s"],
                 steps=isl["steps"], launches=isl["launches"], logits_rms=gap, band=band,
+                logits_rms_single=direct, single_rms_f32=sound,
                 token_agreement=agree, k6=k6)
 
 
@@ -4482,9 +4511,11 @@ print("JSON" + json.dumps({"cells": recs, "one": rec}))
 
 
 class DryrunChild:
-    """20(e)'s dry-run in a child process, started at the beginning of the
-    run: it needs no card (meta tensors, a fake process group of 256 / 512
-    ranks of its own), so its CPU work overlaps phases 1-20."""
+    """20(e)'s dry-run in a child process, started after phase 19: it needs
+    no card (meta tensors, a fake process group of 256 / 512 ranks of its
+    own), so it runs beside 20(a)-(d) on a host core of its own, and this
+    process keeps the other cores until the child ends (no earlier phase
+    shares the host with it)."""
 
     def __init__(self) -> None:
         import tempfile
@@ -4492,15 +4523,25 @@ class DryrunChild:
         self.dir = tempfile.TemporaryDirectory()
         d = Path(self.dir.name)
         self.out, self.err = open(d / "out.txt", "w+"), open(d / "err.txt", "w+")
-        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+        self.cores = os.sched_getaffinity(0)
+        own = {max(self.cores)} if len(self.cores) > 1 else set(self.cores)
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-c", DRYRUN_CHILD, str(d), json.dumps(DRYRUN_CELLS),
-             str(TRAIN_BATCH), str(TRAIN_SEQ)], env=env, stdout=self.out, stderr=self.err)
+             str(TRAIN_BATCH), str(TRAIN_SEQ)], env=env, stdout=self.out, stderr=self.err,
+            preexec_fn=lambda: os.sched_setaffinity(0, own))
+        if len(self.cores) > 1:
+            os.sched_setaffinity(0, self.cores - own)
+        log(f"[dryrun] 20(e) child started on host core {sorted(own)}; this process on "
+            f"{len(self.cores - own) or len(self.cores)} cores until it ends")
 
     def result(self) -> tuple[int, str, str, float]:
         """(exit code, stdout, stderr, seconds from its start to its end)."""
-        code = self.proc.wait(timeout=DRYRUN_TIMEOUT)
+        try:
+            code = self.proc.wait(timeout=DRYRUN_TIMEOUT)
+        finally:
+            os.sched_setaffinity(0, self.cores)
         waited = time.perf_counter() - self.t0
         self.out.seek(0)
         self.err.seek(0)
@@ -4510,6 +4551,7 @@ class DryrunChild:
         if self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait()
+        os.sched_setaffinity(0, self.cores)
         self.out.close()
         self.err.close()
         self.dir.cleanup()
@@ -4612,14 +4654,10 @@ def main(argv=None) -> int:
               "of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
-    child = DryrunChild()
-    try:
-        return run(args, child)
-    finally:
-        child.close()
+    return run(args)
 
 
-def run(args, child) -> int:
+def run(args) -> int:
     import torch
 
     from repro_torch.kernels import _build
@@ -4675,7 +4713,11 @@ def run(args, child) -> int:
     torch.cuda.empty_cache()
     families = families_phase(dev, smi)
     training = training_phase(dev, smi)
-    launch = launch_phase(dev, smi, training["qwen"]["peak_bytes"], child)
+    child = DryrunChild()
+    try:
+        launch = launch_phase(dev, smi, training["qwen"]["peak_bytes"], child)
+    finally:
+        child.close()
 
     # how much of each search's wall time its one K1 launch accounts for
     walls = {(n, qz, bm): w for n, qz, bm, _, w in sl["results"]}

@@ -21,13 +21,17 @@ device):
   last dim (the JAX package shards ``wq`` by heads but not ``wk``/``wv``);
   its local bytes in the record are the JAX leaves' all the same;
 * ``sharding.logical_constraint`` redistributes at the JAX package's
-  constraint sites; the MoE layer and the retrieval scan run their
-  single-device code on the ``DTensor``s (an abstract mesh has no
-  islands), and the retrieval scan takes the kernels' plain versions, as
-  the JAX dry-run on the CPU lowers the jnp reference;
+  constraint sites; the MoE layer's expert-parallel paths and the split
+  retrieval scan run their islands' programs per device
+  (``distributed.context.shard_map`` under ``local_map``), the scan on the
+  kernels' plain versions, as the JAX dry-run on the CPU lowers the jnp
+  reference;
 * ``distributed/step_cost.analyze_step`` counts the FLOPs and bytes each
-  device runs and the collectives by kind; an op DTensor has no strategy
-  for runs on gathered inputs and is named in ``replicated_ops``;
+  device runs and the collectives by kind.  An error of DTensor's
+  propagation fails the cell (``status: error``, the op named); an op
+  DTensor has no strategy for runs on gathered inputs, is named in
+  ``replicated_ops``, and a cell whose replicated ops carry more than
+  ``REPLICATED_LIMIT`` of its FLOPs or collective bytes is an error too;
 * a model's scanned stage is measured at one and two repeats of its unit
   and folded to its depth (``StepCost.fold``; the record's ``n_while`` and
   ``trip_counts`` say which stage and how deep), as the JAX package folds
@@ -74,6 +78,10 @@ from repro_torch.train.train_step import init_train_state, make_train_step
 from repro_torch.tree import tree_flatten_with_path, tree_unflatten
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
+
+# a cell whose replicated ops (no DTensor strategy) carry more of its FLOPs
+# or of its collective bytes than this is not a per-device count
+REPLICATED_LIMIT = 0.01
 
 PEAK_NOTE = ("not measured: torch's fake-tensor memory tracker does not follow DTensor "
              "over a fake process group")
@@ -423,6 +431,19 @@ def param_counts(cfg: ModelConfig) -> tuple[int, float, int]:
     return n_total, n_active, n_bytes
 
 
+def cell_status(cost) -> tuple[str, str | None]:
+    """("ok", None), or ("error", why) where the ops run replicated (no
+    DTensor strategy) carry more than ``REPLICATED_LIMIT`` of the step's
+    FLOPs or collective bytes: then the count is not a per-device one."""
+    share = max(cost.replicated_flops / cost.flops if cost.flops else 0.0,
+                cost.replicated_coll_bytes / cost.coll_bytes if cost.coll_bytes else 0.0)
+    if share <= REPLICATED_LIMIT:
+        return "ok", None
+    return "error", (f"ops without a sharding strategy, run replicated, carry {share:.2%} of "
+                     f"the FLOPs or collective bytes (limit {REPLICATED_LIMIT:.0%}): "
+                     f"{cost.replicated_ops}")
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str = "baseline", *,
              mesh: Mesh | None = None, shape: ShapeConfig | None = None,
              base: ModelConfig | None = None) -> dict:
@@ -460,6 +481,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str = "baselin
             t_compile += time.time() - t2
             del fn, args, out
     (cost, out_bytes), trips = runs[0], None
+    if fold is not None and any(getattr(runs[1][0], f) < getattr(runs[0][0], f)
+                                for f in ("flops", "bytes", "coll_bytes")):
+        raise ValueError("the step's counts do not grow with its scanned stage's depth: "
+                         f"one unit {runs[0][0]}, two {runs[1][0]}")
     if fold is not None:
         n = fold[2]
         cost = runs[0][0].fold(runs[1][0], n)
@@ -484,6 +509,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str = "baselin
     }
     rec["collective_count_by_op"] = cost.coll_count_by_op
     rec["replicated_ops"] = cost.replicated_ops
+    rec["replicated_flops"] = cost.replicated_flops
+    rec["replicated_collective_bytes"] = cost.replicated_coll_bytes
+    rec["rules"] = cost.rules
     rec["n_ops"] = cost.n_ops
     mem_model = estimate_memory_bytes(
         cfg, shape, mesh,
@@ -498,7 +526,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str = "baselin
                                      link_bw=link)
     rec["roofline_hlo_bytes"] = roofline_terms(cost.flops, cost.bytes, cost.coll_bytes,
                                                link_bw=link)
-    rec["status"] = "ok"
+    rec["status"], err = cell_status(cost)
+    if err:
+        rec["error"] = err
     rec["devices"] = n_dev
     rec["lower_s"] = round(t_lower, 2)
     rec["compile_s"] = round(t_compile, 2)
@@ -517,6 +547,26 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str = "baselin
     return rec
 
 
+def _cell_in_child(arch: str, shape: str, mesh_kind: str, variant: str, out_dir: Path,
+                   timeout: float) -> dict:
+    """One cell in a process of its own (``--jobs``), its record read back;
+    a cell that does not finish in ``timeout`` s is an error."""
+    import os
+    import subprocess
+    import sys
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+           "--mesh", mesh_kind, "--variant", variant, "--out", str(out_dir)]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    try:
+        subprocess.run(cmd, env=env, capture_output=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        return {"arch": arch, "shape": shape, "mesh": mesh_kind, "variant": variant,
+                "status": "error", "error": f"not finished in {timeout:.0f} s"}
+    tag = f"{arch}_{shape}_{mesh_kind}" + ("" if variant == "baseline" else f"__{variant}")
+    return json.loads((out_dir / f"{tag}.json").read_text())
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS)
@@ -525,6 +575,10 @@ def main(argv=None) -> None:
     ap.add_argument("--variant", choices=list(VARIANTS), default="baseline")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default=str(OUT_DIR))
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells run at once, each in a process of its own")
+    ap.add_argument("--cell-timeout", type=float, default=3600.0,
+                    help="seconds a cell may take with --jobs > 1 before it is an error")
     args = ap.parse_args(argv)
 
     out_dir = Path(args.out)
@@ -534,22 +588,33 @@ def main(argv=None) -> None:
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
     cells = [(a, s, m) for a in archs for s in shapes for m in meshes]
 
+    def one(cell) -> dict:
+        arch, shape, mesh_kind = cell
+        if args.jobs > 1:
+            return _cell_in_child(arch, shape, mesh_kind, args.variant, out_dir,
+                                  args.cell_timeout)
+        try:
+            return run_cell(arch, shape, mesh_kind, args.variant)
+        except Exception as e:  # a failed cell is recorded, the others still run
+            return {"arch": arch, "shape": shape, "mesh": mesh_kind, "variant": args.variant,
+                    "status": "error", "error": f"{type(e).__name__}: {e}",
+                    "trace": traceback.format_exc()[-4000:]}
+
+    if args.jobs > 1:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(args.jobs) as pool:
+            recs = list(pool.map(one, cells))
+    else:
+        recs = map(one, cells)
     failures = 0
-    for arch, shape, mesh_kind in cells:
-        tag = f"{arch}_{shape}_{mesh_kind}"
+    for rec in recs:
+        tag = f"{rec['arch']}_{rec['shape']}_{rec['mesh']}"
         if args.variant != "baseline":
             tag += f"__{args.variant}"
-        out_file = out_dir / f"{tag}.json"
-        try:
-            rec = run_cell(arch, shape, mesh_kind, args.variant)
-        except Exception as e:  # a failed cell is recorded, the others still run
-            rec = {"arch": arch, "shape": shape, "mesh": mesh_kind,
-                   "variant": args.variant,
-                   "status": "error", "error": f"{type(e).__name__}: {e}",
-                   "trace": traceback.format_exc()[-4000:]}
-            failures += 1
-        out_file.write_text(json.dumps(rec, indent=2))
+        (out_dir / f"{tag}.json").write_text(json.dumps(rec, indent=2))
         status = rec["status"]
+        failures += status == "error"
         extra = ""
         if status == "ok":
             r = rec["roofline"]

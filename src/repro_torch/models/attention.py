@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import logical_constraint
 from repro_torch.models.layers import (
     NEG_INF,
     CastWeights,
@@ -120,7 +121,9 @@ class GQA(CastWeights):
         q, k, v = (t.reshape(b, s, -1, self.hd) for t in torch.split(y, self.split, dim=-1))
         if self.rope:
             q, k = rotate(q, cos, sin), rotate(k, cos, sin)
-        return q, k, v
+        # the fused projection carries no heads layout: the queries' heads
+        # split is stated here (the JAX package's ``wq`` leaf carries it)
+        return logical_constraint(q, ("batch", "seq", "heads", None)), k, v
 
     def forward(self, x: Tensor, rope) -> tuple[Tensor, tuple[Tensor, Tensor]]:
         """Full-sequence attention (prefill, the encoder) with the sequence's

@@ -134,8 +134,8 @@ class Model(nn.Module):
     # ------------------------------------------------------------- helpers
     def _embed_tokens(self, tokens: Tensor, pos0: Tensor | None = None) -> Tensor:
         tok = tokens.to(self.device).long()
-        # one flat lookup: a vocab-sharded table's masked partial lookup
-        # (the dry-run's sharded run) reduces over a 1-d index only
+        # one flat lookup: a vocab-sharded table's masked lookup takes a
+        # 1-d index
         x = F.embedding(tok.reshape(-1), self.embed).reshape(*tok.shape, -1).to(self.cdt)
         if self.cfg.family == "encdec":
             # whisper: sinusoidal positions at each row's own offset
@@ -243,12 +243,7 @@ class Model(nn.Module):
         mask = (targets >= 0) & (targets < c.vocab_size)
         tsafe = targets.clamp(0, c.padded_vocab - 1)
         logz = torch.logsumexp(logits, dim=-1)
-        if hasattr(logits, "device_mesh"):
-            # the dry-run's vocab-sharded logits: DTensor's masked gather
-            # cannot reduce a 3-d index, a one-hot contraction can
-            gold = (logits * F.one_hot(tsafe, logits.shape[-1]).to(logits.dtype)).sum(-1)
-        else:
-            gold = torch.gather(logits, -1, tsafe[..., None])[..., 0]
+        gold = torch.gather(logits, -1, tsafe[..., None])[..., 0]
         ce = (logz - gold) * mask
         denom = mask.sum().clamp(min=1)
         loss = ce.sum() / denom

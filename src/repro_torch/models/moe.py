@@ -12,15 +12,16 @@ package's einsum); a kept assignment's output is gathered back to its token
 and the k of a token are summed.
 
 With no mesh, or a model axis of size 1, all E experts run on one device.
-Under the dry-run's abstract mesh the inputs are ``DTensor``s and the same
-three paths run per device (``spmd_moe``: ``local_map``, the counterpart of
-``shard_map``, with torch's functional collectives).
 Under a mesh with a model axis of tp > 1 (``distributed.context.use_mesh``)
 the experts run on its islands, E / tp a model index, as the JAX package's
-``shard_map`` island does: the weight-stationary decode path, the
-token-sharded psum path and the all-to-all path, chosen by the JAX
-package's rules (``island_moe``).  Islands on one device run one after
-another on its stream, and autograd runs through every path.
+``shard_map`` island does (``expert_parallel``): the weight-stationary
+decode path, the token-sharded psum path and the all-to-all path, chosen by
+the JAX package's rules.  Each path is one island's program, written once
+(``_ws_island``, ``_ts_island``, ``_a2a_island``) and run by
+``distributed.context.shard_map``: on an island mesh every island in turn
+(islands on one device one after another on its stream), on the dry-run's
+``DTensor``s as one device's program with torch's functional collectives.
+Autograd runs through every path.
 
     with use_mesh(Mesh(["cpu"] * 4, shape=(2, 2), axis_names=("data", "model"))):
         out, aux = moe(x)
@@ -33,6 +34,7 @@ single-device layer computes.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +45,7 @@ from repro_torch.distributed.sharding import LOGICAL_AXES
 from repro_torch.models.layers import CastWeights, SwiGLU, dense_init_, dtype_of, param
 
 Tensor = torch.Tensor
+MODEL = dctx.MODEL_AXIS
 
 
 def capacity(tokens: int, top_k: int, num_experts: int, factor: float) -> int:
@@ -145,7 +148,7 @@ class MoE(CastWeights):
         self.w_out = param((e, f, d), pdt, device)
         self.shared = SwiGLU(d, m.num_shared * f, pdt, device) if m.num_shared else None
         self.c: dict[str, Tensor] = {}
-        self.dropped: Tensor | int = 0  # assignments the last forward dropped
+        self._counts: tuple = (0, 0)  # the last forward's (assignments, kept)
 
     @torch.no_grad()
     def init_(self, g: torch.Generator) -> None:
@@ -154,6 +157,12 @@ class MoE(CastWeights):
             dense_init_(w, g)
         if self.shared is not None:
             self.shared.init_(g)
+
+    @property
+    def dropped(self):
+        """The assignments the last forward dropped (a tensor)."""
+        n, kept = self._counts
+        return n - kept
 
     def weights(self, dtype: torch.dtype) -> dict[str, Tensor]:
         return {n: getattr(self, n).to(dtype) for n in ("w_in", "w_gate", "w_out")}
@@ -166,7 +175,7 @@ class MoE(CastWeights):
     def forward(self, x: Tensor) -> tuple[Tensor, dict[str, Tensor]]:
         """MoE FFN over x (B, S, D). Returns (out, router losses).  Under a
         mesh with a model axis of tp > 1 the experts run on its islands
-        (``island_moe``)."""
+        (``expert_parallel``)."""
         m = self.m
         b, s, d = x.shape
         x2d = x.reshape(b * s, d)
@@ -176,26 +185,20 @@ class MoE(CastWeights):
         if m.num_experts % tp:
             raise ValueError(f"{m.num_experts} experts not divisible by tp={tp}")
         w = self.w
-        sh = None
-        if self.shared is not None:
-            gi, f_s = self.shared.w["w_gate_in"], self.shared.f
-            sh = {"w_gate": gi[:, :f_s], "w_in": gi[:, f_s:], "w_out": self.shared.w["w_out"]}
-        if mesh is not None and mesh.abstract:
-            if not hasattr(x, "device_mesh"):
-                raise ValueError("an abstract mesh has no islands to run the experts on")
-            if tp > 1:
-                out = spmd_moe(mesh, m, self.a2a, x2d, top_e, top_p, w, sh)
-                return out.reshape(b, s, d), aux
-        if mesh is not None and tp > 1 and not mesh.abstract:
-            out, kept = island_moe(mesh, m, self.a2a, x2d, top_e, top_p, w, sh)
-            self.dropped = b * s * m.top_k - kept
+        if mesh is not None and tp > 1:
+            sh = None
+            if self.shared is not None:
+                gi, f_s = self.shared.w["w_gate_in"], self.shared.f
+                sh = {"w_gate": gi[:, :f_s], "w_in": gi[:, f_s:], "w_out": self.shared.w["w_out"]}
+            out, kept = expert_parallel(mesh, m, self.a2a, x2d, top_e, top_p, w, sh)
+            self._counts = (b * s * m.top_k, kept)
             return out.reshape(b, s, d), aux
         cap = capacity(b * s, m.top_k, m.num_experts, m.capacity_factor)
         slot_tok, valid, row = dispatch(top_e, m.num_experts, cap)
         xb = x2d[slot_tok] * valid[..., None].to(x.dtype)  # (E, C, D)
         y = experts_ffn(xb, w["w_gate"], w["w_in"], w["w_out"]).reshape(-1, d)
         out = combine(y, row, top_p)
-        self.dropped = (row < 0).sum()
+        self._counts = (row.numel(), (row >= 0).sum())
         if self.shared is not None:
             out = out + self.shared(x2d)
         return out.reshape(b, s, d), aux
@@ -210,173 +213,106 @@ def _shared_ffn(x: Tensor, sh: dict[str, Tensor]) -> Tensor:
     return (F.silu(x @ sh["w_gate"]) * (x @ sh["w_in"])) @ sh["w_out"]
 
 
-def _psum(parts: list[Tensor], dev) -> Tensor:
-    """The sum of the islands' ``parts`` in island order, on ``dev``."""
-    total = parts[0].to(dev)
-    for p in parts[1:]:
-        total = total + p.to(dev)
-    return total
+def _ws_island(cap, e_loc, fsdp, ix, x, te, tpr, wg, wi, wo, sg=None, si=None, so=None):
+    """Weight-stationary decode: all T tokens, this island's experts on its
+    D-slice; the partial (E_loc, C, F) products are summed over fsdp before
+    the nonlinearity and the output's D-slices gathered."""
+    d_loc = wg.shape[1]
+    lo = ix(fsdp) * d_loc
+    xs = x[:, lo:lo + d_loc]
+    slot_tok, valid, row = local_dispatch(te, ix((MODEL,)) * e_loc, e_loc, cap)
+    xb = xs[slot_tok] * valid[..., None].to(xs.dtype)
+    h_gate = yield ("psum", fsdp, torch.bmm(xb, wg))
+    h_in = yield ("psum", fsdp, torch.bmm(xb, wi))
+    o = combine(torch.bmm(F.silu(h_gate) * h_in, wo).reshape(-1, d_loc), row, tpr)
+    if sg is not None:
+        hs_gate = yield ("psum", fsdp, xs @ sg)
+        hs_in = yield ("psum", fsdp, xs @ si)
+        o = o + (F.silu(hs_gate) * hs_in) @ so
+    o = yield ("all_gather", fsdp, o, 1)
+    return o, (row >= 0).sum()
 
 
-def island_moe(mesh, m, a2a: bool, x2d: Tensor, top_e: Tensor, top_p: Tensor,
-               w: dict[str, Tensor], sh: dict[str, Tensor] | None) -> Tensor:
-    """The JAX package's expert-parallel ``shard_map`` island on the mesh's
-    islands: (T, D) out on x2d's device.
+def _ts_island(cap, e_loc, ix, x, te, tpr, wg, wi, wo, sg=None, si=None, so=None):
+    """Token-sharded: this island's tokens (all T when they do not split)
+    through its experts, whole; the caller sums the model islands."""
+    slot_tok, valid, row = local_dispatch(te, ix((MODEL,)) * e_loc, e_loc, cap)
+    xb = x[slot_tok] * valid[..., None].to(x.dtype)
+    o = combine(experts_ffn(xb, wg, wi, wo).reshape(-1, x.shape[1]), row, tpr)
+    if sg is not None:
+        o = o + _shared_ffn(x, {"w_gate": sg, "w_in": si, "w_out": so})
+    return o, (row >= 0).sum()
 
-    Island (.., model=j) holds experts [j*E_loc, (j+1)*E_loc) of the routed
-    weights and the shared experts' F-slice j; under fsdp (the batch axes the
-    rule table's "fsdp" names) island fsdp-index i holds the D-slice i of
-    both.  The path is chosen by the JAX package's rules:
+
+def _a2a_island(cap, tp, ix, x, te, tpr, wg, wi, wo, sg=None, si=None, so=None):
+    """All-to-all: this cell's tokens slotted into (E, C) send buffers by
+    global expert, exchanged over the model axis, through this island's
+    experts and back; the shared experts on the cell's own tokens."""
+    e_loc, d = wg.shape[0], x.shape[1]
+    slot_tok, valid, row = dispatch(te, e_loc * tp, cap)
+    xb = (x[slot_tok] * valid[..., None].to(x.dtype)).reshape(tp, e_loc, cap, d)
+    xr = yield ("all_to_all", (MODEL,), xb)  # (tp sources, E_loc, C, D)
+    y = experts_ffn(xr.transpose(0, 1).reshape(e_loc, tp * cap, d), wg, wi, wo)
+    yr = yield ("all_to_all", (MODEL,), y.reshape(e_loc, tp, cap, d).transpose(0, 1))
+    o = combine(yr.reshape(-1, d), row, tpr)
+    if sg is not None:
+        o = o + _shared_ffn(x, {"w_gate": sg, "w_in": si, "w_out": so})
+    return o, (row >= 0).sum()
+
+
+def expert_parallel(mesh, m, a2a: bool, x2d: Tensor, top_e: Tensor, top_p: Tensor,
+                    w: dict[str, Tensor], sh: dict[str, Tensor] | None):
+    """The JAX package's expert-parallel ``shard_map`` island on the mesh
+    (``distributed.context.shard_map``): (T, D) out, the count of
+    assignments kept in a buffer.
+
+    Island (.., model=j) holds experts [j*E_loc, (j+1)*E_loc) and the shared
+    experts' F-slice j; the path is chosen by the JAX package's rules
+    (``_path``):
 
     * weight-stationary, whenever an fsdp axis is in the mesh (even of
-      size 1) and T*k <= 4,096: every island dispatches all T tokens to its
-      experts on its D-slice, the partial (E_loc, C, F) products are summed
-      over the fsdp islands before the nonlinearity, the D-slices of the
-      output gathered and the model islands' outputs summed;
+      size 1) and T*k <= 4,096: the island holds its D-slice (fsdp index i)
+      of both and contracts it (``_ws_island``);
     * all-to-all, with ``moe_a2a``, batch axes and T % (batch shards * tp)
-      == 0: each (batch, model) cell slots its T_cell tokens into (E, C)
-      send buffers by global expert, the buffers are exchanged over the
-      model axis, the experts run, the results travel back and are
-      combined in the cell;
+      == 0: a (batch, model) cell per island (``_a2a_island``);
     * token-sharded otherwise: the tokens split over the batch axes (when
-      T divides), each island gathers its experts' D-slices over fsdp,
-      dispatches its tokens to them and the model islands' partial outputs
-      (routed and shared) are summed.
+      T divides) and the model islands' partial outputs, routed and shared,
+      summed (``_ts_island``).
 
-    Capacity, dispatch order and drops are the JAX package's.  Islands on
-    one device run one after another on its stream; every step is a torch
-    op, so autograd runs through all three paths.  Returns (out, the count
-    of assignments kept in a buffer)."""
+    The last two hand each island its experts with their D-slices gathered
+    over fsdp, and the a2a path the shared experts whole.  Capacity,
+    dispatch order and drops are the JAX package's; autograd runs through
+    every path."""
     t, k = top_e.shape
-    d = x2d.shape[1]
     e = m.num_experts
-    tp = mesh.shape[dctx.MODEL_AXIS]
+    tp = mesh.shape[MODEL]
     e_loc = e // tp
     path, batch, fsdp, token_sharded = _path(mesh, m, a2a, t)
-    if dctx.MODEL_AXIS in fsdp:
+    if MODEL in fsdp:
         raise ValueError("the MoE islands need the fsdp rule off the model axis")
-    n_batch = math.prod(mesh.shape[a] for a in batch)
-    n_fsdp = math.prod(mesh.shape[a] for a in fsdp)
-    if d % n_fsdp:
-        raise ValueError(f"d_model {d} does not split over {n_fsdp} fsdp islands")
-    d_loc = d // n_fsdp
-    f_s = 0 if sh is None else sh["w_in"].shape[1] // tp
-    out_dev = x2d.device
-    kept = torch.zeros((), dtype=torch.int64, device=out_dev)
-
-    def ex(j):
-        return slice(j * e_loc, (j + 1) * e_loc)
-
-    def dsl(i):
-        return slice(i * d_loc, (i + 1) * d_loc)
-
-    def fs(j):
-        return slice(j * f_s, (j + 1) * f_s)
-
-    def gathered(j, dev) -> dict[str, Tensor]:
-        """Island j's experts with their D-slices gathered over fsdp (with
-        one fsdp island, its slice itself: a view on the same device)."""
-        if n_fsdp == 1:
-            return {n: w[n][ex(j)].to(dev) for n in ("w_gate", "w_in", "w_out")}
-        return {n: torch.cat([w[n][ex(j)][:, dsl(i)] if n != "w_out" else w[n][ex(j)][..., dsl(i)]
-                              for i in range(n_fsdp)], dim=2 if n == "w_out" else 1).to(dev)
-                for n in ("w_gate", "w_in", "w_out")}
-
-    def shared_gathered(j, dev) -> dict[str, Tensor]:
-        return {"w_gate": sh["w_gate"][:, fs(j)].to(dev), "w_in": sh["w_in"][:, fs(j)].to(dev),
-                "w_out": sh["w_out"][fs(j)].to(dev)}
-
+    shw = () if sh is None else (sh["w_gate"], sh["w_in"], sh["w_out"])
+    args = (x2d, top_e, top_p, w["w_gate"], w["w_in"], w["w_out"], *shw)
+    rows = (None, None)
     if path == "ws":
-        # tokens replicated; island (fsdp=i, model=j) contracts its D-slice
-        outs = []
-        for j in range(tp):
-            devs = [mesh.devices[mesh.index({**_coords_of(mesh, fsdp, i), dctx.MODEL_AXIS: j})]
-                    for i in range(n_fsdp)]
-            cap = capacity(t, k, e, m.capacity_factor)
-            slot_tok, valid, row = local_dispatch(top_e, j * e_loc, e_loc, cap)
-            kept = kept + (row >= 0).sum().to(out_dev)
-            xs = [x2d[:, dsl(i)].to(dev) for i, dev in enumerate(devs)]
-            xbs = [x_[slot_tok.to(x_.device)] * valid.to(x_.device)[..., None].to(x_.dtype)
-                   for x_ in xs]
-            h_gate = _psum([torch.bmm(xb, w["w_gate"][ex(j)][:, dsl(i)].to(xb.device))
-                            for i, xb in enumerate(xbs)], devs[0])
-            h_in = _psum([torch.bmm(xb, w["w_in"][ex(j)][:, dsl(i)].to(xb.device))
-                          for i, xb in enumerate(xbs)], devs[0])
-            h = F.silu(h_gate) * h_in  # (E_loc, C, F)
-            if sh is not None:
-                hs = F.silu(_psum([x_ @ sh["w_gate"][dsl(i), fs(j)].to(x_.device)
-                                   for i, x_ in enumerate(xs)], devs[0])) \
-                    * _psum([x_ @ sh["w_in"][dsl(i), fs(j)].to(x_.device)
-                             for i, x_ in enumerate(xs)], devs[0])
-            slices = []
-            for i, dev in enumerate(devs):
-                y = torch.bmm(h.to(dev), w["w_out"][ex(j)][..., dsl(i)].to(dev))
-                o = combine(y.reshape(-1, d_loc), row.to(dev), top_p.to(dev))
-                if sh is not None:
-                    o = o + hs.to(dev) @ sh["w_out"][fs(j), dsl(i)].to(dev)
-                slices.append(o)
-            outs.append(torch.cat([o.to(devs[0]) for o in slices], dim=1))
-        return _psum(outs, out_dev), kept
-
-    if path == "a2a":
-        t_cell = t // (n_batch * tp)
-        cap = capacity(t_cell, k, e, m.capacity_factor)
-        blocks = []
-        for bi in range(n_batch):
-            cells = [bi * tp + j for j in range(tp)]
-            devs = [mesh.devices[mesh.index({**_coords_of(mesh, batch, bi), dctx.MODEL_AXIS: j})]
-                    for j in range(tp)]
-            rows = [slice(c * t_cell, (c + 1) * t_cell) for c in cells]
-            xl = [x2d[r].to(dev) for r, dev in zip(rows, devs)]
-            tel = [top_e[r].to(dev) for r, dev in zip(rows, devs)]
-            tpl = [top_p[r].to(dev) for r, dev in zip(rows, devs)]
-            disp = [dispatch(te, e, cap) for te in tel]
-            for _, _, row in disp:
-                kept = kept + (row >= 0).sum().to(out_dev)
-            send = [(x_[st] * v[..., None].to(x_.dtype)).reshape(tp, e_loc, cap, d)
-                    for x_, (st, v, _) in zip(xl, disp)]
-            back = []
-            for j, dev in enumerate(devs):
-                # received from every source cell: (tp, E_loc, C, D)
-                xr = torch.stack([sb[j].to(dev) for sb in send]).transpose(0, 1)
-                ww = gathered(j, dev)
-                y = experts_ffn(xr.reshape(e_loc, tp * cap, d), ww["w_gate"], ww["w_in"],
-                                ww["w_out"])
-                back.append(y.reshape(e_loc, tp, cap, d).transpose(0, 1))
-            for j, dev in enumerate(devs):
-                yr = torch.stack([bk[j].to(dev) for bk in back]).reshape(e * cap, d)
-                o = combine(yr, disp[j][2], tpl[j])
-                if sh is not None:
-                    # the shared experts on the cell's own tokens, their F
-                    # slices gathered over the model axis
-                    full = {n: torch.cat([shared_gathered(jj, dev)[n] for jj in range(tp)],
-                                         dim=0 if n == "w_out" else 1)
-                            for n in ("w_gate", "w_in", "w_out")}
-                    o = o + _shared_ffn(xl[j], full)
-                blocks.append(o.to(out_dev))
-        return torch.cat(blocks, dim=0), kept
-
-    # token-sharded psum island
-    t_loc = t // n_batch if token_sharded else t
-    cap = capacity(t_loc, k, e, m.capacity_factor)
-    blocks = []
-    for bi in range(n_batch if token_sharded else 1):
-        r = slice(bi * t_loc, (bi + 1) * t_loc)
-        parts = []
-        for j in range(tp):
-            dev = mesh.devices[mesh.index({**_coords_of(mesh, batch, bi), dctx.MODEL_AXIS: j})]
-            x_l, te_l, tp_l = x2d[r].to(dev), top_e[r].to(dev), top_p[r].to(dev)
-            ww = gathered(j, dev)
-            slot_tok, valid, row = local_dispatch(te_l, j * e_loc, e_loc, cap)
-            kept = kept + (row >= 0).sum().to(out_dev)
-            xb = x_l[slot_tok] * valid[..., None].to(x_l.dtype)
-            y = experts_ffn(xb, ww["w_gate"], ww["w_in"], ww["w_out"]).reshape(-1, d)
-            o = combine(y, row, tp_l)
-            if sh is not None:
-                o = o + _shared_ffn(x_l, shared_gathered(j, dev))
-            parts.append(o)
-        blocks.append(_psum(parts, out_dev))
-    return torch.cat(blocks, dim=0), kept
+        body = partial(_ws_island, capacity(t, k, e, m.capacity_factor), e_loc, fsdp)
+        specs = [rows] * 3 + [(MODEL, fsdp, None)] * 2 + [(MODEL, None, fsdp)] \
+            + [(fsdp, MODEL)] * 2 + [(MODEL, fsdp)]
+        outs = [(rows, (MODEL,)), ((), (MODEL,))]
+    elif path == "a2a":
+        cells = batch + (MODEL,)
+        n_cells = math.prod(mesh.shape[a] for a in cells)
+        body = partial(_a2a_island, capacity(t // n_cells, k, e, m.capacity_factor), tp)
+        specs = [(cells, None)] * 3 + [(MODEL, None, None)] * 3 + [None] * 3
+        outs = [((cells, None), ()), ((), cells)]
+    else:
+        n_batch = math.prod(mesh.shape[a] for a in batch)
+        t_loc = t // n_batch if token_sharded else t
+        body = partial(_ts_island, capacity(t_loc, k, e, m.capacity_factor), e_loc)
+        x_spec = (batch if token_sharded else None, None)
+        specs = [x_spec] * 3 + [(MODEL, None, None)] * 3 + [(None, MODEL)] * 2 + [(MODEL, None)]
+        work = (batch if token_sharded else ()) + (MODEL,)
+        outs = [(x_spec, (MODEL,)), ((), work)]
+    return dctx.shard_map(body, mesh, specs[:len(args)], outs)(*args)
 
 
 def _path(mesh, m, a2a: bool, t: int):
@@ -385,137 +321,9 @@ def _path(mesh, m, a2a: bool, t: int):
     batch = dctx.batch_axes(mesh)
     fsdp = tuple(a for a in LOGICAL_AXES.get("fsdp", ()) if a in mesh.axis_names)
     n_batch = math.prod(mesh.shape[a] for a in batch)
-    tp = mesh.shape[dctx.MODEL_AXIS]
+    tp = mesh.shape[MODEL]
     if fsdp and t * m.top_k <= 4096:
         return "ws", batch, fsdp, False
     if a2a and batch and t % (n_batch * tp) == 0:
         return "a2a", batch, fsdp, True
     return "ts", batch, fsdp, bool(batch) and t % n_batch == 0
-
-
-def spmd_moe(mesh, m, a2a: bool, x2d, top_e, top_p, w: dict, sh: dict | None):
-    """``island_moe``'s three paths as one device's program over ``DTensor``
-    inputs (the dry-run's sharded run on an abstract mesh): ``local_map``
-    hands each device its shards, the body is the island's, and the
-    collectives are torch's functional ones over the device mesh (the batch
-    axes are its merged "pod+data" dim).  Returns the (T, D) output as a
-    DTensor."""
-    import torch.distributed._functional_collectives as funcol
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
-    dmesh = x2d.device_mesh
-    names = dmesh.mesh_dim_names
-    t, k = top_e.shape
-    d = x2d.shape[1]
-    e = m.num_experts
-    tp = mesh.shape[dctx.MODEL_AXIS]
-    e_loc = e // tp
-    path, batch, fsdp, sharded = _path(mesh, m, a2a, t)
-    bdim = "+".join(batch) if batch else None
-    if dctx.MODEL_AXIS in fsdp or (fsdp and "+".join(fsdp) != bdim):
-        raise ValueError("the MoE islands need the fsdp rule on the batch axes")
-    mi = names.index(dctx.MODEL_AXIS)
-
-    def pl(batch_pl, model_pl):
-        out = [Replicate()] * len(names)
-        if bdim is not None:
-            out[names.index(bdim)] = batch_pl
-        out[mi] = model_pl
-        return out
-
-    rep = pl(Replicate(), Replicate())
-    fsdp_pl = Shard(1) if fsdp else Replicate()
-    e_start = dmesh.get_local_rank(dctx.MODEL_AXIS) * e_loc
-    has_sh = sh is not None
-    shw = [sh["w_gate"], sh["w_in"], sh["w_out"]] if has_sh else []
-
-    if path == "ws":
-        # tokens replicated; each device contracts its D-slice, psums the
-        # (E_loc, C, F) partials over fsdp and gathers its output slice
-        cap = capacity(t, k, e, m.capacity_factor)
-        grp = (dmesh, names.index(bdim)) if fsdp else None
-
-        def body(x, te, tpr, wg, wi, wo, *shl):
-            d_loc = wg.shape[1]
-            fi = dmesh.get_local_rank(bdim) if fsdp else 0
-            xs = x[:, fi * d_loc:(fi + 1) * d_loc]
-            slot_tok, valid, row = local_dispatch(te, e_start, e_loc, cap)
-            xb = xs[slot_tok] * valid[..., None].to(xs.dtype)
-            hg, hi = torch.bmm(xb, wg), torch.bmm(xb, wi)
-            if fsdp:
-                hg, hi = funcol.all_reduce(hg, "sum", grp), funcol.all_reduce(hi, "sum", grp)
-            y = torch.bmm(F.silu(hg) * hi, wo)
-            o = combine(y.reshape(-1, d_loc), row, tpr)
-            if shl:
-                sg, si = xs @ shl[0], xs @ shl[1]
-                if fsdp:
-                    sg, si = funcol.all_reduce(sg, "sum", grp), funcol.all_reduce(si, "sum", grp)
-                o = o + (F.silu(sg) * si) @ shl[2]
-            if fsdp:
-                o = funcol.all_gather_tensor(o, 1, grp)
-            return o
-
-        w_pl = [pl(fsdp_pl, Shard(0)), pl(fsdp_pl, Shard(0)), pl(Shard(2) if fsdp else
-                                                                   Replicate(), Shard(0))]
-        sh_pl = [pl(Shard(0) if fsdp else Replicate(), Shard(1))] * 2 + \
-            [pl(Shard(1) if fsdp else Replicate(), Shard(0))]
-        f = local_map(body, out_placements=pl(Replicate(), Partial()),
-                      in_placements=(rep, rep, rep, *w_pl, *(sh_pl if has_sh else [])),
-                      device_mesh=dmesh, redistribute_inputs=True)
-        return f(x2d, top_e, top_p, w["w_gate"], w["w_in"], w["w_out"], *shw)
-
-    # the routed weights with their D-slices gathered over fsdp
-    w_pl = [pl(Replicate(), Shard(0))] * 3
-    if path == "a2a":
-        n_cells = math.prod(mesh.shape[a] for a in batch) * tp
-        cap = capacity(t // n_cells, k, e, m.capacity_factor)
-        grp = (dmesh, mi)
-
-        def body(x, te, tpr, wg, wi, wo, *shl):
-            slot_tok, valid, row = dispatch(te, e, cap)
-            xb = (x[slot_tok] * valid[..., None].to(x.dtype)).reshape(tp * e_loc * cap, d)
-            xr = funcol.all_to_all_single_autograd(xb, None, None, grp)
-            xr = xr.reshape(tp, e_loc, cap, d).transpose(0, 1).reshape(e_loc, tp * cap, d)
-            y = experts_ffn(xr, wg, wi, wo)
-            y = y.reshape(e_loc, tp, cap, d).transpose(0, 1).reshape(tp * e_loc * cap, d)
-            o = combine(funcol.all_to_all_single_autograd(y, None, None, grp), row, tpr)
-            if shl:
-                o = o + _shared_ffn(x, {"w_gate": shl[0], "w_in": shl[1], "w_out": shl[2]})
-            return o
-
-        cell = [Replicate()] * len(names)
-        cell[names.index(bdim)] = Shard(0)
-        cell[mi] = Shard(0)
-        f = local_map(body, out_placements=cell,
-                      in_placements=(cell, cell, cell, *w_pl, *([rep] * len(shw))),
-                      device_mesh=dmesh, redistribute_inputs=True)
-        return f(x2d, top_e, top_p, w["w_gate"], w["w_in"], w["w_out"], *shw)
-
-    # token-sharded psum island
-    n_batch = math.prod(mesh.shape[a] for a in batch)
-    cap = capacity(t // n_batch if sharded else t, k, e, m.capacity_factor)
-
-    def body(x, te, tpr, wg, wi, wo, *shl):
-        slot_tok, valid, row = local_dispatch(te, e_start, e_loc, cap)
-        xb = x[slot_tok] * valid[..., None].to(x.dtype)
-        o = combine(experts_ffn(xb, wg, wi, wo).reshape(-1, d), row, tpr)
-        if shl:
-            o = o + _shared_ffn(x, {"w_gate": shl[0], "w_in": shl[1], "w_out": shl[2]})
-        return o
-
-    x_pl = pl(Shard(0) if sharded else Replicate(), Replicate())
-    sh_pl = [pl(Replicate(), Shard(1))] * 2 + [pl(Replicate(), Shard(0))]
-    f = local_map(body, out_placements=pl(Shard(0) if sharded else Replicate(), Partial()),
-                  in_placements=(x_pl, x_pl, x_pl, *w_pl, *(sh_pl if has_sh else [])),
-                  device_mesh=dmesh, redistribute_inputs=True)
-    return f(x2d, top_e, top_p, w["w_gate"], w["w_in"], w["w_out"], *shw)
-
-
-def _coords_of(mesh, axes: tuple[str, ...], i: int) -> dict[str, int]:
-    """The coordinates over ``axes`` of row-major index ``i``."""
-    out = {}
-    for a in reversed(axes):
-        out[a] = i % mesh.shape[a]
-        i //= mesh.shape[a]
-    return out

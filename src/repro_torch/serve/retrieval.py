@@ -26,11 +26,12 @@ Distributed layouts: a forest datastore made from a sharded or routed index
 datastore is split over the islands of the active mesh
 (``distributed.context.use_mesh``): each island scans its contiguous slice
 of rows with K6 (or K7 and the stable selection), and the islands' k
-candidates merge on island 0's device (``core.knn.merge_shard_topk``).
+candidates are gathered and merged (``distributed.context.shard_map``).
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from dataclasses import dataclass
 from typing import Any
 
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.knn import knn_search_impl, merge_shard_topk
+from repro_torch.core.knn import knn_search_impl
 from repro_torch.device import resolve_device
 from repro_torch.distributed import context as dctx
 from repro_torch.kernels import ops
@@ -287,31 +288,28 @@ def _local_topk(q: Tensor, ds: Datastore, k: int) -> tuple[Tensor, Tensor]:
     return ops.knn_topk(q, ds.keys, k=k)
 
 
+def _flat_island(k: int, ix, q, keys, values, scale):
+    """One island's scan of its rows, then the exact merge of every
+    island's k candidates (the JAX package's all-gather + ``lax.top_k``)."""
+    d2_l, idx_l = _local_topk(q, Datastore(keys=keys, values=values, scale=scale), k)
+    d2_all = yield ("all_gather", (dctx.MODEL_AXIS,), d2_l, 1)
+    v_all = yield ("all_gather", (dctx.MODEL_AXIS,), values[idx_l.long()], 1)
+    d2, pos = topk_smallest(d2_all, k)
+    return d2, torch.gather(v_all, 1, pos)
+
+
 def _sharded_topk(q: Tensor, ds: Datastore, k: int, mesh) -> tuple[Tensor, Tensor]:
     """The flat datastore split over the islands along the mesh's model
     axis (at index 0 on its other axes, where the JAX package replicates
     it): island ``s`` of S scans rows ``[s*W, (s+1)*W)`` (W = N / S) on its
-    device with ``_local_topk``,
-    and the islands' (d2, value) candidates merge on island 0's device,
-    ties to the lower island and row as in one scan of all rows."""
-    n = ds.keys.shape[0]
-    devices = [mesh.devices[i] for i in mesh.islands(dctx.MODEL_AXIS)]
-    n_isl = len(devices)
-    if n % n_isl:
-        raise ValueError(
-            f"a flat datastore of {n} rows does not split evenly over {n_isl} islands")
-    w = n // n_isl
-    top_d, top_v = [], []
-    for s, dev in enumerate(devices):
-        part = Datastore(
-            keys=ds.keys[s * w:(s + 1) * w].to(dev),
-            values=ds.values[s * w:(s + 1) * w].to(dev),
-            scale=None if ds.scale is None else ds.scale[s * w:(s + 1) * w].to(dev),
-        )
-        d2_l, idx_l = _local_topk(q.to(dev), part, k)
-        top_d.append(d2_l)
-        top_v.append(part.values[idx_l.long()])
-    return merge_shard_topk(top_d, top_v, k=k)
+    device with ``_local_topk``, and the islands' (d2, value) candidates
+    merge, ties to the lower island and row as in one scan of all rows."""
+    row = (dctx.MODEL_AXIS,)
+    scale_spec = None if ds.scale is None else row
+    return dctx.shard_map(partial(_flat_island, k), mesh,
+                          [(None, None), row + (None,), row, scale_spec],
+                          [((None, None), ()), ((None, None), ())])(
+        q, ds.keys, ds.values, ds.scale)
 
 
 def knn_logits(hidden: Tensor, ds: Datastore | ForestDatastore, cfg: ModelConfig) -> Tensor:
@@ -329,9 +327,7 @@ def knn_logits(hidden: Tensor, ds: Datastore | ForestDatastore, cfg: ModelConfig
     if ds.proj is not None:
         q = q @ ds.proj.float()
     mesh = dctx.current_mesh()
-    # an abstract mesh (the dry-run's sharded run) has no islands: torch's
-    # sharding propagation splits the scan over the store's placement
-    if dctx.model_axis_size(mesh) == 1 or mesh.abstract:
+    if dctx.model_axis_size(mesh) == 1:
         d2, idx = _local_topk(q, ds, r.k)
         # an id of -1 (fewer than k rows) reads the last value, as JAX's
         # wrapping gather does; its weight exp(-inf) is 0

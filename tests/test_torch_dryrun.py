@@ -19,7 +19,21 @@
   cell's FLOPs within 5% of JAX's compiled count at 1,024 tokens a row
   (shorter rows differ by design: the JAX package's chunked attention
   computes the keys it pads to a 1,024-key block, the port's masks them
-  out uncomputed).
+  out uncomputed);
+* on a (2, 2) mesh, the per-device FLOPs of qwen2-0.5b's and deepseek-v2's
+  smoke cells (the latter's MoE through ``shard_map``'s per-device
+  program, the all-to-all variant too) beside the JAX package's compiled
+  count on the same mesh (an auto-sharded ``jax.sharding.Mesh``): decode
+  within 5%; train and prefill within [0.85, 2]: the port's attention runs
+  every KV head on each model device (DTensor cannot keep the (batch, KV
+  head) product that the attention's batched products flatten sharded over
+  both mesh dims), GSPMD's splits them; the collective bytes are printed
+  beside JAX's, not held (DTensor picks other redistributions);
+* the dry-run fails rather than guesses: an error of DTensor's propagation
+  raises ``PropagationError`` naming the op, an op without a sharding
+  strategy is counted as replicated (its gathers in
+  ``replicated_coll_bytes``), and ``cell_status`` fails a cell whose
+  replicated ops pass ``REPLICATED_LIMIT``.
 """
 import json
 import os
@@ -48,6 +62,16 @@ from repro_torch.tree import tree_flatten_with_path
 from torch_jax_child import ROOT, run_child
 
 M = "meta"
+# (arch, shape name, kind, seq, batch, variant): smoke cells on a (2, 2) mesh
+VS_CELLS = [("qwen2-0.5b", "train_4k", "train", 1024, 2, "baseline"),
+            ("qwen2-0.5b", "prefill_32k", "prefill", 1024, 2, "baseline"),
+            ("qwen2-0.5b", "decode_32k", "decode", 1024, 4, "baseline"),
+            ("deepseek-v2-236b", "train_4k", "train", 1024, 2, "baseline"),
+            ("deepseek-v2-236b", "decode_32k", "decode", 1024, 4, "baseline"),
+            ("deepseek-v2-236b", "train_4k", "train", 1024, 4, "a2amoe-ga1")]
+# the port's count over JAX's: decode exact up to the bookkeeping ops;
+# train / prefill with attention over every KV head (see above)
+BANDS = {"decode": (0.95, 1.05), "train": (0.85, 2.0), "prefill": (0.85, 2.0)}
 
 
 def _compile_text(fn, *args):
@@ -133,6 +157,7 @@ def test_grad_of_checkpointed_loop_counts_bwd_flops():
 
 
 PORT_CHILD = r"""
+VS_CELLS = %r
 import json, sys
 import torch
 from torch.utils.flop_counter import FlopCounterMode
@@ -175,10 +200,47 @@ for arch, sn in (("qwen2-0.5b", "train_4k"), ("qwen2-0.5b", "decode_32k"),
         dryrun._reset_rules()
         _, _, meta = dryrun.build_cell(dryrun.cell_config(arch, sn), SHAPES[sn], mesh)
         out["meta"][f"{arch}/{sn}/{mk}"] = meta
+# (2, 2): the smoke cells set beside the JAX package's count
+out["vs_jax"] = {}
+for arch, sn, kind, seq, b, variant in VS_CELLS:
+    rec = dryrun.run_cell(arch, sn, "single", variant, mesh=small,
+                          shape=ShapeConfig(sn, kind, seq, b), base=get_smoke_config(arch))
+    out["vs_jax"][f"{arch}/{sn}/{variant}"] = [rec["status"], rec["hlo_cost"]["flops"],
+                                               rec["replicated_ops"], rec["rules"],
+                                               rec["hlo_cost"]["collective_bytes"]]
+# strictness: a propagation error raises, a missing strategy is counted
+import torch.nn.functional as F
+from repro_torch.distributed import step_cost
+from torch.distributed.tensor.experimental import implicit_replication
+dmesh = dryrun.device_mesh(small)
+x = dryrun._dtensor(torch.empty(1, 16, 8, device="meta"), dmesh, (None, "model", None))
+w = dryrun._dtensor(torch.empty(16, 1, 3, device="meta"), dmesh, ("model", None, None))
+try:
+    with implicit_replication():
+        step_cost.analyze_step(lambda x, w: F.conv1d(x, w, groups=16), x, w)
+    out["conv"] = "no error"
+except step_cost.PropagationError as e:
+    out["conv"] = str(e)
+
+@torch.library.custom_op("repro_dryrun_test::gram", mutates_args=())
+def gram(x: torch.Tensor) -> torch.Tensor:
+    return x @ x.T
+
+@gram.register_fake
+def _(x):
+    return x.new_empty((x.shape[0], x.shape[0]))
+
+y = dryrun._dtensor(torch.empty(8, 16, device="meta"), dmesh, ("data", "model"))
+with implicit_replication():
+    cost, res = step_cost.analyze_step(gram, y)
+out["gram"] = dict(ops=cost.replicated_ops, coll=cost.coll_bytes,
+                   rep_coll=cost.replicated_coll_bytes, status=dryrun.cell_status(cost),
+                   replicated=[p.is_replicate() for p in res.placements])
 print("JSON" + json.dumps(out))
 """
 
 JAX_CHILD = """
+VS_CELLS = %r
 import jax
 from repro.configs import SHAPES, get_config, get_smoke_config
 from repro.configs.base import ShapeConfig
@@ -204,6 +266,23 @@ with dctx.use_mesh(mesh):
     fn, args, _ = dryrun.build_cell(get_smoke_config("qwen2-0.5b"),
                                     ShapeConfig("train_4k", "train", 1024, 2), mesh)
     out["dense_flops"] = analyze_module(fn.lower(*args).compile().as_text()).flops
+# (2, 2), auto-sharded: the smoke cells' compiled per-device counts
+import numpy as np
+from repro.distributed import sharding as shd
+small = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+out["vs_jax"] = {}
+for arch, sn, kind, seq, b, variant in VS_CELLS:
+    dryrun._reset_rules()
+    cfg = get_smoke_config(arch)
+    if kind == "decode":
+        cfg = cfg.replace(retrieval=cfg.retrieval.__class__(
+            enabled=True, k=8, datastore_size=16384, key_dim=512))
+    cfg = dryrun.VARIANTS[variant](cfg)
+    with dctx.use_mesh(small):
+        shd.set_rule("seq", ("model",) if cfg.seq_shard_activations else ())
+        fn, args, _ = dryrun.build_cell(cfg, ShapeConfig(sn, kind, seq, b), small)
+        c = analyze_module(fn.lower(*args).compile().as_text())
+        out["vs_jax"][f"{arch}/{sn}/{variant}"] = [c.flops, c.coll_bytes]
 save_json(out)
 """
 
@@ -211,7 +290,8 @@ save_json(out)
 @pytest.fixture(scope="module")
 def port_run():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-c", PORT_CHILD], env=env, capture_output=True,
+    proc = subprocess.run([sys.executable, "-c", PORT_CHILD % (VS_CELLS,)], env=env,
+                          capture_output=True,
                           text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-4000:]
     line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("JSON"))
@@ -220,7 +300,8 @@ def port_run():
 
 @pytest.fixture(scope="module")
 def jax_run(tmp_path_factory):
-    return run_child(JAX_CHILD, tmp_path_factory.mktemp("dry"), devices=512, timeout=900)
+    return run_child(JAX_CHILD % (VS_CELLS,), tmp_path_factory.mktemp("dry"), devices=512,
+                     timeout=900)
 
 
 # the JAX dry-run record's keys (launch/dryrun.py run_cell)
@@ -257,3 +338,28 @@ def test_dense_smoke_flops_beside_jax(port_run, jax_run):
     port, ref = port_run["dense"], jax_run["dense_flops"]
     print(f"dense smoke cell: port {port:.6e} FLOPs, JAX {ref:.6e}, ratio {port / ref:.4f}")
     assert 0.95 * ref <= port <= 1.05 * ref, (port, ref, port / ref)
+
+
+@pytest.mark.parametrize("cell", VS_CELLS, ids=lambda c: f"{c[0]}-{c[1]}-{c[5]}")
+def test_mesh_flops_beside_jax(port_run, jax_run, cell):
+    key = f"{cell[0]}/{cell[1]}/{cell[5]}"
+    status, port, replicated, rules, coll = port_run["vs_jax"][key]
+    ref, ref_coll = jax_run["vs_jax"][key]
+    lo, hi = BANDS[cell[2]]
+    print(f"{key} on (2, 2): port {port:.6e} FLOPs a device, JAX {ref:.6e}, "
+          f"ratio {port / ref:.4f}; collective bytes port {coll:.6e}, JAX {ref_coll:.6e}; "
+          f"rules {rules}")
+    assert status == "ok" and replicated == {}
+    assert lo * ref <= port <= hi * ref, (port, ref, port / ref)
+
+
+def test_propagation_error_fails_the_step(port_run):
+    assert port_run["conv"].startswith("DTensor cannot run aten.convolution"), port_run["conv"]
+
+
+def test_missing_strategy_is_counted_and_fails_the_cell(port_run):
+    g = port_run["gram"]
+    assert g["ops"] == {"repro_dryrun_test.gram.default": 1}
+    assert g["rep_coll"] == g["coll"] > 0
+    assert g["replicated"] == [True, True]
+    assert g["status"][0] == "error" and "repro_dryrun_test.gram" in g["status"][1]

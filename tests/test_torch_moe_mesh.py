@@ -1,4 +1,4 @@
-"""The MoE layer's expert-parallel island paths (``models/moe.island_moe``)
+"""The MoE layer's expert-parallel island paths (``models/moe.expert_parallel``)
 on ``["cpu"] * 4`` islands, meshes (data, model) = (1, 4) and (2, 2).
 
 Each path is chosen by the JAX package's rules (T*k <= 4,096 with an fsdp
