@@ -42,14 +42,17 @@ Phases, in order; any failure raises and the run exits non-zero:
    yardstick and the bound (bytes over 3.35 TB/s, f32 flops over
    67 TFLOP/s, whichever is larger): K2 at the bounds and routing shapes
    and its launch floor, K1 one phase a search with its steps; K3-K5 also
-   with their launch grid, the earlier run's time and K6 at Q = 8 as this
-   run's control; then one ``torch.profiler`` pass per baseline search for
+   with their launch grid, the earlier run's time and ``cdist`` + ``topk``
+   at Q = 8 on the serving datastore as this run's control; then one
+   ``torch.profiler`` pass per baseline search for
    the device's busy share and launches;
 9. K6 (``knn_topk``) and K7 (``pairwise_sq_l2_int8``) against their plain
    versions, bit-equal on grid rows (N < k, ragged N, D 5/64/896, k 1/8/16,
-   exact ties across pass-1 chunks);
+   Q on both sides of K6's two block shapes, exact ties across the planner's
+   row ranges);
 10. K6 and K7 at data scale: a 2^20 x 896 datastore drawn on the card from
-    ``embedding_datastore``'s recipe, Q = 8 and 1,024, under the in-band
+    ``embedding_datastore``'s recipe, Q = 8 and 1,024 (K6's stream and
+    tiled block shapes), under the in-band
     rule against the plain versions and recall 1.0 up to ties against an
     f64 brute force;
 11. kNN-LM serving: qwen2-0.5b at full width (seeded weights) in
@@ -59,7 +62,8 @@ Phases, in order; any failure raises and the run exits non-zero:
     K6/K7 launch once per decode step, three captured steps' top-k held to
     the plain version; then the 2-slot vs 1-slot agreement (printed), a
     profiled window of decode steps and K6/K7 times beside the plain
-    versions, ``cdist`` + ``topk`` and the bound, at Q = 8 and 1,024;
+    versions, ``cdist`` + ``topk``, the bound and K6's previous design, at
+    Q = 8 and 1,024;
 12. streaming, the JAX package's own workload (``benchmarks/bench_stream.py``
     at full size): 20,000 + 40,000 drifting points at D = 12, batches of
     1,024, delta capacity 2,048, VBM build, DBM monitor, ``maintain()``
@@ -1347,9 +1351,11 @@ def time_k2(built) -> list[dict]:
 
 # Per-launch times of K3-K5 at the shapes time_eps uses, and of K6/K7 at
 # Q = 8 and 1,024, from an earlier chip_smoke.py run (PERF.md's kernel table;
-# NVIDIA H100 80GB HBM3, 700.00 W), each with the design it had then: K3 and
-# K7 were redesigned since.  K6's code has not changed, so its time in this
-# run (the control) says whether this card runs as that one did.
+# NVIDIA H100 80GB HBM3, 700.00 W), each with the design it had then: K3,
+# K6 and K7 were redesigned since (K6 from three launches a call to one).
+# ``cdist`` + ``topk`` at Q = 8 on the serving datastore runs library code
+# this repository does not change, so its time in this run (the control)
+# says whether this card runs as that one did.
 EARLIER_EPS_MS = {
     ("eps_count", "WARD"): 586.7, ("eps_min_label", "WARD"): 382.6,
     ("eps_nearest_core", "WARD"): 460.5, ("eps_count", "Tracking"): 7.66,
@@ -1357,22 +1363,34 @@ EARLIER_EPS_MS = {
 }
 EARLIER_SERVE_MS = {("knn_topk", 8): 1.564, ("knn_topk", 1024): 117.9,
                     ("pairwise_sq_l2_int8", 8): 1.041, ("pairwise_sq_l2_int8", 1024): 113.3}
+# K6's previous (three-launch) design at Q = 8 on the families' stores and on
+# one island's quarter, keyed by (N, D)
+EARLIER_K6_MS = {(1 << 18, 5120): 2.297, (65_536, 2560): 0.418, (65_536, 384): 0.109,
+                 (65_536, 5120): 0.784}
+EARLIER_CONTROL_MS = 10.12  # cdist + topk, Q = 8 on the serving datastore
+# K6's rows are timed behind ~0.5 ms of queued sleep (``device_ms``'s
+# launches_hint): its wrapper's host side (the plan, the scratch) can take
+# longer than the default 0.1 ms on the card machine's host, which would
+# put host time inside the measured interval.
+K6_SLEEP = 5
 
 
-def k6_control(keys) -> float:
-    """K6 at Q = 8 on the serving datastore, ms: the same-run control."""
-    from repro_torch.kernels.topk import knn_topk_cuda
+def library_control(keys) -> float:
+    """``cdist`` + ``topk`` at Q = 8 on the serving datastore, ms: the
+    same-run control."""
+    import torch
 
     q = retrieval_problem(keys, 8, SEED + 8)
-    return device_ms(lambda: knn_topk_cuda(q, keys, SERVE_K), reps=21)
+    return device_ms(lambda: torch.topk(torch.cdist(q, keys).square_(), SERVE_K, dim=1,
+                                        largest=False), reps=21, launches_hint=K6_SLEEP)
 
 
-def control_text(k6_ms: float) -> str:
-    return (f"control K6 Q=8 {k6_ms:.3f} ms in this run against "
-            f"{EARLIER_SERVE_MS[('knn_topk', 8)]:.3f} ms earlier")
+def control_text(control_ms: float) -> str:
+    return (f"control cdist+topk Q=8 {control_ms:.3f} ms in this run against "
+            f"{EARLIER_CONTROL_MS:.2f} ms earlier")
 
 
-def time_eps(built, overlap, smi: str, k6_ms: float) -> list[dict]:
+def time_eps(built, overlap, smi: str, control_ms: float) -> list[dict]:
     """K3, K4, K5 at the shapes DBSCAN gives them: all N rows against all N,
     on each full dataset, with the core mask and labels of a first sweep.
     The plain versions run over blocks of 1,024 query rows (a whole (N, N)
@@ -1383,7 +1401,7 @@ def time_eps(built, overlap, smi: str, k6_ms: float) -> list[dict]:
     rows whose distance the pass needs (all N for K3, the core rows for K4
     and K5, which compute only those).  Each row also carries the launch
     grid the kernel reports, its share of the bound, the earlier run's time
-    and K6's time in this run (``k6_ms``) as the control."""
+    and the control's time in this run (``control_ms``)."""
     import numpy as np
     import torch
 
@@ -1430,12 +1448,12 @@ def time_eps(built, overlap, smi: str, k6_ms: float) -> list[dict]:
             rows.append(dict(name=kname, shape=f"{name} Q=N={n} D={d}", dataset=name, ms=ms,
                              plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=by,
                              share=b_ms / ms, cols=cols, grid=list(grid), earlier_ms=earlier,
-                             launches_per_build=per_build[kname], k6_control_ms=k6_ms,
+                             launches_per_build=per_build[kname], control_ms=control_ms,
                              card=smi))
             log(f"[time] {kname} {name} ({n} x {n} x {d}, {cols} columns computed) on {smi}: "
                 f"kernel {ms:.2f} ms, grid {tuple(grid)}, plain {plain_ms:.2f} ms (blocks "
                 f"of {blk} rows), bound {b_ms:.2f} ms by {by} ({b_ms / ms:.1%} of it); "
-                f"earlier run (PERF.md) {earlier:.2f} ms; {control_text(k6_ms)}; "
+                f"earlier run (PERF.md) {earlier:.2f} ms; {control_text(control_ms)}; "
                 f"{per_build[kname]} launches in the VBM build")
     return rows
 
@@ -1609,21 +1627,24 @@ def check_k6_k7_unit(dev, gen) -> int:
     grid (K7: int8 rows with power-of-two scales), where every product and
     partial sum of the expansion is exact, so results must be bit-equal:
     N < k, N not a multiple of any tile, D in {5, 64, 896}, k in {1, 8, 16},
-    and exact ties from rows duplicated into another pass-1 chunk."""
+    Q on both sides of K6's block shapes (stream Q <= 32, tiled above), and
+    exact ties from rows duplicated into the planner's last row range."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_int8_cuda
-    from repro_torch.kernels.topk import chunking, knn_topk_cuda
+    from repro_torch.kernels.topk import knn_topk_cuda, plan
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    cases = 0
+    cases, regimes = 0, set()
     for d in (5, 64, 896):
-        for qn, n in ((3, 5), (8, 1000), (9, 3001), (1030, 2049), (8, 70_001)):
+        for qn, n in ((3, 5), (8, 1000), (9, 3001), (32, 4099), (33, 4099), (1030, 2049),
+                      (8, 70_001), (40, 70_001)):
             for k in (1, 8, 16):
                 q, x = grid_rows(gen, dev, qn, d), grid_rows(gen, dev, n, d)
-                chunk_rows, n_chunks = chunking(qn, n, sms)
-                if n_chunks > 1:  # a duplicate of row 1 in the last chunk
+                p = plan(qn, n, k, sms)
+                regimes.add(p.regime)
+                if p.ranges > 1:  # a duplicate of row 1 in the last range
                     x[n - 1] = x[1]
                     q[0] = x[1]
                 kv, ki = knn_topk_cuda(q, x, k)
@@ -1631,9 +1652,9 @@ def check_k6_k7_unit(dev, gen) -> int:
                 torch.cuda.synchronize()
                 require(torch.equal(kv, rv) and torch.equal(ki, ri),
                         f"K6 differs from its plain version at {(qn, n, d, k)}")
-                if n_chunks > 1 and k > 1:
+                if p.ranges > 1 and k > 1:
                     require(int(ki[0, 0]) == 1 and int(ki[0, 1]) == n - 1,
-                            f"K6 tie order across chunks at {(qn, n, d, k)}")
+                            f"K6 tie order across row ranges at {(qn, n, d, k)}")
                 cases += 1
             xq = torch.randint(-127, 128, (n, d), generator=gen, device=dev).to(torch.int8)
             s = 2.0 ** -torch.randint(4, 8, (n,), generator=gen, device=dev).float()
@@ -1642,8 +1663,9 @@ def check_k6_k7_unit(dev, gen) -> int:
             torch.cuda.synchronize()
             require(torch.equal(got, want), f"K7 differs from its plain version at {(qn, n, d)}")
             cases += 1
+    require(regimes == {"stream", "tiled"}, f"K6 grid cases ran {regimes} only")
     log(f"[K6/K7] {cases} grid cases bit-equal to the plain versions (N < k, ragged N, "
-        "D 5/64/896, k 1/8/16, exact ties across pass-1 chunks)")
+        "D 5/64/896, k 1/8/16, K6 stream and tiled, exact ties across row ranges)")
     return cases
 
 
@@ -1729,7 +1751,7 @@ def check_retrieval_scale(dev, keys, xq, scale) -> dict:
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_int8_cuda
-    from repro_torch.kernels.topk import knn_topk_cuda
+    from repro_torch.kernels.topk import knn_topk_cuda, plan
 
     xhat = xq.float() * scale[:, None]
     xx_f32, xx_i8 = max_sq_norm(keys), max_sq_norm(xhat)
@@ -1771,7 +1793,10 @@ def check_retrieval_scale(dev, keys, xq, scale) -> dict:
         k7.update(max_abs_err=worst, ulp=err)
         out[nq] = dict(k6=k6, k7=k7)
         torch.cuda.empty_cache()
-        log(f"[K6/K7] Q={nq} x {SERVE_N} x {SERVE_D}, k={SERVE_K}: K6 max |kernel - plain| "
+        regime = plan(nq, SERVE_N, SERVE_K, torch.cuda.get_device_properties(dev)
+                      .multi_processor_count).regime
+        log(f"[K6/K7] Q={nq} x {SERVE_N} x {SERVE_D}, k={SERVE_K}: K6 ({regime}) max "
+            f"|kernel - plain| "
             f"{k6['max_abs_err']:.3e} (|kernel - exact| {k6['max_exact_err']:.3e}), ids differ "
             f"at {k6['ids_differ']} of {k6['in_band_ranks']} in-band ranks, recall up to ties "
             f"{k6['recall']:.4f}; K7 over all {nq * SERVE_N} "
@@ -1922,7 +1947,7 @@ def slot_agreement(model, ds) -> float:
 
 
 def profile_serving(model, ds, step_ms: float, *, steps: int = 6,
-                    kernel=("K6", ("knn_topk", "query_norms")), what="f32 datastore") -> dict:
+                    kernel=("K6", ("knn_topk",)), what="f32 datastore") -> dict:
     """Device time per decode step of a full engine (8 slots): kernel time
     summed by torch.profiler over ``steps`` steps, and the retrieval
     kernel's share of it (``kernel``: its name and the substrings of its
@@ -1970,34 +1995,39 @@ def time_retrieval(dev, keys, xq, scale) -> list[dict]:
     Q = 8 the stable selection that follows K7 on the int8 serving path
     (``ref.topk_smallest``, a torch sort) is also timed alone on K7's
     output and after K7, as the decode step runs them (printed, not held to
-    anything).  K6 at Q = 8 is the same-run control of K3's and K7's times."""
+    anything).  ``cdist`` + ``topk`` at Q = 8 is the same-run control of
+    K7's times."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.pairwise_l2 import pairwise_sq_l2_int8_cuda
-    from repro_torch.kernels.topk import knn_topk_cuda
+    from repro_torch.kernels.topk import knn_topk_cuda, plan
 
     n, d, k = SERVE_N, SERVE_D, SERVE_K
     rows = []
-    k6_ms = None
+    control_ms = None
     for nq in (8, 1024):
         q = retrieval_problem(keys, nq, SEED + nq)
         reps = 21 if nq == 8 else 3  # Q = 8 times move a few % between reps
         flops = 2.0 * nq * n * d + 2.0 * (nq + n) * d
-        ms = device_ms(lambda: knn_topk_cuda(q, keys, k), reps=reps)
-        k6_ms = ms if nq == 8 else k6_ms
-        plain = device_ms(lambda: ref.knn_topk_ref(q, keys, k), reps=reps)
+        ms = device_ms(lambda: knn_topk_cuda(q, keys, k), reps=reps, launches_hint=K6_SLEEP)
+        plain = device_ms(lambda: ref.knn_topk_ref(q, keys, k), reps=reps,
+                          launches_hint=K6_SLEEP)
         lib = device_ms(lambda: torch.topk(torch.cdist(q, keys).square_(), k, dim=1,
-                                           largest=False), reps=reps)
+                                           largest=False), reps=reps, launches_hint=K6_SLEEP)
+        control_ms = lib if nq == 8 else control_ms
         nbytes = 4 * (nq * d + n * d) + 8 * nq * k
         b_ms, by = bound(nbytes, flops)
         earlier = EARLIER_SERVE_MS[("knn_topk", nq)]
+        p = plan(nq, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
         rows.append(dict(name="knn_topk", shape=f"Q={nq} N={n} D={d} k={k}", nq=nq, ms=ms,
                          plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=by,
-                         bytes=nbytes, flops=flops, earlier_ms=earlier))
-        log(f"[time] K6 knn_topk Q={nq} N={n} D={d} k={k}: kernel {ms:.3f} ms, plain "
-            f"{plain:.3f} ms, cdist+topk {lib:.3f} ms, bound {b_ms:.3f} ms by {by} "
-            f"({b_ms / ms:.1%} of it); earlier run (PERF.md, same code) {earlier:.3f} ms")
+                         bytes=nbytes, flops=flops, earlier_ms=earlier, regime=p.regime,
+                         grid=[p.q_tiles, p.ranges]))
+        log(f"[time] K6 knn_topk Q={nq} N={n} D={d} k={k} ({p.regime}, grid "
+            f"{p.q_tiles} x {p.ranges}): kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+            f"cdist+topk {lib:.3f} ms, bound {b_ms:.3f} ms by {by} ({b_ms / ms:.1%} of it); "
+            f"previous design (PERF.md) {earlier:.3f} ms")
         ms = device_ms(lambda: pairwise_sq_l2_int8_cuda(q, xq, scale), reps=reps)
         plain = device_ms(lambda: ref.pairwise_sq_l2_int8_ref(q, xq, scale), reps=reps)
         nbytes = 4 * nq * d + n * d + 4 * n + 4 * nq * n
@@ -2006,7 +2036,7 @@ def time_retrieval(dev, keys, xq, scale) -> list[dict]:
         row = dict(name="pairwise_sq_l2_int8", shape=f"Q={nq} N={n} D={d}", nq=nq,
                    ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=by,
                    bytes=nbytes, flops=flops + float(n) * d, earlier_ms=earlier,
-                   k6_control_ms=k6_ms)
+                   control_ms=control_ms)
         sort_text = ""
         if nq == 8:
             d2 = pairwise_sq_l2_int8_cuda(q, xq, scale)
@@ -2020,7 +2050,7 @@ def time_retrieval(dev, keys, xq, scale) -> list[dict]:
         rows.append(row)
         log(f"[time] K7 pairwise_sq_l2_int8 Q={nq} N={n} D={d}: kernel {ms:.3f} ms, plain "
             f"{plain:.3f} ms, bound {b_ms:.3f} ms by {by} ({b_ms / ms:.1%} of it); earlier "
-            f"run (PERF.md, previous design) {earlier:.3f} ms; {control_text(k6_ms)}"
+            f"run (PERF.md, previous design) {earlier:.3f} ms; {control_text(control_ms)}"
             f"{sort_text}; no single library call dequantizes and computes these distances")
         del q
         torch.cuda.empty_cache()
@@ -3490,16 +3520,19 @@ def time_family_retrieval(keys, xq, scale, what: str) -> list[dict]:
          lambda: ref.pairwise_sq_l2_int8_ref(q, xq, scale), None,
          4 * 8 * d + n * d + 4 * n + 4 * 8 * n, flops + float(n) * d),
     ):
-        ms = device_ms(fn, reps=21)
-        plain_ms = device_ms(plain, reps=21)
-        lib_ms = device_ms(lib, reps=21) if lib else None
+        hint = K6_SLEEP if lib else 1
+        ms = device_ms(fn, reps=21, launches_hint=hint)
+        plain_ms = device_ms(plain, reps=21, launches_hint=hint)
+        lib_ms = device_ms(lib, reps=21, launches_hint=hint) if lib else None
         b_ms, by = bound(nbytes, ops_)
+        earlier = EARLIER_K6_MS.get((n, d)) if lib else None
         rows.append(dict(name=name, shape=f"Q=8 N={n} D={d}" + (f" k={SERVE_K}" if lib else ""),
                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                         bound_by=by, store=what))
+                         bound_by=by, store=what, earlier_ms=earlier))
         log(f"[time] {name} on {what} (Q=8 N={n} D={d}): kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms, " + (f"cdist+topk {lib_ms:.3f} ms, " if lib else "")
-            + f"bound {b_ms:.3f} ms by {by} ({b_ms / ms:.1%} of it)")
+            + f"bound {b_ms:.3f} ms by {by} ({b_ms / ms:.1%} of it)"
+            + (f"; previous design (PERF.md) {earlier:.3f} ms" if earlier else ""))
     return rows
 
 
@@ -4444,16 +4477,19 @@ def _time_k6_island(keys, smi: str) -> dict:
 
     n, d = keys.shape
     q = retrieval_problem(keys, 8, SEED + 8)
-    ms = device_ms(lambda: knn_topk_cuda(q, keys, SERVE_K), reps=21)
-    plain_ms = device_ms(lambda: ref.knn_topk_ref(q, keys, SERVE_K), reps=21)
+    ms = device_ms(lambda: knn_topk_cuda(q, keys, SERVE_K), reps=21, launches_hint=K6_SLEEP)
+    plain_ms = device_ms(lambda: ref.knn_topk_ref(q, keys, SERVE_K), reps=21,
+                         launches_hint=K6_SLEEP)
     lib_ms = device_ms(lambda: torch.topk(torch.cdist(q, keys).square_(), SERVE_K, dim=1,
-                                          largest=False), reps=21)
+                                          largest=False), reps=21, launches_hint=K6_SLEEP)
     b_ms, by = bound(4 * (8 * d + n * d) + 8 * 8 * SERVE_K, 2.0 * 8 * n * d + 2.0 * (8 + n) * d)
+    earlier = EARLIER_K6_MS.get((n, d))
     log(f"[time] knn_topk on one island's store (Q=8 N={n} D={d}): kernel {ms:.3f} ms, plain "
         f"{plain_ms:.3f} ms, cdist+topk {lib_ms:.3f} ms, bound {b_ms:.3f} ms by {by} "
-        f"({b_ms / ms:.1%} of it) ({smi})")
+        f"({b_ms / ms:.1%} of it)"
+        + (f"; previous design (PERF.md) {earlier:.3f} ms" if earlier else "") + f" ({smi})")
     return dict(shape=f"Q=8 N={n} D={d} k={SERVE_K}", ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=by)
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=by, earlier_ms=earlier)
 
 
 def launcher_on_card(smi: str) -> dict:
@@ -4695,8 +4731,8 @@ def run(args) -> int:
     k2_rows = time_k2(sl["built"])
     k1_rows = time_k1(sl["built"])
     store = serving_datastore(dev)
-    k6_ms = k6_control(store[0])
-    eps_rows = time_eps(sl["built"], ov, smi, k6_ms)
+    control_ms = library_control(store[0])
+    eps_rows = time_eps(sl["built"], ov, smi, control_ms)
     prof_rows = profile_searches(sl["built"], sl["results"])
     model, sv = serve_phase(dev, gen, *store)
     stream = bench_stream_phase(dev, smi)

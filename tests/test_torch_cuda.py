@@ -358,20 +358,26 @@ def _same_neighbours(q, x, got, want):
 
 # --------------------------------------------------------------------------
 # K6 (knn_topk) and K7 (pairwise_sq_l2_int8): bit-equal on grid rows, where
-# the expansion is exact in any order; N < k; exact ties over two chunks
+# the expansion is exact in any order; N < k; exact ties over two row ranges
 # --------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("qn,n,d,k", [
     (3, 5, 5, 8), (8, 1000, 64, 8), (9, 3000, 5, 1), (17, 2049, 896, 16),
     (8, 700, 896, 64), (1, 1, 1, 1), (64, 5000, 20, 10), (1030, 300, 7, 5),
+    (32, 4099, 96, 8), (33, 4099, 96, 8), (31, 70_001, 383, 64), (40, 70_001, 20, 1),
 ])
 def test_knn_topk_kernel_equals_plain(dev, qn, n, d, k):
+    """Both block shapes (stream Q <= 32, tiled above) and their boundary."""
+    from repro_torch.kernels.topk import STREAM_MAX_Q, plan
+
     g = np.random.default_rng(qn + n + d + k)
     q = torch.from_numpy(_grid(g, qn, d)).to(dev)
     x = torch.from_numpy(_grid(g, n, d)).to(dev)
     if n > 2:
         x[n - 1] = x[1]  # an exact tie, far apart: the lower row wins
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert plan(qn, n, k, sms).regime == ("stream" if qn <= STREAM_MAX_Q else "tiled")
     n0 = ops.launch_counts()["knn_topk"]
     kv, ki = ops.knn_topk(q, x, k=k)
     torch.cuda.synchronize()
@@ -382,23 +388,54 @@ def test_knn_topk_kernel_equals_plain(dev, qn, n, d, k):
         assert bool(torch.isinf(kv[:, n:]).all()) and bool((ki[:, n:] == -1).all())
 
 
-def test_knn_topk_ties_across_chunks(dev):
-    """Duplicated rows 2^17 apart (different chunks of pass 1): the merge keeps
-    the lower row first."""
-    from repro_torch.kernels.topk import chunking
+@pytest.mark.parametrize("qn", [16, 40])
+def test_knn_topk_ties_across_chunks(dev, qn):
+    """Rows duplicated into the planner's last row range (another block of
+    the launch, in both regimes): the in-kernel merge keeps the lower row
+    first."""
+    from repro_torch.kernels.topk import plan
 
     g = np.random.default_rng(1)
     n, d = 1 << 18, 32
     x = torch.from_numpy(_grid(g, n, d)).to(dev)
-    x[(1 << 17) + 5:(1 << 17) + 69] = x[5:69]
-    q = x[5:21].clone()
-    chunk_rows, n_chunks = chunking(q.shape[0], n, torch.cuda.get_device_properties(dev).multi_processor_count)
-    assert n_chunks > 1 and chunk_rows < (1 << 17)
+    p = plan(qn, n, 4, torch.cuda.get_device_properties(dev).multi_processor_count)
+    first, last = p.row_range(0, n), p.row_range(p.ranges - 1, n)
+    dup = last[0] + 3
+    assert p.ranges > 1 and first[1] >= 5 + qn and dup + qn <= last[1]
+    x[dup:dup + qn] = x[5:5 + qn]
+    q = x[5:5 + qn].clone()
     kv, ki = ops.knn_topk(q, x, k=4)
     rv, ri = ref.knn_topk_ref(q, x, 4)
     assert torch.equal(kv, rv) and torch.equal(ki, ri)
-    assert torch.equal(ki[:, 0].cpu(), torch.arange(5, 21, dtype=torch.int32))
-    assert torch.equal(ki[:, 1].cpu(), torch.arange(5, 21, dtype=torch.int32) + (1 << 17))
+    assert torch.equal(ki[:, 0].cpu(), torch.arange(5, 5 + qn, dtype=torch.int32))
+    assert torch.equal(ki[:, 1].cpu(), torch.arange(dup, dup + qn, dtype=torch.int32))
+
+
+def test_knn_topk_decode_is_one_device_launch(dev):
+    """A decode-batch call (Q = 8, many row ranges) runs exactly one device
+    kernel: no query-norm pre-pass and no merge launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = np.random.default_rng(2)
+    x = torch.from_numpy(g.normal(size=(1 << 17, 896)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(g.normal(size=(8, 896)).astype(np.float32)).to(dev)
+    ops.knn_topk(q, x, k=8)  # the ticket counters are zeroed once, here
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.knn_topk(q, x, k=8)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1 and "knn_topk" in names[0], names
+
+
+@pytest.mark.parametrize("k", [1, 8, 64])
+def test_knn_topk_plan_smem_matches_kernel(dev, k):
+    """The planner's shared-memory bytes are the kernel's, for every shape."""
+    from repro_torch.kernels.topk import SHAPES, _lib
+
+    lib = _lib()
+    for shape in SHAPES:
+        assert lib.knn_topk_smem(shape.index, k) == shape.smem_bytes(k)
 
 
 @pytest.mark.parametrize("qn,n,d", [(3, 5, 5), (8, 1000, 64), (17, 2049, 896), (9, 300, 7),

@@ -42,7 +42,8 @@ def _grid(g, n, d):
     return (g.integers(-16, 17, size=(n, d)) / 8).astype(np.float32)
 
 
-@pytest.mark.parametrize("q_n,x_n,d", [(16, 100, 24), (33, 257, 48), (5, 70, 13)])
+@pytest.mark.parametrize("q_n,x_n,d", [(16, 100, 24), (33, 257, 48), (5, 70, 13),
+                                       (40, 300, 20)])  # Q = 40: the card's tiled shape
 @pytest.mark.parametrize("k", [1, 5, 16])
 def test_knn_topk_plain_matches_jax(q_n, x_n, d, k):
     g = np.random.default_rng(q_n * 31 + x_n + k)
