@@ -4182,9 +4182,18 @@ ISLAND_SHAPES = ((1, 4), (2, 2))  # (data, model) over four islands of the card
 MOE_HOLD_ATOL = 1e-4  # tests/test_moe_paths.py, scaled by the output's max |value|
 MOE_CF = 4.0  # capacity factor of the holds: no drops on either side
 QWEN3_BATCH, QWEN3_SEQ = 1, 576  # 4,608 assignments > 4,096: the all-to-all path
-DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("qwen2-0.5b", "decode_32k"),
-                ("deepseek-v2-236b", "train_4k"), ("deepseek-v2-236b", "decode_32k"))
+# (arch, shape, mesh): the first four on both production meshes; whisper's
+# encoder-decoder, jamba's Mamba scan at 32k and rwkv6's WKV recurrence
+# (both time loops folded by their trip counts) on the single-pod one
+DRYRUN_CELLS = tuple((a, s, mk) for a, s in (("qwen2-0.5b", "train_4k"),
+                                             ("qwen2-0.5b", "decode_32k"),
+                                             ("deepseek-v2-236b", "train_4k"),
+                                             ("deepseek-v2-236b", "decode_32k"))
+                     for mk in ("single", "multi")) + (
+    ("whisper-tiny", "train_4k", "single"), ("jamba-1.5-large-398b", "prefill_32k", "single"),
+    ("rwkv6-3b", "train_4k", "single"))
 DRYRUN_TIMEOUT = 600
+DRYRUN_PEAK_RTOL = 0.10  # the (1, 1) dry-run's peak against the card's max_memory_allocated
 # 20(c): the island run's logits rms from the single bf16 run's, at most this
 # multiple of the single run's own rms from the f32-compute model (the
 # families' noise factor: two bf16 runs that sum in other orders differ by
@@ -4532,13 +4541,12 @@ from repro_torch.launch import dryrun
 out_dir = Path(sys.argv[1])
 cells = json.loads(sys.argv[2])
 recs = []
-for arch, shape in cells:
-    for mk in ("single", "multi"):
-        t0 = time.perf_counter()
-        rec = dryrun.run_cell(arch, shape, mk)
-        rec["wall_s"] = time.perf_counter() - t0
-        (out_dir / f"{arch}_{shape}_{mk}.json").write_text(json.dumps(rec, indent=1))
-        recs.append(rec)
+for arch, shape, mk in cells:
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, mk)
+    rec["wall_s"] = time.perf_counter() - t0
+    (out_dir / f"{arch}_{shape}_{mk}.json").write_text(json.dumps(rec, indent=1))
+    recs.append(rec)
 one = Mesh(shape=(1, 1), axis_names=("data", "model"))
 rec = dryrun.run_cell("qwen2-0.5b", "train_4k", "single", mesh=one,
                       shape=ShapeConfig("train_4k", "train", int(sys.argv[4]), int(sys.argv[3])))
@@ -4595,11 +4603,14 @@ class DryrunChild:
 
 def dryrun_phase(dev, smi: str, train_peak: int, child: DryrunChild) -> dict:
     """20(e): the dry-run of the required cells in a child process (its fake
-    process group of 256 / 512 ranks is per process), each record ok and
-    rendered by benchmarks/roofline.py's fmt_table; then qwen2-0.5b's train
-    step on a (1, 1) mesh at phase 19's 8 x 512 through the dry-run's cell
-    builder, its per-device FLOPs equal to FlopCounterMode over the same
-    step run on the card."""
+    process group of 256 / 512 ranks is per process), each record ok, with
+    a peak, and rendered by benchmarks/roofline.py's fmt_table; then
+    qwen2-0.5b's train step on a (1, 1) mesh at phase 19's 8 x 512 through
+    the dry-run's cell builder, run on the card twice: the dry-run's peak
+    within ``DRYRUN_PEAK_RTOL`` of the first run's
+    ``torch.cuda.max_memory_allocated`` (what the step allocated beyond what
+    the card held before it, plus its argument bytes), and its per-device
+    FLOPs equal to FlopCounterMode's over the second."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -4615,16 +4626,21 @@ def dryrun_phase(dev, smi: str, train_peak: int, child: DryrunChild) -> dict:
     for rec in got["cells"]:
         require(rec["status"] == "ok", f"20(e) {rec['arch']} {rec['shape']} {rec['mesh']}: "
                 f"{rec.get('error')}")
+        require(rec["memory"]["peak_bytes"] > 0, f"20(e) {rec['arch']} {rec['shape']}: no peak")
         r = rec["roofline"]
         log(f"[dryrun] {rec['arch']} {rec['shape']} {rec['mesh']}: {rec['wall_s']:.1f} s; "
             f"per device {rec['hlo_cost']['flops']:.3e} FLOPs, collectives "
-            f"{rec['hlo_cost']['collective_bytes']:.3e} B, memory model "
+            f"{rec['hlo_cost']['collective_bytes']:.3e} B, peak "
+            f"{rec['memory']['peak_bytes']:.4e} B "
+            f"(arguments {rec['memory']['argument_bytes']:.4e}), memory model "
             f"{rec['memory_model']['total']:.3e} B; roofline compute {r['compute_s']:.3e} s, "
             f"memory {r['memory_s']:.3e} s, collective {r['collective_s']:.3e} s "
-            f"({r['dominant']}); replicated ops {rec['replicated_ops']}")
+            f"({r['dominant']}); trip counts {rec['hlo_cost']['trip_counts']}; "
+            f"replicated ops {rec['replicated_ops']}")
     for mk in ("single", "multi"):
         table = fmt_table([r for r in got["cells"] if r["mesh"] == mk])
-        require(table.count("| ok |") == len(DRYRUN_CELLS), f"20(e) fmt_table {mk}: {table}")
+        n_mk = sum(c[2] == mk for c in DRYRUN_CELLS)
+        require(table.count("| ok |") == n_mk, f"20(e) fmt_table {mk}: {table}")
         for line in table.splitlines():
             log(f"[dryrun] {mk} {line}")
     one = got["one"]
@@ -4632,22 +4648,38 @@ def dryrun_phase(dev, smi: str, train_peak: int, child: DryrunChild) -> dict:
     shape = ShapeConfig("train_4k", "train", TRAIN_SEQ, TRAIN_BATCH)
     fn, args, _ = dryrun.build_cell(cfg, shape, Mesh(shape=(1, 1), axis_names=("data", "model")),
                                     device=dev)
+    # the peak of the step as it runs, then its FLOPs (under
+    # FlopCounterMode the step holds more at its peak: ~8 GB here)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    card_max = torch.cuda.max_memory_allocated()
+    card_peak = card_max - before + one["memory"]["argument_bytes"]
+    del out
     with FlopCounterMode(display=False) as fc:
         fn(*args)
     torch.cuda.synchronize()
     card_flops = fc.get_total_flops()
     require(one["hlo_cost"]["flops"] == card_flops,
             f"20(e) (1, 1): dry-run {one['hlo_cost']['flops']} FLOPs, card {card_flops}")
+    dry_peak = one["memory"]["peak_bytes"]
     log(f"[dryrun] 20(e) qwen2-0.5b train {TRAIN_BATCH} x {TRAIN_SEQ} on (1, 1): "
-        f"{card_flops:.6e} FLOPs a step, dry-run = card's FlopCounterMode; memory model "
-        f"{one['memory_model']['total'] / 1e9:.2f} GB of traffic, local state "
-        f"{one['memory']['argument_bytes'] / 1e9:.2f} GB beside phase 19's measured peak "
-        f"{train_peak / 1e9:.2f} GB allocated; the child took {child_s:.1f} s ({smi})")
+        f"{card_flops:.6e} FLOPs a step, dry-run = card's FlopCounterMode; peak: dry-run "
+        f"{dry_peak / 1e9:.4f} GB, card {card_peak / 1e9:.4f} GB (max_memory_allocated "
+        f"{card_max / 1e9:.4f} GB - {before / 1e9:.4f} GB held before "
+        f"+ {one['memory']['argument_bytes'] / 1e9:.4f} GB of arguments), ratio "
+        f"{dry_peak / card_peak:.4f}; memory model {one['memory_model']['total'] / 1e9:.2f} GB "
+        f"of traffic; the child took {child_s:.1f} s ({smi})")
+    require(abs(dry_peak - card_peak) <= DRYRUN_PEAK_RTOL * card_peak,
+            f"20(e) (1, 1): dry-run peak {dry_peak} B, card {card_peak} B")
     del fn, args
     free_card()
     return dict(cells=got["cells"], one_flops=card_flops, child_s=child_s,
                 memory_model_total=one["memory_model"]["total"],
-                argument_bytes=one["memory"]["argument_bytes"], train_peak=train_peak)
+                argument_bytes=one["memory"]["argument_bytes"], train_peak=train_peak,
+                dry_peak=dry_peak, card_peak=card_peak)
 
 
 def launch_phase(dev, smi: str, train_peak: int, child: DryrunChild) -> dict:

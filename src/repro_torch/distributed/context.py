@@ -154,11 +154,12 @@ def model_axis_size(mesh: Mesh | None = None) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _axes(entry) -> tuple[str, ...]:
+def spec_axes(entry) -> tuple[str, ...]:
     """A spec entry's mesh axes: None or () replicated, a name, a tuple."""
     if entry is None:
         return ()
     return entry if isinstance(entry, tuple) else (entry,)
+
 
 
 def shard_map(body: Callable, mesh: Mesh, in_specs: Sequence, out_specs: Sequence):
@@ -172,7 +173,8 @@ def shard_map(body: Callable, mesh: Mesh, in_specs: Sequence, out_specs: Sequenc
     * ``ix(axes)`` is the island's row-major index over ``axes``;
     * the body is a generator where it communicates: it yields a collective
       and is sent its result, ``("psum", axes, x)`` (the sum over the
-      islands that differ only on ``axes``), ``("all_gather", axes, x,
+      islands that differ only on ``axes``; ``"pmax"`` their elementwise
+      maximum, no gradient), ``("all_gather", axes, x,
       dim)`` (their ``x`` concatenated along ``dim`` in row-major order) or
       ``("all_to_all", axes, x)`` (block j of dim 0 goes to member j; the
       blocks received, in member order, along dim 0); it returns its
@@ -189,9 +191,10 @@ def shard_map(body: Callable, mesh: Mesh, in_specs: Sequence, out_specs: Sequenc
     ``DTensor`` arguments the body runs once, as this device's program
     under ``local_map``, with torch's functional collectives over the
     ``DeviceMesh``'s dims (a dim may merge adjacent axes, "pod+data"; a
-    spec names all of them or none)."""
+    spec names all of them or none); a plain tensor among them is taken as
+    replicated."""
     def run(*args):
-        if any(_is_dtensor(a) for a in args):
+        if any(is_dtensor(a) for a in args):
             return _shard_map_dtensor(body, in_specs, out_specs, args)
         if mesh.abstract:
             raise ValueError("an abstract mesh has no islands to run on")
@@ -213,7 +216,7 @@ def _block(mesh: Mesh, s: int, x, spec):
     if spec is None or not isinstance(x, torch.Tensor):
         return x
     for d, entry in enumerate(spec):
-        axes = _axes(entry)
+        axes = spec_axes(entry)
         if not axes:
             continue
         n = math.prod(mesh.shape[a] for a in axes)
@@ -244,6 +247,8 @@ def _collective(mesh: Mesh, reqs: dict[int, tuple]) -> dict[int, object]:
             for y in xs[1:]:
                 total = total + y.to(dev0)
             out[s] = total.to(dev)
+        elif kind == "pmax":
+            out[s] = torch.stack([y.to(dev) for y in xs]).amax(0)
         elif kind == "all_gather":
             out[s] = torch.cat([y.to(dev) for y in xs], dim=rest[0])
         elif kind == "all_to_all":
@@ -255,8 +260,8 @@ def _collective(mesh: Mesh, reqs: dict[int, tuple]) -> dict[int, object]:
 
 
 def _shard_map_islands(body, mesh: Mesh, in_specs, out_specs, args):
-    named = {a for spec in in_specs if spec is not None for e in spec for a in _axes(e)}
-    named |= {a for spec, part in out_specs for e in spec for a in _axes(e)} \
+    named = {a for spec in in_specs if spec is not None for e in spec for a in spec_axes(e)}
+    named |= {a for spec, part in out_specs for e in spec for a in spec_axes(e)} \
         | {a for _, part in out_specs for a in part}
     runs = [s for s in range(mesh.size)
             if all(i == 0 for a, i in mesh.coords(s).items() if a not in named)]
@@ -285,10 +290,8 @@ def _shard_map_islands(body, mesh: Mesh, in_specs, out_specs, args):
 
 def _assemble(mesh: Mesh, parts: dict[int, torch.Tensor], spec, partial, dev):
     """One output from the islands' parts: summed over ``partial``, its
-    sharded dim concatenated, index 0 taken over the other axes."""
-    sharded = [(d, _axes(e)) for d, e in enumerate(spec) if _axes(e)]
-    if len(sharded) > 1:
-        raise ValueError("an output may shard one dim")
+    sharded dims concatenated, index 0 taken over the other axes."""
+    sharded = [(d, spec_axes(e)) for d, e in enumerate(spec) if spec_axes(e)]
     keep = set(partial) | {a for _, axes in sharded for a in axes}
     islands = [s for s in parts if all(i == 0 for a, i in mesh.coords(s).items()
                                        if a not in keep)]
@@ -299,11 +302,17 @@ def _assemble(mesh: Mesh, parts: dict[int, torch.Tensor], spec, partial, dev):
         for m in mesh.group(s, tuple(partial))[1:]:
             total = total + parts[m].to(dev)
         summed[s] = total
-    if not sharded:
-        return summed[heads[0]]
-    d, axes = sharded[0]
-    order = sorted(summed, key=lambda s: _lin(mesh, s, axes))
-    return torch.cat([summed[s] for s in order], dim=d)
+
+    def build(level: int, islands: list[int]) -> torch.Tensor:
+        if level == len(sharded):
+            return summed[islands[0]]
+        d, axes = sharded[level]
+        blocks: dict[int, list[int]] = {}
+        for s in islands:
+            blocks.setdefault(_lin(mesh, s, axes), []).append(s)
+        return torch.cat([build(level + 1, blocks[i]) for i in sorted(blocks)], dim=d)
+
+    return build(0, heads)
 
 
 class _Psum(torch.autograd.Function):
@@ -324,12 +333,13 @@ class _Psum(torch.autograd.Function):
         return funcol.wait_tensor(funcol.all_reduce(g, "sum", ctx.group)), None
 
 
-def _is_dtensor(x) -> bool:
+def is_dtensor(x) -> bool:
     try:
         from torch.distributed.tensor import DTensor
     except ImportError:  # a torch built without distributed
         return False
     return isinstance(x, DTensor)
+
 
 
 def _shard_map_dtensor(body, in_specs, out_specs, args):
@@ -339,8 +349,13 @@ def _shard_map_dtensor(body, in_specs, out_specs, args):
 
     from repro_torch.distributed.sharding import placements
 
-    dmesh = next(a.device_mesh for a in args if _is_dtensor(a))
+    from torch.distributed.tensor import DTensor, Replicate
+
+    dmesh = next(a.device_mesh for a in args if is_dtensor(a))
     names = dmesh.mesh_dim_names
+    # a plain tensor argument is the same on every device (replicated)
+    args = tuple(DTensor.from_local(a, dmesh, [Replicate()] * dmesh.ndim, run_check=False)
+                 if isinstance(a, torch.Tensor) and not is_dtensor(a) else a for a in args)
 
     def dims(axes) -> list[int]:
         """The device-mesh dims that ``axes`` make up, whole."""
@@ -351,7 +366,7 @@ def _shard_map_dtensor(body, in_specs, out_specs, args):
 
     def pl(spec):
         for e in spec:
-            dims(_axes(e))
+            dims(spec_axes(e))
         return placements(spec, names)
 
     in_pl = tuple(None if not isinstance(x, torch.Tensor)
@@ -390,6 +405,8 @@ def _shard_map_dtensor(body, in_specs, out_specs, args):
                 res = x
             elif kind == "psum":
                 res = _Psum.apply(x, group(axes))
+            elif kind == "pmax":
+                res = funcol.wait_tensor(funcol.all_reduce(x.detach(), "max", group(axes)))
             elif kind == "all_gather":
                 res = funcol.all_gather_tensor_autograd(x, rest[0], group(axes))
             elif kind == "all_to_all":

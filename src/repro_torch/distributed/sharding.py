@@ -244,7 +244,8 @@ def logical_constraint(x, logical: tuple[str | None, ...]):
     if mesh is None or not hasattr(x, "device_mesh"):
         return x
     spec = logical_spec(tuple(x.shape), logical, mesh)
-    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh.mesh_dim_names))
+    pl = placements(spec, x.device_mesh.mesh_dim_names)
+    return x if list(x.placements) == pl else x.redistribute(x.device_mesh, pl)
 
 
 def batch_spec(mesh, shape: tuple[int, ...]) -> Spec:

@@ -20,10 +20,35 @@ program is the ops a device runs, which ``analyze_step`` sees through a
   run issues, by the JAX package's rule (``COLLECTIVE_FACTORS``: traffic
   ~ factor x result bytes; a reduce-scatter's operand bytes).
 
+* memory: a ledger of the live bytes on each device.  It starts from the
+  step's argument bytes; every storage a local op creates (a collective's
+  result too) adds its bytes until the storage dies (a weak reference's
+  callback, as ``torch.distributed._tools.mem_tracker`` keeps it), and the
+  highest total is ``peak_bytes`` (the JAX record's meaning).  What
+  the ledger cannot see: buffers a kernel allocates inside itself, and
+  DTensor's redistribution buffers beyond the local ops that hold them.
+
 Python loops are unrolled as they run, so the program has no loop to read
-a trip count from.  The dry-run measures a model's scanned stage at one and
-at two repeats of its unit and folds the difference to the stage's depth
-(``StepCost.fold``), as the JAX package folds a scan body by its trip count.
+a trip count from.  Two folds stand in for the JAX package's:
+
+* a model's scanned stage: the dry-run measures the step at two and at
+  three repeats of its unit and folds the difference to the stage's depth
+  (``StepCost.fold``), every count linear in the repeats (the peak a phase
+  at a time);
+* a time loop (``TimeSteps``: Mamba's selective scan, RWKV's WKV
+  recurrence) runs four trips: the first, one standing for the ``m = n -
+  3`` middle ones, and the last two.  The middle trip's ops count ``m``
+  times, and so do those of its backward (the autograd nodes it created,
+  by sequence number); what it leaves alive after the next trip (its
+  output, what autograd saved) stands for ``m`` trips' bytes in the ledger
+  until it dies, and the next trip's peak, seen without them, is raised by
+  the ``m - 1`` trips' bytes it does not see.  The last two trips run
+  after the middle one, so a gradient summed over the trips (a slice's,
+  the carry's) always reaches its buffer first from a trip that counts
+  once, and the sums the unrolled loop adds are all counted.  Every trip
+  of such a loop runs the same ops on the same shapes, so the fold equals
+  the unrolled loop (``hlo_cost``'s ``while`` body times its trip count;
+  nested inside the stage fold as a ``while`` in a ``while``).
 
 Some ops have a per-device lowering of their own here (``_RULES``,
 counted in ``rules``), the one GSPMD gives them, where DTensor would gather
@@ -35,11 +60,18 @@ a whole tensor first (a KV cache, vocab-sharded logits) or refuse:
   masked; a read is a partial sum);
 * a ``scatter_add`` scatters each device's own entries (``_scatter_add_rule``);
 * an ``unbind`` along a sharded dim gathers that dim first;
+* a ``constant_pad_nd`` that pads only unsharded dims pads each device's
+  block (DTensor 2.11 has no strategy for it);
+* a depthwise convolution (Mamba's causal conv: one group a channel) and
+  its backward run on each device's channels and batch rows, the weight's
+  gradient a partial sum over the batch's mesh dims (DTensor's own rule
+  takes the channels for whole);
 * where DTensor's own lowering fails (``_RETRY``): a view runs on a
   contiguous copy, or else gathers the dims it changes (an unflatten of
   an unevenly sharded dim) and shards its output over the same mesh dims
   again; an add of inputs whose placements DTensor cannot reconcile
-  redistributes them to one placement first.
+  redistributes them to one placement first (where they broadcast, the
+  partial sums are reduced).
 
 An op DTensor has no sharding strategy for (DTensor raises
 ``NotImplementedError`` naming the missing strategy) runs on replicated
@@ -53,12 +85,15 @@ same shapes, placements and strides.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import weakref
 from collections import Counter
 from dataclasses import dataclass, field
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 COLLECTIVE_FACTORS = {
@@ -108,31 +143,52 @@ class StepCost:
     replicated_flops: float = 0.0
     replicated_coll_bytes: float = 0.0
     rules: dict[str, int] = field(default_factory=dict)
+    # the ledger (bytes a device): arguments at the start, the highest live
+    # total, the result's tensors, and the peak beyond the arguments and the
+    # result's new storages
+    argument_bytes: float = 0.0
+    peak_bytes: float = 0.0
+    output_bytes: float = 0.0
+    temp_bytes: float = 0.0
+    phase_peaks: list[float] = field(default_factory=list)  # the ledger's, a phase each
+    trips: dict[str, int] = field(default_factory=dict)  # time loops folded
 
     def copy(self) -> StepCost:
-        return StepCost(**{k: dict(v) if isinstance(v, dict) else v
-                           for k, v in self.__dict__.items()})
+        return StepCost(**{k: dict(v) if isinstance(v, dict) else list(v) if isinstance(v, list)
+                           else v for k, v in self.__dict__.items()})
 
-    def fold(self, two: StepCost, n: int) -> StepCost:
-        """The cost of ``n`` repeats of a unit, from this run (one repeat)
-        and ``two`` (the same program with two): ``self + (n - 1) x (two -
-        self)``, every count linear in the repeats (the counterpart of the
-        JAX package's scan trip-count fold)."""
+    def fold(self, two: StepCost, n: int, first: int) -> StepCost:
+        """The cost of ``n`` repeats of a unit, from this run (``first``
+        repeats) and ``two`` (the same program with one more): ``self +
+        (n - first) x (two - self)``, every count linear in the repeats (the
+        counterpart of the JAX package's scan trip-count fold).  The memory
+        too, a phase at a time: each unit's saved input (under remat), its
+        parameters, their gradients and their optimizer state grow linearly
+        with depth, so each phase's peak (the forward, the backward, the
+        update) is folded on its own and the step's is the highest of them;
+        within a phase the peak is assumed to stay where it is at two and
+        three units (the loss head's backward, say, against the last
+        layers')."""
         def lin(a, b):
-            return a + (n - 1) * (b - a)
+            return a + (n - first) * (b - a)
 
         def lin_d(a, b):
             return {k: lin(a.get(k, 0), b.get(k, 0)) for k in {**a, **b}}
 
-        return StepCost(lin(self.flops, two.flops), lin(self.bytes, two.bytes),
-                        lin(self.coll_bytes, two.coll_bytes),
-                        lin_d(self.coll_by_op, two.coll_by_op),
-                        lin_d(self.coll_count_by_op, two.coll_count_by_op),
-                        lin(self.n_ops, two.n_ops),
-                        lin_d(self.replicated_ops, two.replicated_ops),
-                        lin(self.replicated_flops, two.replicated_flops),
-                        lin(self.replicated_coll_bytes, two.replicated_coll_bytes),
-                        lin_d(self.rules, two.rules))
+        out = StepCost()
+        for k, a in self.__dict__.items():
+            b = two.__dict__[k]
+            out.__dict__[k] = (dict(b) if k == "trips" else lin_d(a, b) if isinstance(a, dict)
+                               else a if isinstance(a, list) else lin(a, b))
+        # each phase's peak linear in the repeats, the step's their highest
+        pa, pb = self.phase_peaks, two.phase_peaks
+        out.phase_peaks = ([lin(x, y) for x, y in zip(pa, pb)] if len(pa) == len(pb)
+                           else [lin(self.peak_bytes, two.peak_bytes)])
+        out.peak_bytes = max(out.phase_peaks)
+        new_out = lin(self.peak_bytes - self.argument_bytes - self.temp_bytes,
+                      two.peak_bytes - two.argument_bytes - two.temp_bytes)
+        out.temp_bytes = max(out.peak_bytes - out.argument_bytes - new_out, 0.0)
+        return out
 
 
 class PropagationError(RuntimeError):
@@ -176,15 +232,203 @@ def _fake_active(types) -> bool:
             or any(issubclass(t, FakeTensor) for t in types))
 
 
+class _Ledger:
+    """Live bytes of the storages the step's local ops create, from
+    ``start`` (the arguments').  An entry is [bytes, alive]; a storage's
+    death (its weak reference's callback) takes its bytes off.  The highest
+    total is kept for each phase of the step (a phase ends where the
+    autograd engine starts or stops running backward nodes: the forward,
+    the backward, the update after it)."""
+
+    def __init__(self, start: float) -> None:
+        self.live = float(start)
+        self.phases = [self.live]  # each phase's highest total
+        self.backward = False
+        self.window = self.live  # the highest total since ``open_window``
+        self.entries: list[list] = []
+        self._seen: dict[int, tuple[list, weakref.ref]] = {}
+
+    @property
+    def peak(self) -> float:
+        return max(self.phases)
+
+    def _rise(self, n: float) -> None:
+        self.live += n
+        self.phases[-1] = max(self.phases[-1], self.live)
+        self.window = max(self.window, self.live)
+
+    def enter(self, backward: bool) -> None:
+        """The running op is (not) in a backward node: a new phase where
+        that changed."""
+        if backward != self.backward:
+            self.backward = backward
+            self.phases.append(self.live)
+
+    def add(self, st) -> None:
+        key = id(st)
+        if key in self._seen:
+            return
+        entry = [float(st.nbytes()), True]
+
+        def died(_, key=key, entry=entry):
+            self._seen.pop(key, None)
+            if entry[1]:
+                entry[1] = False
+                self.live -= entry[0]
+
+        self._seen[key] = (entry, weakref.ref(st, died))
+        self.entries.append(entry)
+        self._rise(entry[0])
+
+    def bytes_of(self, storages) -> float:
+        """Bytes of the live entries among ``storages`` (by identity)."""
+        return sum(self._seen[id(st)][0][0] for st in {id(s): s for s in storages}.values()
+                   if id(st) in self._seen and self._seen[id(st)][0][1])
+
+    def checkpoint(self) -> tuple:
+        return len(self.entries), list(self.phases), self.backward, self.window
+
+    def undo(self, cp: tuple) -> None:
+        """Forget what was added since ``cp`` (a failed attempt's storages)."""
+        n, phases, self.backward, self.window = cp
+        self.phases = list(phases)
+        for entry in self.entries[n:]:
+            if entry[1]:
+                entry[1] = False
+                self.live -= entry[0]
+        del self.entries[n:]
+
+    def open_window(self) -> None:
+        self.window = self.live
+
+    def repeat(self, lo: int, hi: int, m: int) -> None:
+        """The entries ``lo:hi`` still alive stand for ``m`` copies each:
+        ``m - 1`` more of their bytes are live from now until each dies,
+        and the window's peak, seen without them, is raised by as much."""
+        extra = 0.0
+        for entry in self.entries[lo:hi]:
+            if entry[1]:
+                extra += (m - 1) * entry[0]
+                entry[0] *= m
+        self.phases[-1] = max(self.phases[-1], self.window + extra)
+        self.live += extra
+
+
+def _storages(tree) -> list:
+    out = []
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            local = getattr(t, "_local_tensor", None)
+            out.append((local if local is not None else t).untyped_storage())
+    return out
+
+
+_ACTIVE: list[_Counter] = []
+
+
+def _next_sequence_nr() -> int:
+    """The autograd sequence number the next node will take (a throwaway
+    node on ``meta``, made outside every mode; its op saves nothing)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    with _disable_current_modes(), torch.enable_grad():
+        t = torch.empty((), device="meta", requires_grad=True).neg()
+    return t.grad_fn._sequence_nr() + 1
+
+
+class TimeSteps:
+    """The trips of a time loop of ``n`` steps named ``name``: ``range(n)``,
+    and ``stack(ys, dim)`` of the trips' outputs is ``torch.stack``.  Under
+    ``analyze_step`` (with ``fold_loops``) a loop of more than four trips
+    runs trips 0, 1, ``n - 2`` and ``n - 1``, trip 1 standing for the
+    middle ones (the module docstring); ``stack`` then returns the full
+    ``n`` positions, trip 1's output repeated."""
+
+    def __init__(self, n: int, name: str) -> None:
+        self.n, self.name = n, name
+
+    def __iter__(self):
+        c = _ACTIVE[-1] if _ACTIVE else None
+        if c is None or not c.fold_loops or self.n <= 4:
+            return iter(range(self.n))
+        return c.folded_trips(self.n, self.name)
+
+    def stack(self, ys: list, dim: int):
+        if len(ys) == self.n:
+            return torch.stack(ys, dim)
+        return _FoldStack.apply(dim, self.n, *ys)
+
+
+class _FoldStack(torch.autograd.Function):
+    """``torch.stack`` of a folded loop's four outputs at its full ``n``
+    positions (trip 1's repeated): the same op, bytes and shape as
+    the unrolled loop's stack; the backward hands each output its own
+    position's gradient (views, as ``stack``'s backward ``unbind`` does)."""
+
+    @staticmethod
+    def forward(ctx, dim, n, y0, y1, y2, y3):
+        ctx.dim, ctx.n = dim, n
+        return torch.stack([y0] + [y1] * (n - 3) + [y2, y3], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        d, n = ctx.dim, ctx.n
+        return None, None, g.select(d, 0), g.select(d, 1), g.select(d, n - 2), g.select(d, n - 1)
+
+
 class _Counter(TorchDispatchMode):
-    def __init__(self, cost: StepCost) -> None:
+    def __init__(self, cost: StepCost, start_bytes: float, fold_loops: bool) -> None:
         super().__init__()
         self.cost = cost
         self.dtensor = _dtensor_type()
+        self.ledger = _Ledger(start_bytes)
+        self.fold_loops = fold_loops
         self._lower = False
         self._replicating = False
         self._refused: dict = {}  # op signatures DTensor failed on -> the error
         self._retrying: set = set()  # ops whose retry is running
+        self._propagating = 0  # inside DTensor's strategy search
+        self._trip_weight: int | None = None  # inside a folded loop's trip
+        self._ranges: list[tuple[int, int, int]] = []  # (first, end, repeats) node seqs
+
+    def folded_trips(self, n: int, name: str):
+        """Trips 0, 1, n - 2 and n - 1 of a folded time loop
+        (``TimeSteps``), trip 1 standing for the ``n - 3`` middle ones."""
+        m = n - 3
+        self.cost.trips[name] = n
+        prev = self._trip_weight
+        grad = torch.is_grad_enabled()
+        try:
+            self._trip_weight = 1
+            yield 0
+            seq0 = _next_sequence_nr() if grad else None
+            lo = len(self.ledger.entries)
+            self._trip_weight = m
+            yield 1
+            if grad:
+                self._ranges.append((seq0, _next_sequence_nr(), m))
+            hi = len(self.ledger.entries)
+            self._trip_weight = 1
+            self.ledger.open_window()
+            yield n - 2
+            self.ledger.repeat(lo, hi, m)
+            yield n - 1
+        finally:
+            self._trip_weight = prev
+
+    def _weight(self) -> int:
+        """How many ops of the unrolled program the running op stands for:
+        a folded loop's middle trip's ops, and those of the backward nodes
+        it created, ``n - 3``; every other op one."""
+        if self._trip_weight is not None:
+            return self._trip_weight
+        if not self._ranges:
+            return 1
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return 1
+        seq = node._sequence_nr()
+        return next((m for lo, hi, m in self._ranges if lo <= seq < hi), 1)
 
     def _is_dtensor_op(self, types) -> bool:
         return self.dtensor is not None and any(issubclass(t, self.dtensor) for t in types)
@@ -193,8 +437,8 @@ class _Counter(TorchDispatchMode):
         kwargs = kwargs or {}
         if func in _META_OPS:
             return NotImplemented
-        if _fake_active(types):  # DTensor's shape propagation, not the program
-            return func(*args, **kwargs)
+        if self._propagating or _fake_active(types):
+            return func(*args, **kwargs)  # DTensor's bookkeeping, not the program
         if self._is_dtensor_op(types):
             if self._lower:  # let DTensor lower it; its local ops come back here
                 self._lower = False
@@ -216,12 +460,12 @@ class _Counter(TorchDispatchMode):
             with self:
                 out = rule(self.dtensor, args, kwargs)
             if out is not None:
-                self.cost.rules[str(func)] = self.cost.rules.get(str(func), 0) + 1
+                self.cost.rules[str(func)] = self.cost.rules.get(str(func), 0) + self._weight()
                 return out
         key = self._signature(func, args, kwargs)
         if key is not None and key in self._refused:  # failed before: straight to the retry
             return self._retry(func, args, kwargs, self._refused[key])
-        saved = self.cost.copy()
+        saved, cp = self.cost.copy(), self.ledger.checkpoint()
         with self:
             try:
                 self._lower = True
@@ -230,11 +474,13 @@ class _Counter(TorchDispatchMode):
                 if "sharding strategy" not in str(e):
                     raise PropagationError(func, e) from e
                 self.cost.__dict__.update(saved.__dict__)
+                self.ledger.undo(cp)
             except (AssertionError, IndexError, RuntimeError, ValueError) as e:
                 if isinstance(e, PropagationError):
                     raise
                 # what the failed attempt issued before it failed is not run
                 self.cost.__dict__.update(saved.__dict__)
+                self.ledger.undo(cp)
                 if key is not None:
                     self._refused[key] = e
                 return self._retry(func, args, kwargs, e)
@@ -258,7 +504,7 @@ class _Counter(TorchDispatchMode):
             raise PropagationError(func, err) from err
         out, how = got
         name = f"{func} ({how})"
-        self.cost.rules[name] = self.cost.rules.get(name, 0) + 1
+        self.cost.rules[name] = self.cost.rules.get(name, 0) + self._weight()
         return out
 
     def _signature(self, func, args, kwargs):
@@ -308,7 +554,7 @@ class _Counter(TorchDispatchMode):
             nonlocal mesh
             if isinstance(x, self.dtensor):
                 mesh = x.device_mesh
-                return x.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+                return _redist(x, mesh, [Replicate()] * mesh.ndim).to_local()
             return x
 
         coll = self.cost.coll_bytes
@@ -320,7 +566,7 @@ class _Counter(TorchDispatchMode):
         finally:
             self._replicating = False
         name = str(func)
-        self.cost.replicated_ops[name] = self.cost.replicated_ops.get(name, 0) + 1
+        self.cost.replicated_ops[name] = self.cost.replicated_ops.get(name, 0) + self._weight()
         return tree_map(
             lambda t: self.dtensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                                               run_check=False)
@@ -328,10 +574,13 @@ class _Counter(TorchDispatchMode):
 
     def _count(self, func, args, kwargs, out) -> None:
         c = self.cost
-        c.n_ops += 1
+        w = self._weight()
+        c.n_ops += w
+        self.ledger.enter(torch._C._current_autograd_node() is not None)
+        self._track(args, kwargs, out)
         pkt = func._overloadpacket
         if pkt in flop_registry:
-            f = float(flop_registry[pkt](*args, **kwargs, out_val=out))
+            f = w * float(flop_registry[pkt](*args, **kwargs, out_val=out))
             c.flops += f
             if self._replicating:
                 c.replicated_flops += f
@@ -339,13 +588,33 @@ class _Counter(TorchDispatchMode):
         if func.namespace in _FUNCOL_NAMESPACES:
             kind = _COLLECTIVES.get(name)
             if kind is not None:
-                vol = collective_bytes(kind, _nbytes((args, kwargs)), _nbytes(out))
+                vol = w * collective_bytes(kind, _nbytes((args, kwargs)), _nbytes(out))
                 c.coll_bytes += vol
                 c.coll_by_op[kind] = c.coll_by_op.get(kind, 0.0) + vol
-                c.coll_count_by_op[kind] = c.coll_count_by_op.get(kind, 0) + 1
+                c.coll_count_by_op[kind] = c.coll_count_by_op.get(kind, 0) + w
             return
         if not func.is_view:
-            c.bytes += _nbytes((args, kwargs)) + _nbytes(out)
+            c.bytes += w * (_nbytes((args, kwargs)) + _nbytes(out))
+
+    def _track(self, args, kwargs, out) -> None:
+        """The ledger takes each storage of ``out`` that is none of the
+        inputs' (an in-place op's or a view's result is not new memory)."""
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        if not outs:
+            return
+        ins = {id(t.untyped_storage()) for t in tree_leaves((args, kwargs))
+               if isinstance(t, torch.Tensor)}
+        for t in outs:
+            st = t.untyped_storage()
+            if id(st) not in ins:
+                self.ledger.add(st)
+
+
+def _redist(x, mesh, placements):
+    """``x`` redistributed to ``placements``, or ``x`` where it has them
+    (DTensor 2.11's no-op redistribution in a backward detaches its output
+    in place, an op it has no strategy for)."""
+    return x if list(x.placements) == list(placements) else x.redistribute(mesh, placements)
 
 
 def _shard_mesh_dims(placements, d: int) -> list[int]:
@@ -431,7 +700,7 @@ def _index_put_rule(dtensor, args, kwargs):
     loc, idx, ok, k = got
     vpl = _value_placements(self_.placements, k)
     if isinstance(values, dtensor):
-        v = values.redistribute(self_.device_mesh, vpl).to_local()
+        v = _redist(values, self_.device_mesh, vpl).to_local()
     elif all(p.is_replicate() for p in vpl):
         v = values
     else:
@@ -469,7 +738,7 @@ def _gather_rule(dtensor, args, kwargs):
     if not dims or any(p.is_partial() for p in pl):
         return None
     ipl = [Replicate() if p.is_shard(dim) else p for p in pl]
-    idx = _as_dtensor(index, dtensor, mesh).redistribute(mesh, ipl).to_local()
+    idx = _redist(_as_dtensor(index, dtensor, mesh), mesh, ipl).to_local()
     loc = self_.to_local()
     n = loc.shape[dim]
     li = idx - _offset(mesh, dims, n)
@@ -517,9 +786,9 @@ def _scatter_add_rule(dtensor, args, kwargs):
         else:
             target.append(s_)
             out_pl.append(s_)
-    base = self_.redistribute(mesh, target).to_local()
+    base = _redist(self_, mesh, target).to_local()
     idx = index.to_local()
-    src_l = _as_dtensor(src, dtensor, mesh).redistribute(mesh, ip).to_local()
+    src_l = _redist(_as_dtensor(src, dtensor, mesh), mesh, ip).to_local()
     if split:
         n = base.shape[dim]
         idx = idx - _offset(mesh, split, n)
@@ -544,6 +813,103 @@ def _unbind_rule(dtensor, args, kwargs):
         return None
     pl = [Replicate() if p.is_shard(dim) else p for p in x.placements]
     return torch.unbind(x.redistribute(x.device_mesh, pl), dim)
+
+
+def _from_local(dtensor, t, mesh, pl, shape):
+    return dtensor.from_local(t, mesh, pl, run_check=False, shape=tuple(shape),
+                              stride=torch.empty(tuple(shape), device="meta").stride())
+
+
+def _pad_rule(dtensor, args, kwargs):
+    """``constant_pad_nd`` of dims no mesh dim shards: each device pads
+    its block."""
+    x, pad = args[0], list(args[1])
+    value = args[2] if len(args) > 2 else kwargs.get("value", 0)
+    if not isinstance(x, dtensor) or any(p.is_partial() for p in x.placements):
+        return None
+    padded = [x.ndim - 1 - i // 2 for i in range(len(pad))]
+    if any(_shard_mesh_dims(x.placements, d) for d in padded):
+        return None
+    shape = list(x.shape)
+    for i, d in enumerate(padded):
+        shape[d] += pad[i]
+    out = torch.constant_pad_nd(x.to_local(), pad, value)
+    return _from_local(dtensor, out, x.device_mesh, list(x.placements), shape)
+
+
+def _depthwise(dtensor, x, w, groups):
+    """The placements a depthwise convolution runs under (batch rows as
+    ``x`` has them, channels as the weight has them), or None where the
+    rule does not apply."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not (isinstance(w, dtensor) and groups == x.shape[1] == w.shape[0] and w.shape[1] == 1):
+        return None
+    if any(p.is_partial() for p in (*x.placements, *w.placements)):
+        return None
+    xpl, wpl = [], []
+    for px, pw in zip(x.placements, w.placements):
+        if pw.is_shard(0):
+            xpl.append(Shard(1))
+            wpl.append(Shard(0))
+        elif px.is_shard(0):
+            xpl.append(Shard(0))
+            wpl.append(Replicate())
+        else:
+            xpl.append(Replicate())
+            wpl.append(Replicate())
+    return xpl, wpl
+
+
+def _conv_rule(dtensor, args, kwargs):
+    """A depthwise ``convolution`` on each device's channels and rows."""
+    x, w, b, stride, padding, dilation, transposed, out_pad, groups = args[:9]
+    mesh = next((t.device_mesh for t in (x, w) if isinstance(t, dtensor)), None)
+    if mesh is None or transposed:
+        return None
+    x = _as_dtensor(x, dtensor, mesh)
+    got = _depthwise(dtensor, x, w, groups)
+    if got is None:
+        return None
+    xpl, wpl = got
+    lb = None if b is None else _redist(_as_dtensor(b, dtensor, mesh), mesh, wpl).to_local()
+    out = torch.ops.aten.convolution.default(
+        _redist(x, mesh, xpl).to_local(), _redist(w, mesh, wpl).to_local(), lb,
+        stride, padding, dilation, transposed, out_pad, out_local_groups(x, w, xpl, mesh))
+    shape = (x.shape[0], w.shape[0]) + tuple(out.shape[2:])
+    return _from_local(dtensor, out, mesh, xpl, shape)
+
+
+def out_local_groups(x, w, xpl, mesh) -> int:
+    """A depthwise convolution's groups on this device: its channels."""
+    return x.shape[1] // math.prod(mesh.size(m) for m, p in enumerate(xpl) if p.is_shard(1))
+
+
+def _conv_backward_rule(dtensor, args, kwargs):
+    """The backward of a depthwise convolution on each device's channels
+    and rows: the input's gradient placed as the input, the weight's and
+    the bias's partial sums over the mesh dims that split the rows."""
+    from torch.distributed.tensor import Partial, Shard
+
+    g, x, w, bias_sizes, stride, padding, dilation, transposed, out_pad, groups, mask = args[:11]
+    mesh = next((t.device_mesh for t in (g, x, w) if isinstance(t, dtensor)), None)
+    if mesh is None or transposed:
+        return None
+    x = _as_dtensor(x, dtensor, mesh)
+    got = _depthwise(dtensor, x, w, groups)
+    if got is None:
+        return None
+    xpl, wpl = got
+    gl = _redist(_as_dtensor(g, dtensor, mesh), mesh, xpl).to_local()
+    gi, gw, gb = torch.ops.aten.convolution_backward.default(
+        gl, _redist(x, mesh, xpl).to_local(), _redist(w, mesh, wpl).to_local(),
+        None if bias_sizes is None else [gl.shape[1]], stride, padding, dilation, transposed,
+        out_pad, out_local_groups(x, w, xpl, mesh), mask)
+    ppl = [Partial() if p.is_shard(0) else q for p, q in zip(xpl, wpl)]
+    bpl = [Shard(0) if p.is_shard(0) else p for p in ppl]
+    return (None if gi is None else _from_local(dtensor, gi, mesh, xpl, x.shape),
+            None if gw is None else _from_local(dtensor, gw, mesh, ppl, w.shape),
+            None if gb is None else _from_local(dtensor, gb, mesh, bpl, (w.shape[0],)))
 
 
 def _retry_view(dtensor, func, args, kwargs):
@@ -587,27 +953,40 @@ def _retry_view(dtensor, func, args, kwargs):
             o = (same or dims)[0]
             target[m] = Shard(o)
             taken.add(o)
-    return out.redistribute(mesh, target), "gathered"
+    return _redist(out, mesh, target), "gathered"
 
 
 def _retry_pointwise(dtensor, func, args, kwargs):
-    """An add of same-shaped inputs whose placements DTensor cannot
-    reconcile (a sharded and a partial gradient summed): every input
-    redistributed to one placement a mesh dim (a shard where any input is
-    sharded, else replicated, else partial), then the op."""
+    """An add whose inputs' placements DTensor cannot reconcile (a sharded
+    and a partial gradient summed, a bias added to a partial product):
+    same-shaped inputs redistributed to one placement a mesh dim (a shard
+    where any input is sharded, else replicated, else partial); inputs that
+    broadcast have their partial sums reduced where the others are not
+    partial, then the op."""
     from torch.distributed.tensor import Replicate
 
     ts = [a for a in args if isinstance(a, dtensor)]
-    if len(ts) < 2 or any(t.shape != ts[0].shape for t in ts):
+    if len(ts) < 2:
         return None
     mesh = ts[0].device_mesh
+    if any(t.shape != ts[0].shape for t in ts):
+        def reduced(t):
+            pl = [Replicate() if p.is_partial() and not all(
+                u.placements[m].is_partial() for u in ts) else p
+                for m, p in enumerate(t.placements)]
+            return _redist(t, mesh, pl)
+
+        if not any(p.is_partial() for t in ts for p in t.placements):
+            return None
+        args = tuple(reduced(a) if isinstance(a, dtensor) else a for a in args)
+        return func(*args, **kwargs), "reduced"
     target = []
     for m in range(mesh.ndim):
         pls = [t.placements[m] for t in ts]
         shard = next((p for p in pls if p.is_shard()), None)
         target.append(shard if shard is not None else
                       Replicate() if any(p.is_replicate() for p in pls) else pls[0])
-    args = tuple(a.redistribute(mesh, target) if isinstance(a, dtensor) else a for a in args)
+    args = tuple(_redist(a, mesh, target) if isinstance(a, dtensor) else a for a in args)
     return func(*args, **kwargs), "reconciled"
 
 
@@ -625,14 +1004,74 @@ _RULES = {
     torch.ops.aten.scatter_add.default: _scatter_add_rule,
     torch.ops.aten.scatter_add_.default: _scatter_add_rule,
     torch.ops.aten.unbind.int: _unbind_rule,
+    torch.ops.aten.constant_pad_nd.default: _pad_rule,
+    torch.ops.aten.convolution.default: _conv_rule,
+    torch.ops.aten.convolution_backward.default: _conv_backward_rule,
 }
 
 
-def analyze_step(fn, *args, **kwargs) -> tuple[StepCost, object]:
-    """Run ``fn(*args, **kwargs)`` once and count what each device runs.
+@contextlib.contextmanager
+def _bookkeeping_uncounted(counter: _Counter):
+    """DTensor's strategy search (and its choice of a redistribution's
+    steps) runs small torch ops of its own on ``meta``: they are not the
+    device's program, so ``counter`` lets them through uncounted."""
+    DTensor = _dtensor_type()
+    if DTensor is None:
+        yield
+        return
+    import torch.distributed.tensor._redistribute as redist
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    patched = [(prop, "propagate"), (prop, "propagate_op_sharding"),
+               (prop, "propagate_op_sharding_non_cached"),
+               (redist, "_gen_transform_infos_non_cached")]
+    saved = []
+    for obj, name in patched:
+        fn = getattr(obj, name, None)
+        if fn is None:
+            continue
+
+        def wrapped(*a, _fn=fn, **k):
+            counter._propagating += 1
+            try:
+                return _fn(*a, **k)
+            finally:
+                counter._propagating -= 1
+
+        saved.append((obj, name, obj.__dict__.get(name)))
+        setattr(obj, name, wrapped)
+    try:
+        yield
+    finally:
+        for obj, name, old in saved:
+            if old is None:
+                delattr(obj, name)
+            else:
+                setattr(obj, name, old)
+
+
+def analyze_step(fn, *args, arg_bytes: float | None = None,
+                 fold_loops: bool = True) -> tuple[StepCost, object]:
+    """Run ``fn(*args)`` once and count what each device runs.  The ledger
+    starts from ``arg_bytes`` (by default the bytes of the arguments'
+    distinct local storages); ``fold_loops=False`` unrolls the time loops.
     Returns (its ``StepCost``, fn's result)."""
-    cost = StepCost()
-    with _Counter(cost):
-        out = fn(*args, **kwargs)
+    start = arg_bytes if arg_bytes is not None else sum(
+        st.nbytes() for st in {id(st): st for st in _storages(args)}.values())
+    cost = StepCost(argument_bytes=float(start))
+    counter = _Counter(cost, start, fold_loops)
+    _ACTIVE.append(counter)
+    try:
+        with counter, _bookkeeping_uncounted(counter):
+            out = fn(*args)
+    finally:
+        _ACTIVE.pop()
+    led = counter.ledger
+    cost.phase_peaks = list(led.phases)
+    cost.peak_bytes = led.peak
+    result = [getattr(t, "_local_tensor", t) for t in tree_leaves(out)
+              if isinstance(t, torch.Tensor)]
+    cost.output_bytes = float(sum(t.numel() * t.element_size() for t in result))
+    cost.temp_bytes = max(cost.peak_bytes - start - led.bytes_of(_storages(result)), 0.0)
     cost.replicated_ops = dict(Counter(cost.replicated_ops).most_common())
     return cost, out

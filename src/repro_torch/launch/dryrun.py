@@ -21,30 +21,42 @@ device):
   last dim (the JAX package shards ``wq`` by heads but not ``wk``/``wv``);
   its local bytes in the record are the JAX leaves' all the same;
 * ``sharding.logical_constraint`` redistributes at the JAX package's
-  constraint sites; the MoE layer's expert-parallel paths and the split
-  retrieval scan run their islands' programs per device
-  (``distributed.context.shard_map`` under ``local_map``), the scan on the
-  kernels' plain versions, as the JAX dry-run on the CPU lowers the jnp
-  reference;
+  constraint sites; the MoE layer's expert-parallel paths, the split
+  retrieval scan, the attention core (its query heads split as ``wq``,
+  its KV heads as ``wk`` / ``wv``; a decode step's cache positions split
+  as the rules place the cache, the softmax's max and sum reduced), the
+  fused QKV and SwiGLU products, the head, RWKV's time and channel mixes
+  and Mamba's scan run each device's program
+  (``distributed.context.shard_map`` under ``local_map``), as GSPMD
+  partitions the JAX package's; the scan on the kernels' plain versions,
+  as the JAX dry-run on the CPU lowers the jnp reference;
 * ``distributed/step_cost.analyze_step`` counts the FLOPs and bytes each
-  device runs and the collectives by kind.  An error of DTensor's
-  propagation fails the cell (``status: error``, the op named); an op
-  DTensor has no strategy for runs on gathered inputs, is named in
-  ``replicated_ops``, and a cell whose replicated ops carry more than
-  ``REPLICATED_LIMIT`` of its FLOPs or collective bytes is an error too;
-* a model's scanned stage is measured at one and two repeats of its unit
-  and folded to its depth (``StepCost.fold``; the record's ``n_while`` and
-  ``trip_counts`` say which stage and how deep), as the JAX package folds
-  a scan body by its trip count.
+  device runs, the collectives by kind, and the live bytes on each device
+  (its ledger: from the step's arguments, every storage a local op makes
+  until it dies).  An error of DTensor's propagation fails the cell
+  (``status: error``, the op named); an op DTensor has no strategy for
+  runs on gathered inputs, is named in ``replicated_ops``, and a cell
+  whose replicated ops carry more than ``REPLICATED_LIMIT`` of its FLOPs
+  or collective bytes is an error too;
+* a model's scanned stage is measured at two and three repeats of its unit
+  and folded to its depth (``StepCost.fold``), and each Mamba or RWKV time
+  loop runs four trips folded to its length (``step_cost.TimeSteps``,
+  inside each run): the record's ``n_while`` and ``trip_counts`` name the
+  stage and the loops, as the JAX package folds a scan body by its trip
+  count, a ``while`` in a ``while``.
 
 Records go to ``experiments/dryrun_torch/<arch>_<shape>_<mesh>[__variant].json``
 with the JAX record's keys and meanings (``benchmarks/roofline.py``'s
 ``fmt_table`` renders them); the roofline terms use the H100 constants of
-``distributed/roofline.py``.  ``memory`` holds the argument bytes of the
-local state; the peak is ``null`` (no fake-tensor tracker follows DTensor
-over a fake process group here), and the reason is in the record.  The exit
-status is 1 if any cell failed.  The fake process group is per process:
-call ``run_cell`` in a process of its own (tests do, in a child).
+``distributed/roofline.py``.  ``memory`` has the JAX record's keys: the argument
+bytes (the JAX package's prefill makes its cache, so there it is an
+output), the output bytes, and the ledger's peak and temporaries (the
+peak beyond the arguments and the new outputs); ``code_bytes`` is null,
+there is no compiled program.  DTensor 2.11 (the card machine's) lacks
+strategies 2.13 has: ``step_cost``'s own lowerings cover the ones the
+cells reach (a pad, a depthwise convolution, an add of a partial sum).
+The exit status is 1 if any cell failed.  The fake process group is per
+process: call ``run_cell`` in a process of its own (tests do, in a child).
 """
 from __future__ import annotations
 
@@ -83,8 +95,7 @@ OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 # or of its collective bytes than this is not a per-device count
 REPLICATED_LIMIT = 0.01
 
-PEAK_NOTE = ("not measured: torch's fake-tensor memory tracker does not follow DTensor "
-             "over a fake process group")
+CODE_NOTE = "no compiled program: the step runs eagerly, op by op"
 
 
 # ---------------------------------------------------------------------------
@@ -221,9 +232,20 @@ def _datastore(cfg: ModelConfig, mesh: Mesh, device="meta") -> Datastore:
 
 
 def datastore_local(cfg: ModelConfig, mesh: Mesh) -> int:
+    """The JAX package's ``datastore_local``: the store's bytes over the
+    model axis (its projection too)."""
     ds = _datastore(cfg, mesh)
     leaves = [x for x in (ds.keys, ds.values, ds.scale, ds.proj) if x is not None]
     return sum(x.numel() * x.element_size() for x in leaves) // dctx.model_axis_size(mesh)
+
+
+def datastore_held(cfg: ModelConfig, mesh: Mesh) -> int:
+    """The store's bytes a device holds: its rows' share, the projection
+    whole (it is replicated)."""
+    ds = _datastore(cfg, mesh)
+    rows = [x for x in (ds.keys, ds.values, ds.scale) if x is not None]
+    proj = 0 if ds.proj is None else ds.proj.numel() * ds.proj.element_size()
+    return sum(x.numel() * x.element_size() for x in rows) // dctx.model_axis_size(mesh) + proj
 
 
 def _batch(cfg: ModelConfig, shape: ShapeConfig, device, seed: int = 0) -> dict:
@@ -389,27 +411,17 @@ def _reset_rules() -> None:
     shd.set_rule("seq", ())
 
 
-def _output_bytes(out) -> int:
-    from torch.utils._pytree import tree_flatten
-
-    leaves, _ = tree_flatten(out)
-    total = 0
-    for t in leaves:
-        if isinstance(t, torch.Tensor):
-            t = t.to_local() if hasattr(t, "to_local") else t
-            total += t.numel() * t.element_size()
-    return total
-
-
 def _fold(cfg: ModelConfig):
-    """(config with the last stage at one unit, at two units, its depth) when
-    that stage is scanned and deeper than two units, else None: the cell is
-    measured at both and folded (``StepCost.fold``)."""
+    """(config with the last stage at two units, at three units, its depth)
+    when that stage is scanned and deeper than three units, else None: the
+    cell is measured at both and folded (``StepCost.fold``).  Two and three,
+    not one and two: a stage of one unit stacks its leaves for the update
+    otherwise than a deeper one does."""
     st = plan_stages(cfg)[-1]
-    if not st.scan or st.n <= 2:
+    if not st.scan or st.n <= 3:
         return None
-    one = cfg.num_layers - (st.n - 1) * len(st.unit)
-    return cfg.replace(num_layers=one), cfg.replace(num_layers=one + len(st.unit)), st.n
+    two = cfg.num_layers - (st.n - 2) * len(st.unit)
+    return cfg.replace(num_layers=two), cfg.replace(num_layers=two + len(st.unit)), st.n
 
 
 def param_counts(cfg: ModelConfig) -> tuple[int, float, int]:
@@ -446,10 +458,11 @@ def cell_status(cost) -> tuple[str, str | None]:
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str = "baseline", *,
              mesh: Mesh | None = None, shape: ShapeConfig | None = None,
-             base: ModelConfig | None = None) -> dict:
+             base: ModelConfig | None = None, fold_loops: bool = True) -> dict:
     """One cell's record.  ``mesh`` / ``shape`` / ``base`` stand in for the
     production mesh, the named shape and the arch's full configuration (a
-    small abstract mesh, another batch, a smoke configuration)."""
+    small abstract mesh, another batch, a smoke configuration);
+    ``fold_loops=False`` runs the time loops unrolled."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     _reset_rules()  # variants mutate the rule table
@@ -462,49 +475,56 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str = "baselin
         return rec
     mesh = mesh or make_production_mesh(multi_pod=(mesh_kind == "multi"))
     n_dev = mesh.size
-    t0 = time.time()
     dmesh = device_mesh(mesh)
     fold = _fold(cfg)
     with dctx.use_mesh(mesh):
         shd.set_rule("seq", ("model",) if cfg.seq_shard_activations else ())
         _, _, meta = build_cell(cfg, shape, mesh)  # the full depth's local bytes
+        # what the port's step takes (the train state's step and decode's
+        # position are int32 scalars); the JAX package's prefill makes the
+        # cache that the port's writes in place, so JAX counts it an output
+        held = meta["params_local"] + meta["opt_local"] + meta["cache_local"] + sum(
+            math.prod(v.shape) * v.dtype.itemsize // max(
+                math.prod(mesh.shape[a] for a in dctx.batch_axes(mesh)), 1)
+            for v in make_batch_specs(cfg, shape).values())
+        held += 4 if shape.kind in ("train", "decode") else 0
+        held += datastore_held(cfg, mesh) if shape.kind == "decode" else 0
+        jax_args = held - (meta["cache_local"] if shape.kind == "prefill" else 0)
         runs = []
         t_lower = t_compile = 0.0
         for c in ([cfg] if fold is None else fold[:2]):
             t1 = time.time()
-            fn, args, _ = build_cell(c, shape, mesh, dmesh=dmesh)
+            fn, args, m = build_cell(c, shape, mesh, dmesh=dmesh)
+            # the ledger starts from this depth's argument bytes
+            start = held - sum(meta[k] - m[k] for k in ("params_local", "opt_local", "cache_local"))
             t2 = time.time()
             with implicit_replication():
-                cost, out = analyze_step(fn, *args)
-            runs.append((cost, _output_bytes(out)))
+                cost, out = analyze_step(fn, *args, arg_bytes=start, fold_loops=fold_loops)
+            runs.append(cost)
             t_lower += t2 - t1
             t_compile += time.time() - t2
             del fn, args, out
-    (cost, out_bytes), trips = runs[0], None
-    if fold is not None and any(getattr(runs[1][0], f) < getattr(runs[0][0], f)
+    cost, trips = runs[0], None
+    if fold is not None and any(getattr(runs[1], f) < getattr(runs[0], f)
                                 for f in ("flops", "bytes", "coll_bytes")):
         raise ValueError("the step's counts do not grow with its scanned stage's depth: "
-                         f"one unit {runs[0][0]}, two {runs[1][0]}")
+                         f"two units {runs[0]}, three {runs[1]}")
     if fold is not None:
         n = fold[2]
-        cost = runs[0][0].fold(runs[1][0], n)
-        out_bytes = runs[0][1] + (n - 1) * (runs[1][1] - runs[0][1])
+        cost = runs[0].fold(runs[1], n, first=2)
         trips = {f"stage {len(plan_stages(cfg)) - 1}": n}
-    local_args = meta["params_local"] + meta["opt_local"] + meta["cache_local"] \
-        + meta["datastore_local"] + sum(
-            math.prod(v.shape) * v.dtype.itemsize // max(
-                math.prod(mesh.shape[a] for a in dctx.batch_axes(mesh)), 1)
-            for v in make_batch_specs(cfg, shape).values())
-    rec["memory"] = {"argument_bytes": int(local_args), "output_bytes": int(out_bytes),
-                     "temp_bytes": None, "peak_bytes": None, "code_bytes": None,
-                     "peak_note": PEAK_NOTE}
+    if cost.trips:
+        trips = {**(trips or {}), **cost.trips}
+    rec["memory"] = {"argument_bytes": int(jax_args), "output_bytes": int(cost.output_bytes),
+                     "temp_bytes": int(cost.temp_bytes), "peak_bytes": int(cost.peak_bytes),
+                     "code_bytes": None, "code_note": CODE_NOTE}
     rec["cost"] = {"flops": cost.flops, "bytes accessed": cost.bytes}
     rec["hlo_cost"] = {
         "flops": cost.flops,
         "bytes": cost.bytes,
         "collective_bytes": cost.coll_bytes,
         "collective_by_op": cost.coll_by_op,
-        "n_while": None if trips is None else len(trips),  # stages folded
+        "n_while": None if trips is None else len(trips),  # loops folded
         "trip_counts": trips,
     }
     rec["collective_count_by_op"] = cost.coll_count_by_op

@@ -8,13 +8,26 @@ The weights keep the JAX package's layouts: wq (D, H, hd), wk and wv
 (D, KV, hd), wo (H, hd, D), biases (H, hd) and (KV, hd); MLA's wdq
 (D, q_lora), wuq (q_lora, H, nope + rope), wdkv (D, lora), wk_rope
 (D, rope), wuk (lora, H, nope), wuv (lora, H, v), wo (H, v, D).
+
+On ``DTensor`` inputs (the dry-run's sharded run) the attention core runs
+as each device's program (``distributed.context.shard_map``), as GSPMD
+partitions it: the rows split over the batch axes, the query heads over
+the axes the rules shard ``wq`` (or MLA's ``wuq``) by, the KV heads as
+``wk`` / ``wv`` are placed (whole on every model device for GQA, so each
+device takes its query heads' groups; split with the queries for MLA,
+whose per-head K/V come from the head-sharded ``wuk`` / ``wuv``).  On
+plain tensors it is the one program it always was.
 """
 from __future__ import annotations
+
+import math
+from functools import partial
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import logical_constraint
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed.sharding import logical_constraint, logical_spec
 from repro_torch.models.layers import (
     NEG_INF,
     CastWeights,
@@ -29,6 +42,128 @@ from repro_torch.models.layers import (
 )
 
 Tensor = torch.Tensor
+
+
+def _heads_island(causal: bool, groups: int, heads, ix, q, k, v):
+    """One device's attention: its query heads (block ``ix(heads)`` of the
+    ``heads`` axes, or all of them) over the KV heads their groups read."""
+    hl = q.shape[2]
+    if k.shape[2] * groups != hl:  # the KV heads are whole, the queries split
+        h0 = ix(heads) * hl
+        if hl % groups == 0:
+            k, v = k.narrow(2, h0 // groups, hl // groups), v.narrow(2, h0 // groups, hl // groups)
+        elif groups % hl == 0:
+            k, v = k.narrow(2, h0 // groups, 1), v.narrow(2, h0 // groups, 1)
+        else:
+            idx = torch.div(h0 + torch.arange(hl, device=q.device), groups, rounding_mode="floor")
+            k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return (chunked_attention(q, k, v, causal=causal),)
+
+
+def _qkv_island(split, hd: int, h_loc: int, heads, kv: bool, ix, x, w, bias=None):
+    """One device's fused projection: its ``h_loc`` query heads (block
+    ``ix(heads)``) and, with ``kv``, every KV head."""
+    q0 = ix(heads) * h_loc * hd
+    cols = [(q0, h_loc * hd)] + ([(split[0], split[1] + split[2])] if kv else [])
+    ys = []
+    for lo, n in cols:
+        y = x @ w[:, lo:lo + n]
+        ys.append(y if bias is None else y + bias[lo:lo + n])
+    q = ys[0].unflatten(-1, (h_loc, hd))
+    if not kv:
+        return (q,)
+    k, v = (t.unflatten(-1, (-1, hd)) for t in torch.split(ys[1], split[1:], dim=-1))
+    return q, k, v
+
+
+def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool, kv_split: bool = False) -> Tensor:
+    """``chunked_attention`` of q (B, S, H, hd) over k, v (B, Skv, KV, *).
+    On DTensors under a mesh, each device's program (module docstring):
+    ``kv_split`` says the KV heads are split with the queries (MLA's)."""
+    mesh = dctx.current_mesh()
+    if mesh is None or not dctx.is_dtensor(q):
+        return chunked_attention(q, k, v, causal=causal)
+    return attention_per_device(mesh, q, k, v, causal=causal, kv_split=kv_split)
+
+
+def attention_per_device(mesh, q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                         kv_split: bool = False) -> Tensor:
+    """``attention`` as each device's program of ``mesh`` (``shard_map``:
+    per device on DTensors, island by island on an island mesh)."""
+    qspec = logical_spec(tuple(q.shape), ("batch", None, "heads", None), mesh)
+    kvspec = qspec if kv_split else (qspec[0], None, None, None)
+    heads = dctx.spec_axes(qspec[2])
+    body = partial(_heads_island, causal, q.shape[2] // k.shape[2], heads)
+    return dctx.shard_map(body, mesh, [qspec, kvspec, kvspec], [(qspec, ())])(q, k, v)[0]
+
+
+def _split_softmax(seq, scores: Tensor, mask: Tensor):
+    """A device's share of a softmax over keys split along ``seq``: its
+    unnormalised weights and the denominator over every device's keys
+    (a generator body: the max and the sum are collectives)."""
+    scores = torch.where(mask, scores, NEG_INF)
+    top = yield ("pmax", seq, scores.amax(-1, keepdim=True))
+    p = torch.exp(scores - top)
+    denom = yield ("psum", seq, p.sum(-1, keepdim=True))
+    return p, denom
+
+
+def _decode_island(seq, ix, q, k, v, mask):
+    """One device's decode attention over its block of the cache's
+    positions: every query head, its positions' keys, the softmax and the
+    weighted values summed over the devices that hold the others."""
+    b, _, h, hd = q.shape
+    kv = k.shape[2]
+    qf = (q.float() * hd**-0.5).reshape(b, kv, h // kv, hd)
+    scores = torch.einsum("bvgh,bkvh->bvgk", qf, k.float())
+    p, denom = yield from _split_softmax(seq, scores, mask)
+    o = yield ("psum", seq, torch.einsum("bvgk,bkvh->bvgh", p, v.float()))
+    return ((o / denom).reshape(b, 1, h, hd).to(q.dtype),)
+
+
+def _cache_specs(mesh, q: Tensor, cache: Tensor, mask: Tensor):
+    """(query spec: every head; cache spec: its rows and positions as the
+    rules place the cache; mask spec; the positions' axes)."""
+    cs = logical_spec(tuple(cache.shape), ("batch", "seq_kv") + (None,) * (cache.ndim - 2), mesh)
+    qs = (cs[0],) + (None,) * (q.ndim - 1)
+    return qs, cs, (cs[0], None, None, cs[1]), dctx.spec_axes(cs[1])
+
+
+def decode_attn(q: Tensor, k_cache: Tensor, v_cache: Tensor, mask: Tensor) -> Tensor:
+    """``decode_attention``; on DTensors under a mesh, each device's
+    program over its block of the cache's positions (GSPMD keeps the
+    seq-sharded cache in place and splits the softmax's max and sum)."""
+    mesh = dctx.current_mesh()
+    if mesh is None or not dctx.is_dtensor(q):
+        return decode_attention(q, k_cache, v_cache, mask)
+    return decode_per_device(mesh, q, k_cache, v_cache, mask)
+
+
+def decode_per_device(mesh, q: Tensor, k_cache: Tensor, v_cache: Tensor, mask: Tensor) -> Tensor:
+    """``decode_attn``'s program for each device of ``mesh``."""
+    qs, cs, ms, seq = _cache_specs(mesh, q, k_cache, mask)
+    return dctx.shard_map(partial(_decode_island, seq), mesh, [qs, cs, cs, ms],
+                          [(qs, ())])(q, k_cache, v_cache, mask)[0]
+
+
+def _mla_decode_island(scale: float, seq, ix, q_abs, q_rope, c, r, mask):
+    """One device's absorbed MLA decode over its block of the compressed
+    cache's positions (``MLA.decode``'s order of operations)."""
+    s_c = torch.einsum("bshr,btr->bhst", q_abs, c)
+    s_r = torch.einsum("bshk,btk->bhst", q_rope, r)
+    p, denom = yield from _split_softmax(seq, (s_c + s_r).float() * scale, mask)
+    o_c = yield ("psum", seq, torch.einsum("bhst,btr->bshr", p.to(q_abs.dtype), c))
+    return (o_c / denom.transpose(1, 2).to(o_c.dtype),)
+
+
+def mla_decode_per_device(mesh, scale: float, q_abs: Tensor, q_rope: Tensor, c_cache: Tensor,
+                          r_cache: Tensor, mask: Tensor) -> Tensor:
+    """MLA's absorbed attention in the compressed space, (B, 1, H, lora), as
+    each device's program of ``mesh`` over its block of the cache's
+    positions."""
+    qs, cs, ms, seq = _cache_specs(mesh, q_abs, c_cache, mask)
+    return dctx.shard_map(partial(_mla_decode_island, scale, seq), mesh, [qs, qs, cs, cs, ms],
+                          [(qs, ())])(q_abs, q_rope, c_cache, r_cache, mask)[0]
 
 
 class DecodeStep:
@@ -115,10 +250,14 @@ class GQA(CastWeights):
 
     def qkv(self, w: dict, x: Tensor, cos: Tensor | None, sin: Tensor | None):
         b, s, _ = x.shape
-        y = x @ w["wqkv"]
-        if self.bias:
-            y = y + w["bqkv"]
-        q, k, v = (t.reshape(b, s, -1, self.hd) for t in torch.split(y, self.split, dim=-1))
+        mesh = dctx.current_mesh()
+        if mesh is not None and dctx.is_dtensor(x):
+            q, k, v = self.qkv_per_device(mesh, w, x)
+        else:
+            y = x @ w["wqkv"]
+            if self.bias:
+                y = y + w["bqkv"]
+            q, k, v = (t.reshape(b, s, -1, self.hd) for t in torch.split(y, self.split, dim=-1))
         if self.rope:
             q, k = rotate(q, cos, sin), rotate(k, cos, sin)
         # the fused projection carries no heads layout: the queries' heads
@@ -130,7 +269,26 @@ class GQA(CastWeights):
         RoPE tables (``(None, None)`` without rope). Returns (out, (k, v))."""
         w = self.w
         q, k, v = self.qkv(w, x, *rope)
-        return chunked_attention(q, k, v, causal=self.causal).flatten(2) @ w["wo"], (k, v)
+        return attention(q, k, v, causal=self.causal).flatten(2) @ w["wo"], (k, v)
+
+    def qkv_per_device(self, mesh, w: dict, x: Tensor, kv: bool = True):
+        """The fused projection as each device's program (``shard_map``),
+        as GSPMD runs the JAX package's wq (fsdp, heads, .) and wk / wv
+        (fsdp, ., .): the weight gathered over fsdp, each device projecting
+        its query heads and every KV head.  Returns (q, k, v), or (q,) with
+        ``kv=False``."""
+        b, s, _ = x.shape
+        xs = logical_spec(tuple(x.shape), ("batch", None, None), mesh)
+        h = self.split[0] // self.hd
+        qs = logical_spec((b, s, h, self.hd), ("batch", None, "heads", None), mesh)
+        heads = dctx.spec_axes(qs[2])
+        h_loc = h // math.prod(mesh.shape[a] for a in heads)
+        args = [x, w["wqkv"]] + ([w["bqkv"]] if self.bias else [])
+        specs = [xs, (None, None)] + ([(None,)] if self.bias else [])
+        kvs = qs[:2] + (None, None)
+        outs = [(qs, ())] + ([(kvs, ()), (kvs, ())] if kv else [])
+        body = partial(_qkv_island, self.split, self.hd, h_loc, heads, kv)
+        return dctx.shard_map(body, mesh, specs, outs)(*args)
 
     def cross_kv(self, enc: Tensor) -> tuple[Tensor, Tensor]:
         """Whisper's cross-attention K/V of the encoder output (no bias, no
@@ -144,11 +302,15 @@ class GQA(CastWeights):
         """Cross-attention of x's queries over precomputed encoder K/V."""
         b, s, _ = x.shape
         w = self.w
-        q = x @ w["wqkv"][:, :self.split[0]]
-        if self.bias:
-            q = q + w["bqkv"][:self.split[0]]
-        q = q.reshape(b, s, -1, self.hd)
-        return chunked_attention(q, k, v, causal=False).flatten(2) @ w["wo"]
+        mesh = dctx.current_mesh()
+        if mesh is not None and dctx.is_dtensor(x):
+            q = self.qkv_per_device(mesh, w, x, kv=False)[0]
+        else:
+            q = x @ w["wqkv"][:, :self.split[0]]
+            if self.bias:
+                q = q + w["bqkv"][:self.split[0]]
+            q = q.reshape(b, s, -1, self.hd)
+        return attention(q, k, v, causal=False).flatten(2) @ w["wo"]
 
     def decode(self, x: Tensor, cache: dict[str, Tensor], step: DecodeStep) -> Tensor:
         """One token per row at the step's positions; writes this token's K/V
@@ -157,7 +319,7 @@ class GQA(CastWeights):
         q, k, v = self.qkv(w, x, step.cos, step.sin)
         step.write_(cache["k"], k)
         step.write_(cache["v"], v)
-        return decode_attention(q, cache["k"], cache["v"], step.mask).flatten(2) @ w["wo"]
+        return decode_attn(q, cache["k"], cache["v"], step.mask).flatten(2) @ w["wo"]
 
 
 class MLA(CastWeights):
@@ -221,7 +383,7 @@ class MLA(CastWeights):
         k = torch.cat([k_nope, k_rope.expand(b, s, h, self.rope_dim)], -1)
         # v stays v_head_dim wide: the JAX package's zero padding to the q/k
         # width adds only zero columns, sliced off after
-        o = chunked_attention(q, k, v, causal=True)
+        o = attention(q, k, v, causal=True, kv_split=True)
         return o.flatten(2) @ w["wo"], (c_kv, k_rope[:, :, 0, :])
 
     def decode(self, x: Tensor, cache: dict[str, Tensor], step: DecodeStep) -> Tensor:
@@ -233,10 +395,15 @@ class MLA(CastWeights):
         step.write_(cache["k_rope"], self._k_rope(w, x, step.cos, step.sin)[:, :, 0, :])
         c_cache, r_cache = cache["c_kv"], cache["k_rope"]
         q_abs = torch.einsum("bshk,rhk->bshr", q_nope, w["wuk"])
-        s_c = torch.einsum("bshr,btr->bhst", q_abs, c_cache)
-        s_r = torch.einsum("bshk,btk->bhst", q_rope, r_cache)
-        scores = (s_c + s_r).float() * self.scale
-        p = torch.softmax(torch.where(step.mask, scores, NEG_INF), dim=-1)
-        o_c = torch.einsum("bhst,btr->bshr", p.to(x.dtype), c_cache)
+        mesh = dctx.current_mesh()
+        if mesh is not None and dctx.is_dtensor(x):
+            o_c = mla_decode_per_device(mesh, self.scale, q_abs, q_rope, c_cache, r_cache,
+                                        step.mask)
+        else:
+            s_c = torch.einsum("bshr,btr->bhst", q_abs, c_cache)
+            s_r = torch.einsum("bshk,btk->bhst", q_rope, r_cache)
+            scores = (s_c + s_r).float() * self.scale
+            p = torch.softmax(torch.where(step.mask, scores, NEG_INF), dim=-1)
+            o_c = torch.einsum("bhst,btr->bshr", p.to(x.dtype), c_cache)
         o = torch.einsum("bshr,rhk->bshk", o_c, w["wuv"])
         return o.flatten(2) @ w["wo"]

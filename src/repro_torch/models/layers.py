@@ -15,9 +15,15 @@ restore).  The layouts are the JAX package's (activations (B, S, D), heads
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed.sharding import logical_spec
+from repro_torch.distributed.step_cost import TimeSteps
 
 Tensor = torch.Tensor
 
@@ -65,6 +71,16 @@ class CastWeights(nn.Module):
         if not self.c or self._cast_at != tuple(p._version for p in self._cast_from):
             self.cast(self.cdt)
         return self.c
+
+
+def scan_steps(n: int, name: str) -> TimeSteps:
+    """The trips of a time loop over ``n`` positions (the JAX package's
+    ``lax.scan`` over time, named ``name`` in the dry-run's record):
+    ``for t in steps`` is ``range(n)`` and ``steps.stack(ys, dim)`` is
+    ``torch.stack``; under the dry-run's counter the loop runs three trips
+    whose cost is folded to ``n`` and ``stack`` still gives all ``n``
+    positions (``distributed.step_cost.TimeSteps``)."""
+    return TimeSteps(n, name)
 
 
 # ---------------------------------------------------------------------------
@@ -204,7 +220,34 @@ class SwiGLU(CastWeights):
 
     def forward(self, x: Tensor) -> Tensor:
         w = self.w
+        mesh = dctx.current_mesh()
+        if mesh is not None and dctx.is_dtensor(x):
+            return swiglu_per_device(mesh, w["w_gate_in"], w["w_out"], x)
         return mlp_swiglu(w["w_gate_in"], w["w_out"], x)
+
+
+def _swiglu_island(mlp, ix, x, w_gate_in, w_out):
+    """One device's SwiGLU: its ``mlp`` block of W_gate's and W_in's columns
+    (a block of each half of the fused weight), its rows of W_out; the
+    output a partial sum over ``mlp``."""
+    f, fl = w_gate_in.shape[1] // 2, w_out.shape[0]
+    j = ix(mlp) * fl
+    gate = x @ w_gate_in[:, j:j + fl]
+    inp = x @ w_gate_in[:, f + j:f + j + fl]
+    return ((F.silu(gate) * inp) @ w_out,)
+
+
+def swiglu_per_device(mesh, w_gate_in: Tensor, w_out: Tensor, x: Tensor) -> Tensor:
+    """The SwiGLU as each device's program (``shard_map``), as GSPMD runs
+    the JAX package's W_gate / W_in (fsdp, mlp) and W_out (mlp, fsdp): the
+    weights gathered over fsdp, the hidden width split over the mlp axes
+    (every row of the sequence on each, its sum over them left to the
+    caller's constraint)."""
+    xs = logical_spec(tuple(x.shape), ("batch", None, None), mesh)
+    mlp = logical_spec(tuple(w_out.shape), ("mlp", None), mesh)[0]
+    axes = dctx.spec_axes(mlp)
+    return dctx.shard_map(partial(_swiglu_island, axes), mesh,
+                          [xs, (None, None), (mlp, None)], [(xs, axes)])(x, w_gate_in, w_out)[0]
 
 
 class GeluMLP(CastWeights):

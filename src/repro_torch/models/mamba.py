@@ -16,7 +16,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import CastWeights, dense_init_, dtype_of, param
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed.sharding import logical_constraint, logical_spec
+from repro_torch.models.layers import CastWeights, dense_init_, dtype_of, param, scan_steps
 
 Tensor = torch.Tensor
 
@@ -34,6 +36,31 @@ def ssm_step(h: Tensor, xt: Tensor, dtt: Tensor, bt: Tensor, ct: Tensor, a: Tens
     dbx = (dtt * xt)[..., None] * bt[:, None, :]
     h = da * h + dbx
     return h, torch.einsum("bds,bs->bd", h, ct)
+
+
+def selective_scan(uf: Tensor, delta: Tensor, b_in: Tensor, c_in: Tensor, a: Tensor):
+    """The selective SSM over time from a zero state, in f32: u, delta (B,
+    S, d_in); B, C (B, S, ds); a (d_in, ds).  Returns (y (B, S, d_in), the
+    final state (B, d_in, ds))."""
+    b, s, d_in = uf.shape
+    h = torch.zeros((b, d_in, a.shape[1]), dtype=torch.float32, device=uf.device)
+    ys, steps = [], scan_steps(s, "mamba scan")
+    for t in steps:
+        h, y = ssm_step(h, uf[:, t], delta[:, t], b_in[:, t], c_in[:, t], a)
+        ys.append(y)
+    return steps.stack(ys, 1), h
+
+
+def selective_scan_per_device(mesh, uf: Tensor, delta: Tensor, b_in: Tensor, c_in: Tensor,
+                              a: Tensor):
+    """``selective_scan`` as each device's program of ``mesh``: its rows and
+    its d_inner channels (the rules split in_proj's and a_log's d_inner
+    over the mlp axes)."""
+    ch = logical_spec(tuple(uf.shape), ("batch", None, "mlp"), mesh)
+    bc = (ch[0], None, None)
+    return dctx.shard_map(lambda ix, *a: selective_scan(*a), mesh,
+                          [ch, ch, bc, bc, (ch[2], None)],
+                          [(ch, ()), ((ch[0], ch[2], None), ())])(uf, delta, b_in, c_in, a)
 
 
 class Mamba(CastWeights):
@@ -83,7 +110,9 @@ class Mamba(CastWeights):
         """x_proj's split of the conv output: (delta f32 after softplus, B, C
         in f32)."""
         d_in, ds, _, dtr = self.dims
-        dt_in, b_in, c_in = torch.split(u @ w["x_proj"], [dtr, ds, ds], dim=-1)
+        # summed over d_inner where the rules split it (GSPMD's all-reduce)
+        proj = logical_constraint(u @ w["x_proj"], ("batch", None, None))
+        dt_in, b_in, c_in = torch.split(proj, [dtr, ds, ds], dim=-1)
         delta = F.softplus(dt_in.float() @ self.dt_proj.float() + self.dt_bias.float())
         return delta, b_in.float(), c_in.float()
 
@@ -98,18 +127,21 @@ class Mamba(CastWeights):
         w = self.w
         xz = x @ w["in_proj"]
         u0, z = torch.chunk(xz, 2, dim=-1)  # (B, S, d_in)
+        # the conv's window runs along the whole sequence on each device (the
+        # identity off the dry-run's sharded run)
+        u0 = logical_constraint(u0, ("batch", None, "mlp"))
         pad = F.pad(u0.transpose(1, 2), (dc - 1, 0))  # (B, d_in, S + dc - 1)
         conv = F.conv1d(pad, w["conv_w"].t()[:, None, :], groups=d_in).transpose(1, 2)
         u = F.silu(conv + w["conv_b"])
         delta, b_in, c_in = self._ssm_inputs(w, u)
         a = -torch.exp(self.a_log.float())
         uf = u.float()
-        h = torch.zeros((b, d_in, ds), dtype=torch.float32, device=x.device)
-        ys = []
-        for t in range(s):
-            h, y = ssm_step(h, uf[:, t], delta[:, t], b_in[:, t], c_in[:, t], a)
-            ys.append(y)
-        out = self._out(w, torch.stack(ys, 1), u, z)
+        mesh = dctx.current_mesh()
+        if mesh is not None and dctx.is_dtensor(x):
+            ys, h = selective_scan_per_device(mesh, uf, delta, b_in, c_in, a)
+        else:
+            ys, h = selective_scan(uf, delta, b_in, c_in, a)
+        out = self._out(w, ys, u, z)
         conv_state = u0[:, -(dc - 1):] if s >= dc - 1 else F.pad(u0, (0, 0, dc - 1 - s, 0))
         # a copy, not a view of the chunk: ``decode`` writes the state in place
         return out, {"conv": conv_state.clone(), "ssm": h}

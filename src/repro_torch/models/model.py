@@ -18,8 +18,11 @@ dtypes agree, else from copies cast at init or load (``cast_weights``) and
 made again on first use after a parameter changed in place.
 ``loss`` casts inside the autograd graph instead, and with ``cfg.remat``
 other than "none" recomputes each layer in the backward pass (one
-non-reentrant checkpoint a layer; "dots" is taken as "full").  The head is
-an f32 product with TF32 off, as in JAX.
+non-reentrant checkpoint a layer): "full" saves nothing of it, "dots" the
+outputs of its products with no batch dims (``aten.mm`` / ``aten.addmm``,
+the JAX package's ``dots_with_no_batch_dims_saveable``) and recomputes the
+rest, batched products too.  The head is an f32 product with TF32 off, as
+in JAX.
 
 The cache is a list with one flat dict per sub-layer, the batch on axis 0 of
 every leaf: ``{"k", "v"}`` (B, max_len, KV, hd) for GQA, ``{"c_kv",
@@ -30,14 +33,21 @@ the SSM/WKV states in f32.  ``decode_step`` updates it in place.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import logical_constraint
+from repro_torch.distributed.context import current_mesh, is_dtensor, shard_map, spec_axes
+from repro_torch.distributed.sharding import logical_constraint, logical_spec
 from repro_torch.kernels.ref import no_tf32
 from repro_torch.models.attention import DecodeStep
 from repro_torch.models.layers import (
@@ -138,7 +148,11 @@ class Model(nn.Module):
         # 1-d index
         x = F.embedding(tok.reshape(-1), self.embed).reshape(*tok.shape, -1).to(self.cdt)
         if self.cfg.family == "encdec":
-            # whisper: sinusoidal positions at each row's own offset
+            # whisper: sinusoidal positions at each row's own offset, added
+            # to the lookup's sum (a vocab-sharded table's partial sum is
+            # reduced first; DTensor 2.11 cannot add a replicated tensor to
+            # the masked partial on meta)
+            x = logical_constraint(x, ("batch", "seq", "embed"))
             b, s = tokens.shape
             positions = torch.arange(s, device=self.device).expand(b, s)
             if pos0 is not None:  # (B,) decode positions
@@ -169,10 +183,13 @@ class Model(nn.Module):
         else:
             x = rms_norm(x, self.final_norm, c.norm_eps)
         x = x.float()
-        if self.lm_head is None:
-            logits = torch.einsum("bsd,vd->bsv", x, self.embed.float())
+        mesh = current_mesh()
+        tied = self.lm_head is None
+        w = self.embed.float() if tied else self.lm_head.float()
+        if mesh is not None and is_dtensor(x):
+            logits = head_per_device(mesh, x, w, tied)
         else:
-            logits = x @ self.lm_head.float()
+            logits = _head_island(tied, None, x, w)[0]
         return logical_constraint(logits, ("batch", "seq", "vocab"))
 
     def _zero_aux(self) -> dict[str, Tensor]:
@@ -191,11 +208,12 @@ class Model(nn.Module):
         checkpoint that returns its router losses (a recompute in the
         backward pass adds nothing to ``aux`` twice)."""
         remat = torch.is_grad_enabled() and self.cfg.remat != "none"
+        policy = {"context_fn": _dots_saved} if self.cfg.remat == "dots" else {}
         for layer in layers:
             x = logical_constraint(x, ("batch", "seq", "embed"))
             if remat:
-                x, la, lz = checkpoint(_layer_with_losses, layer, x, seq,
-                                       use_reentrant=False, preserve_rng_state=False)
+                x, la, lz = checkpoint(_layer_with_losses, layer, x, seq, use_reentrant=False,
+                                       preserve_rng_state=False, **policy)
                 aux["router_aux"] = aux["router_aux"] + la
                 aux["router_z"] = aux["router_z"] + lz
                 continue
@@ -242,9 +260,12 @@ class Model(nn.Module):
         targets = torch.as_tensor(batch["targets"]).to(self.device, torch.int64)
         mask = (targets >= 0) & (targets < c.vocab_size)
         tsafe = targets.clamp(0, c.padded_vocab - 1)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, tsafe[..., None])[..., 0]
-        ce = (logz - gold) * mask
+        mesh = current_mesh()
+        if mesh is not None and is_dtensor(logits) and any(p.is_shard() for p in logits.placements):
+            nll = nll_per_device(mesh, logits, tsafe)
+        else:
+            nll = _nll(logits, tsafe)
+        ce = nll * mask
         denom = mask.sum().clamp(min=1)
         loss = ce.sum() / denom
         metrics = {"ce": loss, "tokens": denom}
@@ -303,6 +324,65 @@ class Model(nn.Module):
 
             logits = knn_interpolate(logits, x[:, 0, :], datastore, self.cfg)
         return logits
+
+
+# remat="dots": the products with no batch dims are saved
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_saved():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _nll(logits: Tensor, targets: Tensor) -> Tensor:
+    """-log softmax(logits)[target]: the logsumexp less the target's logit."""
+    logz = torch.logsumexp(logits, dim=-1)
+    return logz - torch.gather(logits, -1, targets[..., None])[..., 0]
+
+
+def _nll_island(vocab, ix, logits: Tensor, targets: Tensor):
+    """One device's share of ``_nll`` over its block of the vocabulary: the
+    logsumexp's max and sum and the target's logit reduced over ``vocab``
+    (the max without a gradient: the logsumexp's does not depend on it)."""
+    v = logits.shape[-1]
+    top = yield ("pmax", vocab, logits.detach().amax(-1, keepdim=True))
+    total = yield ("psum", vocab, torch.exp(logits - top).sum(-1))
+    local = targets - ix(vocab) * v
+    mine = (local >= 0) & (local < v)
+    gold = torch.gather(logits, -1, local.clamp(0, v - 1)[..., None])[..., 0] * mine
+    gold = yield ("psum", vocab, gold)
+    return (torch.log(total) + top[..., 0] - gold,)
+
+
+def nll_per_device(mesh, logits: Tensor, targets: Tensor) -> Tensor:
+    """``_nll`` as each device's program of ``mesh`` on logits split over
+    the vocabulary as the rules split them: GSPMD's partitioned loss, whose
+    gradient is each device's block (DTensor's gather backward would make
+    zeros of the whole logits on every device)."""
+    out = logical_spec(tuple(logits.shape), ("batch", "seq", "vocab"), mesh)
+    vocab = spec_axes(out[2])
+    return shard_map(partial(_nll_island, vocab), mesh, [out, out[:2]], [(out[:2], ())])(
+        logits, targets)[0]
+
+
+def head_per_device(mesh, x: Tensor, w: Tensor, tied: bool) -> Tensor:
+    """The logits as each device's program of ``mesh``: its rows over its
+    block of the vocabulary, as GSPMD runs the vocab-sharded table (DTensor
+    would gather it whole)."""
+    vocab = w.shape[0] if tied else w.shape[1]
+    out = logical_spec((*x.shape[:2], vocab), ("batch", "seq", "vocab"), mesh)
+    ws = (out[2], None) if tied else (None, out[2])
+    return shard_map(partial(_head_island, tied), mesh, [out[:2] + (None,), ws],
+                     [(out, ())])(x, w)[0]
+
+
+def _head_island(tied: bool, ix, x: Tensor, w: Tensor):
+    """The logits of x over the embedding rows (tied) or the head's columns."""
+    return (torch.einsum("bsd,vd->bsv", x, w) if tied else x @ w,)
 
 
 def _layer_with_losses(layer: nn.Module, x: Tensor, seq: Seq):

@@ -19,7 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import CastWeights, dense_init_, dtype_of, param
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed.sharding import logical_spec
+from repro_torch.models.layers import CastWeights, dense_init_, dtype_of, param, scan_steps
 
 Tensor = torch.Tensor
 
@@ -43,6 +45,22 @@ def shifted(x: Tensor, prev: Tensor | None) -> Tensor:
     if prev is None:
         prev = torch.zeros_like(x[:, :1])
     return torch.cat([prev.to(x.dtype), x[:, :-1]], 1)
+
+
+def wkv_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor, st: Tensor | None):
+    """The WKV recurrence over time in f32: r, k, v, w (B, S, H, hd), the
+    bonus u (H, hd), the state st (B, H, hd, hd), zeros where None.  Returns
+    (y (B, S, H, hd), the final state)."""
+    b, _, h, hd = r.shape
+    if st is None:
+        st = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    u = u[None, :, :, None]
+    ys, steps = [], scan_steps(r.shape[1], "rwkv wkv")
+    for t in steps:
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # (B, H, hd, hd)
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], st + u * kv))
+        st = w[:, t, :, :, None] * st + kv
+    return steps.stack(ys, 1), st
 
 
 class TimeMix(CastWeights):
@@ -89,39 +107,51 @@ class TimeMix(CastWeights):
     def weights(self, dtype: torch.dtype) -> dict[str, Tensor]:
         return {n: getattr(self, n).to(dtype) for n in self.CAST}
 
-    def _rkvgw(self, w: dict, x: Tensor, xx: Tensor):
-        dt = x.dtype
-        b, s, d = x.shape
-        diff = xx - x
-        lo = torch.tanh((x + diff * self.mu_x.to(dt)) @ w["lora_a"])
-        delta = torch.einsum("bsfr,frd->bsfd", lo.reshape(b, s, 5, LORA), w["lora_b"])
-        xr, xk, xv, xg, xw = (x + diff * (self.mu[i].to(dt) + delta[..., i, :]) for i in range(5))
-        r = (xr @ w["wr"]).reshape(b, s, self.h, self.hd)
-        k = (xk @ w["wk"]).reshape(b, s, self.h, self.hd)
-        v = (xv @ w["wv"]).reshape(b, s, self.h, self.hd)
-        gate = F.silu(xg @ w["wg"])
-        wdec = self.w0.float() + torch.tanh(xw @ w["wd_a"]).float() @ self.wd_b.float()
-        w = torch.exp(-torch.exp(wdec)).reshape(b, s, self.h, self.hd)
-        return r, k, v, gate, w
+    F32 = ("mu_x", "mu", "w0", "wd_b", "u", "ln_scale", "ln_bias")
 
     def forward(self, x: Tensor, shift: Tensor | None = None, wkv: Tensor | None = None):
         """Time-mix over x (B, S, D) from the carried (shift, wkv) state, or
-        from zeros.  Returns (out, last position of x, final wkv state)."""
+        from zeros.  Returns (out, last position of x, final wkv state).
+        On DTensors under a mesh, each device's program (``shard_map``):
+        its rows, every head (the rules split nothing of the time mix over
+        the model axis; its weights are gathered over fsdp)."""
+        p = {**self.w, **{n: getattr(self, n) for n in self.F32}}
+        mesh = dctx.current_mesh()
+        if mesh is None or not dctx.is_dtensor(x):
+            return self._mix(p, x, shift, wkv)
+        return self.mix_per_device(mesh, p, x, shift, wkv)
+
+    def mix_per_device(self, mesh, p: dict, x: Tensor, shift: Tensor | None,
+                       wkv: Tensor | None):
+        """``forward``'s program for each device of ``mesh``, the weights
+        ``p`` by name."""
+        rows = logical_spec(tuple(x.shape), ("batch", None, None), mesh)
+        state = (rows[0], None, None, None)
+        names = list(p)
+
+        def body(ix, x, shift, wkv, *ts):
+            return self._mix(dict(zip(names, ts)), x, shift, wkv)
+
+        return dctx.shard_map(body, mesh, [rows, rows, state] + [None] * len(names),
+                              [(rows, ()), (rows, ()), (state, ())])(x, shift, wkv, *p.values())
+
+    def _mix(self, p: dict, x: Tensor, shift: Tensor | None, wkv: Tensor | None):
+        dt = x.dtype
         b, s, d = x.shape
-        wts = self.w
-        r, k, v, gate, w = self._rkvgw(wts, x, shifted(x, shift))
-        st = wkv if wkv is not None else torch.zeros(
-            (b, self.h, self.hd, self.hd), dtype=torch.float32, device=x.device)
-        r, k, v, w = r.float(), k.float(), v.float(), w.float()
-        u = self.u.float()[None, :, :, None]
-        ys = []
-        for t in range(s):
-            kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # (B, H, hd, hd)
-            ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t], st + u * kv))
-            st = w[:, t, :, :, None] * st + kv
-        y = torch.stack(ys, 1).reshape(b, s, d).to(x.dtype)
-        y = group_norm(y, self.ln_scale, self.ln_bias, self.h) * gate
-        return y @ wts["wo"], x[:, -1:], st
+        diff = shifted(x, shift) - x
+        lo = torch.tanh((x + diff * p["mu_x"].to(dt)) @ p["lora_a"])
+        delta = torch.einsum("bsfr,frd->bsfd", lo.reshape(b, s, 5, LORA), p["lora_b"])
+        xr, xk, xv, xg, xw = (x + diff * (p["mu"][i].to(dt) + delta[..., i, :]) for i in range(5))
+        r = (xr @ p["wr"]).reshape(b, s, self.h, self.hd)
+        k = (xk @ p["wk"]).reshape(b, s, self.h, self.hd)
+        v = (xv @ p["wv"]).reshape(b, s, self.h, self.hd)
+        gate = F.silu(xg @ p["wg"])
+        wdec = p["w0"].float() + torch.tanh(xw @ p["wd_a"]).float() @ p["wd_b"].float()
+        w = torch.exp(-torch.exp(wdec)).reshape(b, s, self.h, self.hd)
+        y, st = wkv_scan(r.float(), k.float(), v.float(), w.float(), p["u"].float(), wkv)
+        y = y.reshape(b, s, d).to(x.dtype)
+        y = group_norm(y, p["ln_scale"], p["ln_bias"], self.h) * gate
+        return y @ p["wo"], x[:, -1:], st
 
 
 class ChannelMix(CastWeights):
@@ -152,11 +182,36 @@ class ChannelMix(CastWeights):
         return {n: getattr(self, n).to(dtype) for n in self.CAST}
 
     def forward(self, x: Tensor, shift: Tensor | None = None) -> tuple[Tensor, Tensor]:
-        """Returns (out, last position of x)."""
-        dt = x.dtype
+        """Returns (out, last position of x).  On DTensors under a mesh, each
+        device's program (``shard_map``): its rows and its block of the
+        hidden width (wk (fsdp, mlp), wv (mlp, fsdp)), the output a partial
+        sum over the mlp axes (the gate r multiplies each part alike)."""
         w = self.w
-        diff = shifted(x, shift) - x
-        xk = x + diff * self.mu_k.to(dt)
-        xr = x + diff * self.mu_r.to(dt)
-        kk = torch.square(torch.relu(xk @ w["wk"]))
-        return torch.sigmoid(xr @ w["wr"]) * (kk @ w["wv"]), x[:, -1:]
+        args = (x, shift, w["wk"], w["wv"], w["wr"], self.mu_k, self.mu_r)
+        mesh = dctx.current_mesh()
+        if mesh is None or not dctx.is_dtensor(x):
+            return channel_mix(*args)
+        return channel_mix_per_device(mesh, *args)
+
+
+def channel_mix_per_device(mesh, x: Tensor, shift: Tensor | None, wk: Tensor, wv: Tensor,
+                           wr: Tensor, mu_k: Tensor, mu_r: Tensor) -> tuple[Tensor, Tensor]:
+    """``channel_mix`` as each device's program of ``mesh``."""
+    rows = logical_spec(tuple(x.shape), ("batch", None, None), mesh)
+    mlp = logical_spec(tuple(wk.shape), (None, "mlp"), mesh)[1]
+    return dctx.shard_map(lambda ix, *a: channel_mix(*a), mesh,
+                          [rows, rows, (None, mlp), (mlp, None), None, None, None],
+                          [(rows, dctx.spec_axes(mlp)), (rows, ())])(
+        x, shift, wk, wv, wr, mu_k, mu_r)
+
+
+def channel_mix(x: Tensor, shift: Tensor | None, wk: Tensor, wv: Tensor, wr: Tensor,
+                mu_k: Tensor, mu_r: Tensor) -> tuple[Tensor, Tensor]:
+    """The channel mix of x (B, S, D): sigmoid(xr W_r) * (relu(xk W_k)^2 W_v).
+    Returns (out, last position of x)."""
+    dt = x.dtype
+    diff = shifted(x, shift) - x
+    xk = x + diff * mu_k.to(dt)
+    xr = x + diff * mu_r.to(dt)
+    kk = torch.square(torch.relu(xk @ wk))
+    return torch.sigmoid(xr @ wr) * (kk @ wv), x[:, -1:]

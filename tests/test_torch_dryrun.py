@@ -12,7 +12,7 @@
   process): one smoke-config cell each of train / prefill / decode on a
   (2, 2) abstract mesh, whose records carry the JAX record's keys and
   render through ``benchmarks.roofline.fmt_table``; on a (1, 1) mesh the
-  per-device FLOPs (a four-layer stage measured at one and two layers and
+  per-device FLOPs (a four-layer stage measured at two and three layers and
   folded) equal ``FlopCounterMode`` over the same step run for real on the
   CPU; ``build_cell``'s local bytes equal the JAX package's
   ``build_cell`` meta (a child with 512 host devices); and the dense smoke
@@ -20,20 +20,37 @@
   (shorter rows differ by design: the JAX package's chunked attention
   computes the keys it pads to a 1,024-key block, the port's masks them
   out uncomputed);
-* on a (2, 2) mesh, the per-device FLOPs of qwen2-0.5b's and deepseek-v2's
-  smoke cells (the latter's MoE through ``shard_map``'s per-device
-  program, the all-to-all variant too) beside the JAX package's compiled
-  count on the same mesh (an auto-sharded ``jax.sharding.Mesh``): decode
-  within 5%; train and prefill within [0.85, 2]: the port's attention runs
-  every KV head on each model device (DTensor cannot keep the (batch, KV
-  head) product that the attention's batched products flatten sharded over
-  both mesh dims), GSPMD's splits them; the collective bytes are printed
-  beside JAX's, not held (DTensor picks other redistributions);
+* on a (2, 2) mesh, the per-device FLOPs of the smoke cells (MoE through
+  ``shard_map``'s per-device program, the all-to-all variant too; the
+  attention core, the fused projections, the head and RWKV's and Mamba's
+  mixers as each device's program) beside the JAX package's compiled count
+  on the same mesh (an auto-sharded ``jax.sharding.Mesh``): every cell
+  within [0.95, 1.05], or held within 5% of its measured ratio where a
+  named difference of the two programs puts it outside (``HELD``):
+  deepseek-v2's MLA pads v to the q/k width in the JAX package and
+  computes the zero columns' products, the port does not (its count is
+  JAX's less exactly those products on (1, 1): 8.750e9 of 9.958e9); JAX's
+  ``hlo_cost`` counts jamba's depthwise convolution as a dense one over its
+  channels (it reads no ``feature_group_count``: 4.7e8 of its 3.117e9 on
+  (1, 1), where the port's count is the compiled module's dot sum to
+  0.4%); GSPMD's (2, 2) program for rwkv6-3b falls 9.3% below half its own
+  (1, 2) count, while the port's is half of its own, which is JAX's to
+  0.5% on (1, 1) and (1, 2).  The collective bytes are printed beside
+  JAX's, not held (DTensor picks other redistributions);
+* memory: each cell's ``argument_bytes`` equals JAX's
+  ``argument_size_in_bytes``; its ``peak_bytes`` (the ledger's) is printed
+  beside JAX's ``peak_bytes`` and held within [0.5, 2] of the heap XLA
+  assigns, argument + temp + output - alias bytes: XLA:CPU's
+  ``peak_memory_in_bytes`` leaves out its temp buffer, so the JAX record's
+  ``peak_bytes`` is about the argument bytes there.  Measured: 0.59-1.51
+  (eager keeps intermediates XLA fuses, and XLA's heap keeps buffers the
+  ledger sees die);
 * the dry-run fails rather than guesses: an error of DTensor's propagation
-  raises ``PropagationError`` naming the op, an op without a sharding
-  strategy is counted as replicated (its gathers in
-  ``replicated_coll_bytes``), and ``cell_status`` fails a cell whose
-  replicated ops pass ``REPLICATED_LIMIT``.
+  raises ``PropagationError`` naming the op (a grouped convolution that is
+  not depthwise), an op without a sharding strategy is counted as
+  replicated (its gathers in ``replicated_coll_bytes``), and
+  ``cell_status`` fails a cell whose replicated ops pass
+  ``REPLICATED_LIMIT``.
 """
 import json
 import os
@@ -68,10 +85,20 @@ VS_CELLS = [("qwen2-0.5b", "train_4k", "train", 1024, 2, "baseline"),
             ("qwen2-0.5b", "decode_32k", "decode", 1024, 4, "baseline"),
             ("deepseek-v2-236b", "train_4k", "train", 1024, 2, "baseline"),
             ("deepseek-v2-236b", "decode_32k", "decode", 1024, 4, "baseline"),
-            ("deepseek-v2-236b", "train_4k", "train", 1024, 4, "a2amoe-ga1")]
-# the port's count over JAX's: decode exact up to the bookkeeping ops;
-# train / prefill with attention over every KV head (see above)
-BANDS = {"decode": (0.95, 1.05), "train": (0.85, 2.0), "prefill": (0.85, 2.0)}
+            ("deepseek-v2-236b", "train_4k", "train", 1024, 4, "a2amoe-ga1"),
+            ("rwkv6-3b", "train_4k", "train", 1024, 2, "baseline"),
+            ("jamba-1.5-large-398b", "prefill_32k", "prefill", 1024, 2, "baseline")]
+# the port's count over JAX's
+BANDS = {"decode": (0.95, 1.05), "train": (0.95, 1.05), "prefill": (0.95, 1.05)}
+# cells held within 5% of their measured ratio, and why (module docstring)
+HELD = {"deepseek-v2-236b/train_4k/baseline": (0.8832, "MLA's v padded to the q/k width in JAX"),
+        "deepseek-v2-236b/train_4k/a2amoe-ga1": (0.9057, "MLA's v padded to the q/k width in JAX"),
+        "rwkv6-3b/train_4k/baseline": (
+            1.1172, "GSPMD's (2, 2) program, 9.3% below half its (1, 2)"),
+        "jamba-1.5-large-398b/prefill_32k/baseline": (
+            0.9295, "hlo_cost counts the depthwise conv as dense")}
+# the ledger's peak over the heap XLA assigns (argument + temp + output - alias)
+PEAK_BAND = (0.5, 2.0)
 
 
 def _compile_text(fn, *args):
@@ -176,7 +203,7 @@ for name, shape in shapes.items():
     out["cells"].append(dryrun.run_cell("qwen2-0.5b", name, "single", mesh=small, shape=shape,
                                         base=get_smoke_config("qwen2-0.5b")))
 # (1, 1): the dry-run's per-device count against the same step run for real;
-# four layers, so the scanned stage is measured at one and two and folded
+# four layers, so the scanned stage is measured at two and three and folded
 one = Mesh(shape=(1, 1), axis_names=("data", "model"))
 cfg = get_smoke_config("qwen2-0.5b").replace(num_layers=4)
 rec = dryrun.run_cell("qwen2-0.5b", "train_4k", "single", mesh=one, shape=shapes["train_4k"],
@@ -207,17 +234,18 @@ for arch, sn, kind, seq, b, variant in VS_CELLS:
                           shape=ShapeConfig(sn, kind, seq, b), base=get_smoke_config(arch))
     out["vs_jax"][f"{arch}/{sn}/{variant}"] = [rec["status"], rec["hlo_cost"]["flops"],
                                                rec["replicated_ops"], rec["rules"],
-                                               rec["hlo_cost"]["collective_bytes"]]
+                                               rec["hlo_cost"]["collective_bytes"],
+                                               rec["memory"]]
 # strictness: a propagation error raises, a missing strategy is counted
 import torch.nn.functional as F
 from repro_torch.distributed import step_cost
 from torch.distributed.tensor.experimental import implicit_replication
 dmesh = dryrun.device_mesh(small)
 x = dryrun._dtensor(torch.empty(1, 16, 8, device="meta"), dmesh, (None, "model", None))
-w = dryrun._dtensor(torch.empty(16, 1, 3, device="meta"), dmesh, ("model", None, None))
+w = dryrun._dtensor(torch.empty(16, 4, 3, device="meta"), dmesh, ("model", None, None))
 try:
     with implicit_replication():
-        step_cost.analyze_step(lambda x, w: F.conv1d(x, w, groups=16), x, w)
+        step_cost.analyze_step(lambda x, w: F.conv1d(x, w, groups=4), x, w)
     out["conv"] = "no error"
 except step_cost.PropagationError as e:
     out["conv"] = str(e)
@@ -281,8 +309,13 @@ for arch, sn, kind, seq, b, variant in VS_CELLS:
     with dctx.use_mesh(small):
         shd.set_rule("seq", ("model",) if cfg.seq_shard_activations else ())
         fn, args, _ = dryrun.build_cell(cfg, ShapeConfig(sn, kind, seq, b), small)
-        c = analyze_module(fn.lower(*args).compile().as_text())
-        out["vs_jax"][f"{arch}/{sn}/{variant}"] = [c.flops, c.coll_bytes]
+        comp = fn.lower(*args).compile()
+        c, m = analyze_module(comp.as_text()), comp.memory_analysis()
+        out["vs_jax"][f"{arch}/{sn}/{variant}"] = [
+            c.flops, c.coll_bytes,
+            {"argument": m.argument_size_in_bytes, "output": m.output_size_in_bytes,
+             "temp": m.temp_size_in_bytes, "alias": m.alias_size_in_bytes,
+             "peak": m.peak_memory_in_bytes}]
 save_json(out)
 """
 
@@ -320,7 +353,9 @@ def test_smoke_cells_render(port_run, i, kind):
     assert set(rec["hlo_cost"]) == {"flops", "bytes", "collective_bytes", "collective_by_op",
                                     "n_while", "trip_counts"}
     assert rec["hlo_cost"]["flops"] > 0 and rec["hlo_cost"]["collective_bytes"] > 0
-    assert rec["devices"] == 4 and rec["memory"]["peak_bytes"] is None
+    mem = rec["memory"]
+    assert rec["devices"] == 4 and mem["code_bytes"] is None
+    assert mem["peak_bytes"] >= mem["argument_bytes"] + mem["temp_bytes"] > 0
     table = fmt_table([rec])
     assert "| qwen2-0.5b |" in table and "| ok |" in table
 
@@ -340,17 +375,41 @@ def test_dense_smoke_flops_beside_jax(port_run, jax_run):
     assert 0.95 * ref <= port <= 1.05 * ref, (port, ref, port / ref)
 
 
+def _vs(port_run, jax_run, cell):
+    key = f"{cell[0]}/{cell[1]}/{cell[5]}"
+    return key, port_run["vs_jax"][key], jax_run["vs_jax"][key]
+
+
 @pytest.mark.parametrize("cell", VS_CELLS, ids=lambda c: f"{c[0]}-{c[1]}-{c[5]}")
 def test_mesh_flops_beside_jax(port_run, jax_run, cell):
-    key = f"{cell[0]}/{cell[1]}/{cell[5]}"
-    status, port, replicated, rules, coll = port_run["vs_jax"][key]
-    ref, ref_coll = jax_run["vs_jax"][key]
+    key, port_rec, jax_rec = _vs(port_run, jax_run, cell)
+    (status, port, replicated, rules, coll, _), (ref, ref_coll, _) = port_rec, jax_rec
     lo, hi = BANDS[cell[2]]
+    if key in HELD:  # within 5% of the measured ratio, and at least 0.85
+        r, why = HELD[key]
+        lo, hi = max(0.95 * r, 0.85), 1.05 * r
     print(f"{key} on (2, 2): port {port:.6e} FLOPs a device, JAX {ref:.6e}, "
-          f"ratio {port / ref:.4f}; collective bytes port {coll:.6e}, JAX {ref_coll:.6e}; "
-          f"rules {rules}")
+          f"ratio {port / ref:.4f} (held: {HELD.get(key, ('-', 'no'))[1]}); collective bytes "
+          f"port {coll:.6e}, JAX {ref_coll:.6e}, ratio {coll / ref_coll:.3f}; rules {rules}")
     assert status == "ok" and replicated == {}
     assert lo * ref <= port <= hi * ref, (port, ref, port / ref)
+
+
+@pytest.mark.parametrize("cell", VS_CELLS, ids=lambda c: f"{c[0]}-{c[1]}-{c[5]}")
+def test_mesh_argument_bytes_equal_jax(port_run, jax_run, cell):
+    _, port, ref = _vs(port_run, jax_run, cell)
+    assert port[5]["argument_bytes"] == ref[2]["argument"]
+
+
+@pytest.mark.parametrize("cell", VS_CELLS, ids=lambda c: f"{c[0]}-{c[1]}-{c[5]}")
+def test_mesh_peak_beside_jax(port_run, jax_run, cell):
+    key, port, ref = _vs(port_run, jax_run, cell)
+    m, j = port[5], ref[2]
+    heap = j["argument"] + j["temp"] + j["output"] - j["alias"]
+    print(f"{key} on (2, 2): port peak {m['peak_bytes']} B (temp {m['temp_bytes']}), JAX "
+          f"peak_bytes {j['peak']}, JAX heap {heap} (temp {j['temp']}), "
+          f"ratio {m['peak_bytes'] / heap:.3f}")
+    assert PEAK_BAND[0] * heap <= m["peak_bytes"] <= PEAK_BAND[1] * heap
 
 
 def test_propagation_error_fails_the_step(port_run):
