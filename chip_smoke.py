@@ -212,6 +212,19 @@ def device_ms(fn, *, reps: int = 7, launches_hint: int = 1, warm: bool = True) -
     return statistics.median(times)
 
 
+def device_kernels(prof) -> list:
+    """The device's operations in a ``torch.profiler`` profile
+    (``key_averages``), without the user ranges the profiler also draws on
+    the device's timeline (the program's spans and search phases open as
+    ranges while a profiler records): those are no work of the device, and
+    the kernels inside them already count their time."""
+    import torch
+
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
@@ -1586,7 +1599,6 @@ def profile_searches(built, results) -> list[dict]:
     over the kernels the profiler saw, K1's and K2's share of it, and the
     device busy share against the same search's unprofiled wall time from
     the slice phase (the profiler's own host overhead inflates its wall)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     walls = {(n, qz, bm): w for n, qz, bm, _, w in results}
@@ -1596,8 +1608,7 @@ def profile_searches(built, results) -> list[dict]:
         for beam in (1, 4):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 ix.search(b["q"], k=K, beam=beam)
-            kernels = [e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            kernels = device_kernels(prof)
             dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
             k1 = sum(e.self_device_time_total for e in kernels if "scan_phase_kernel" in e.key) / 1e3
             k2 = sum(e.self_device_time_total for e in kernels
@@ -1970,7 +1981,7 @@ def profile_serving(model, ds, step_ms: float, *, steps: int = 6,
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(prof)
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     name, subs = kernel
     kms = sum(e.self_device_time_total for e in kernels
@@ -3951,7 +3962,7 @@ def profile_training(step_fn, state, pipeline, step0: int, step_ms: float, *,
         for batch in batches:
             state, _ = step_fn(state, batch)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(prof)
     per = {e.key: e.self_device_time_total / 1e3 / steps for e in kernels}
     gemm = {k: v for k, v in per.items()
             if any(w in k.lower() for w in ("gemm", "xmma", "nvjet", "cutlass"))}

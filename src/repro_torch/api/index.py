@@ -66,6 +66,7 @@ from repro_torch.obs import (
     use_trace,
 )
 from repro_torch.obs.attribution import ExplainReport, attribute_visits
+from repro_torch.obs.phases import PhaseClock, PhaseRun, attach, phase
 from repro_torch.stream.ingest import DeltaBuffer, alloc_delta, pull_delta_meta
 from repro_torch.stream.maintenance import (
     DriftReport,
@@ -161,6 +162,7 @@ class OverlapIndex:
         # self-sampled searches (cfg.obs.trace_sample) get their own
         # TraceContext; an ambient one installed by a caller always wins
         self._tracer = TraceSampler(cfg.obs.trace_sample)
+        self._clock: PhaseClock | None = None  # a sampled search's device phases
         self._searches_since_swap = 0  # maintenance.rebuild_age gauge
         self.plans = PlanCache(registry=self.obs)
         self.rebuild_log: list[dict[str, Any]] = rebuild_log or []
@@ -267,12 +269,27 @@ class OverlapIndex:
             raise ConfigError(f"search beam={key.beam} must be >= 1")
         return key
 
+    def _phase_run(self) -> PhaseRun | None:
+        """The run a sampled search marks its device phases on: None for an
+        unsampled search, and on a layout whose islands span more than one
+        device (one stream's events order its phases)."""
+        if not self.obs.enabled or current_trace() is None:
+            return None
+        if self._clock is None:
+            devices = set(self.backend.devices)
+            if len(devices) > 1:
+                return None
+            self._clock = PhaseClock(devices.pop(), self.obs)
+        return self._clock.run()
+
     def _record_search(self, stats: dict[str, Any], isl: IslandStats, router=None) -> None:
         """Fold one search's host-side stats into the registry: the fleet
         node-access counters, the per-island breakdown (one island on the
         single layout) and, on the routed layout, the routing tier's
-        dispatch telemetry."""
+        dispatch telemetry.  A sampled search with an event log also gets
+        the router's and each island's point events in its span tree."""
         obs = self.obs
+        traced = obs.events is not None and current_trace() is not None
         obs.counter("search.queries").inc(len(stats["buckets_visited"]))
         for name in ("buckets_visited", "distances", "bound_distances"):
             obs.counter(f"search.{name}").inc(int(stats[name].sum()))
@@ -284,34 +301,28 @@ class OverlapIndex:
             obs.counter("router.fanout", mode=mode).inc(len(router.eligible_hosts))
             obs.counter("router.est_bytes", mode="targeted").inc(int(router.wire_targeted))
             obs.counter("router.est_bytes", mode="all").inc(int(router.wire_fanall))
-            obs.emit_event(
-                {
+            if traced:
+                obs.emit_event({
                     "event": "router",
                     "fanout": mode,
                     "eligible_hosts": router.eligible_hosts.tolist(),
                     "pruned_hosts": int(router.pruned_hosts.sum()),
                     "est_bytes_targeted": float(router.wire_targeted),
                     "est_bytes_fanall": float(router.wire_fanall),
-                },
-                traced_only=True,
-            )
+                })
         method = self.cfg.index.method
         for s_id in range(isl.buckets_visited.shape[0]):
             for name in ("buckets_visited", "distances", "bound_distances"):
                 obs.counter(
                     f"search.island.{name}", island=s_id, method=method
                 ).inc(int(getattr(isl, name)[s_id].sum()))
-            # traced requests also get a per-island point event in their
-            # span tree (dropped outside a sampled trace)
-            obs.emit_event(
-                {
+            if traced:
+                obs.emit_event({
                     "event": "island",
                     "island": s_id,
                     "buckets_visited": int(isl.buckets_visited[s_id].sum()),
                     "distances": int(isl.distances[s_id].sum()),
-                },
-                traced_only=True,
-            )
+                })
 
     def search(
         self, q, *, k: int | None = None, mode: str | None = None,
@@ -325,9 +336,11 @@ class OverlapIndex:
         ``trace`` joins this search to a caller-owned request trace; with no
         explicit context and no ambient one, ``cfg.obs.trace_sample``
         self-samples (the sampled search becomes its own trace root in the
-        event log).  Telemetry is host bookkeeping around the executor:
-        traced, untraced and metrics-off searches return bitwise-identical
-        results with the same two host syncs.
+        event log).  A sampled search also times its device phases
+        (``obs/phases.py``: ``search/device/<phase>``, ``search/device``,
+        ``search/host_only``, and ``search/host_transfer/{wait,copy}``).
+        Telemetry is host bookkeeping around the executor: traced, untraced
+        and metrics-off searches return bitwise-identical results.
         """
         obs = self.obs
         ctx = trace
@@ -335,14 +348,15 @@ class OverlapIndex:
             ctx = self._tracer.maybe_trace()
         self._searches_since_swap += 1
         obs.gauge("maintenance.rebuild_age").set(self._searches_since_swap)
-        with use_trace(ctx), obs.span("search"):
+        with use_trace(ctx), obs.span("search"), attach(self._phase_run()) as run:
             with obs.span("plan_lookup"):
                 key = self._plan_key(k, mode, beam, kernel)
                 plan = self.plans.plan(key, self.backend)
                 plan.calls += 1
                 delta = None if self._delta is None else self.backend.delta_view(self._delta)
             with obs.span("device_execute"):
-                qt = torch.as_tensor(np.asarray(q, np.float32), device=self.backend.device)
+                with phase("upload"):
+                    qt = torch.as_tensor(np.asarray(q, np.float32), device=self.backend.device)
                 d, i, s, *tail = plan.executor(
                     self.backend.search_operands(self.device), qt, delta)
             with obs.span("host_transfer"):
@@ -351,6 +365,8 @@ class OverlapIndex:
                     d, i, s, *self.backend.pack_telemetry(tail))
             if obs.enabled:
                 self._record_search(stats, *self.backend.unpack_telemetry(stats, tele))
+        if run is not None:
+            run.observe()
         kk = min(key.k, self.n_total)  # Def. 4: |X| <= k -> whole set
         if d.shape[1] > kk:
             d, i = d[:, :kk], i[:, :kk]

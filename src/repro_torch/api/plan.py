@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.knn import SearchStats
+from repro_torch.obs.phases import phase, to_host
 
 
 class PlanKey(NamedTuple):
@@ -186,14 +187,18 @@ def results_to_host(
     ``steps``), in one device-to-host copy: the search's only sync.
     ``extra`` integer tensors (an explain run's visit orders, counts and
     home indexes) ride in the same copy and follow, as i32 numpy arrays of
-    their shapes: ``(dists, ids, stats, *extra)``."""
+    their shapes: ``(dists, ids, stats, *extra)``.  The packing is the
+    search's ``finish`` device phase and the copy its ``copy`` phase
+    (``obs/phases.py``)."""
     qn, kk = d.shape
-    packed = torch.cat([
-        d.to(torch.float32).view(torch.int32).reshape(-1), i.to(torch.int32).reshape(-1),
-        *(getattr(s, f).to(torch.int32).reshape(-1) for f in _STAT_FIELDS),
-        s.steps.to(torch.int32).reshape(1),
-        *(t.to(torch.int32).reshape(-1) for t in extra),
-    ]).cpu().numpy()
+    with phase("finish"):
+        packed = torch.cat([
+            d.to(torch.float32).view(torch.int32).reshape(-1), i.to(torch.int32).reshape(-1),
+            *(getattr(s, f).to(torch.int32).reshape(-1) for f in _STAT_FIELDS),
+            s.steps.to(torch.int32).reshape(1),
+            *(t.to(torch.int32).reshape(-1) for t in extra),
+        ])
+    packed = to_host(packed)
     n = qn * kk
     stats = {f: packed[2 * n + j * qn: 2 * n + (j + 1) * qn] for j, f in enumerate(_STAT_FIELDS)}
     lo = 2 * n + len(_STAT_FIELDS) * qn

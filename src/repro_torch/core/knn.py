@@ -27,6 +27,10 @@ until the search returns.
 ``delta`` (a DeltaView) adds the streaming delta buckets as a second scan
 phase over the per-index append buffers, seeded with the main phase's top-k
 carry; lower bounds only prune, so splitting the scan keeps it exact.
+
+Each step's work is entered as a device phase of ``obs.phases`` (``route``,
+``bounds``, ``sort``, ``scan``, ``finish``): free unless a profiler records
+or a sampled search times its phases.
 """
 from __future__ import annotations
 
@@ -41,6 +45,7 @@ from repro_torch.core.forest import FOREST_FIELDS, ForestArrays
 from repro_torch.core.metric import pairwise
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.obs.phases import phase
 
 Tensor = torch.Tensor
 
@@ -195,13 +200,14 @@ def _sorted_bounds(lb: Tensor, beam: int) -> tuple[Tensor, Tensor, int]:
     The sort is stable, as ``jnp.argsort``'s is, so equal bounds keep row
     order."""
     nb = lb.shape[1]
-    lb_sorted, order = torch.sort(lb, dim=1, stable=True)
-    order = order.to(torch.int32)  # the kernels' index type, as in the JAX package
     n_steps = -(-nb // beam)  # ceil
     pad = n_steps * beam - nb
-    if pad:
-        order = torch.nn.functional.pad(order, (0, pad))
-        lb_sorted = torch.nn.functional.pad(lb_sorted, (0, pad), value=float("inf"))
+    with phase("sort"):
+        lb_sorted, order = torch.sort(lb, dim=1, stable=True)
+        order = order.to(torch.int32)  # the kernels' index type, as in the JAX package
+        if pad:
+            order = torch.nn.functional.pad(order, (0, pad))
+            lb_sorted = torch.nn.functional.pad(lb_sorted, (0, pad), value=float("inf"))
     return order, lb_sorted, n_steps
 
 
@@ -249,17 +255,18 @@ def route_select(
     qn = q.shape[0]
     n_idx = forest.index_centers.shape[0]
     dev = q.device
-    if mode == "forest":
-        _, closest = route_points(forest.index_centers, q, kernel=kernel)
-        sel = route_eligibility(closest, forest.neighbors)  # (Q, I)
-        route_dists = torch.full((qn,), n_idx, dtype=torch.int32, device=dev)
-        route_cmps = torch.full((qn,), n_idx, dtype=torch.int32, device=dev)
-    elif mode == "all":
-        sel = torch.ones((qn, n_idx), dtype=torch.bool, device=dev)
-        route_dists = torch.zeros((qn,), dtype=torch.int32, device=dev)
-        route_cmps = torch.zeros((qn,), dtype=torch.int32, device=dev)
-    else:
-        raise ValueError(f"mode {mode!r}")
+    with phase("route"):
+        if mode == "forest":
+            _, closest = route_points(forest.index_centers, q, kernel=kernel)
+            sel = route_eligibility(closest, forest.neighbors)  # (Q, I)
+            route_dists = torch.full((qn,), n_idx, dtype=torch.int32, device=dev)
+            route_cmps = torch.full((qn,), n_idx, dtype=torch.int32, device=dev)
+        elif mode == "all":
+            sel = torch.ones((qn, n_idx), dtype=torch.bool, device=dev)
+            route_dists = torch.zeros((qn,), dtype=torch.int32, device=dev)
+            route_cmps = torch.zeros((qn,), dtype=torch.int32, device=dev)
+        else:
+            raise ValueError(f"mode {mode!r}")
     return sel, route_dists, route_cmps
 
 
@@ -274,11 +281,12 @@ def bucket_bounds(
     """STEP 2a over the main bucket rows: eligibility -> pivot lower bounds
     -> sorted visit order.  The paper's Fig. 21 cost metric charges exactly
     the eligible bound count per query."""
-    elig = bucket_sel[:, forest.bucket_index.long()]  # (Q, NB) -> sel[q, owner(b)]
-    n_elig = torch.sum(elig, dim=1, dtype=torch.int32)  # (Q,)
-    d_piv = pairwise(q, forest.bucket_pivot, metric="l2", use_kernel=kernel)  # (Q, NB)
-    lb = torch.clamp_min(d_piv - forest.bucket_radius[None, :], 0.0)
-    lb = torch.where(elig, lb, float("inf"))
+    with phase("bounds"):
+        elig = bucket_sel[:, forest.bucket_index.long()]  # (Q, NB) -> sel[q, owner(b)]
+        n_elig = torch.sum(elig, dim=1, dtype=torch.int32)  # (Q,)
+        d_piv = pairwise(q, forest.bucket_pivot, metric="l2", use_kernel=kernel)  # (Q, NB)
+        lb = torch.clamp_min(d_piv - forest.bucket_radius[None, :], 0.0)
+        lb = torch.where(elig, lb, float("inf"))
     order, lb_sorted, _ = _sorted_bounds(lb, beam)
     return PhaseBounds(order=order, lb_sorted=lb_sorted, n_elig=n_elig)
 
@@ -293,12 +301,13 @@ def delta_bounds(
 ) -> PhaseBounds:
     """STEP 2a over the delta rows (one streaming bucket per index; empty
     buffers are never eligible)."""
-    dcount = torch.sum(delta.mask, dim=1, dtype=torch.int32)  # (I_d,)
-    elig_d = delta_sel & (dcount[None, :] > 0)  # (Q, I_d)
-    n_elig_d = torch.sum(elig_d, dim=1, dtype=torch.int32)
-    d_piv_d = pairwise(q, delta.pivot, metric="l2", use_kernel=kernel)
-    lb_d = torch.clamp_min(d_piv_d - delta.radius[None, :], 0.0)
-    lb_d = torch.where(elig_d, lb_d, float("inf"))
+    with phase("bounds"):
+        dcount = torch.sum(delta.mask, dim=1, dtype=torch.int32)  # (I_d,)
+        elig_d = delta_sel & (dcount[None, :] > 0)  # (Q, I_d)
+        n_elig_d = torch.sum(elig_d, dim=1, dtype=torch.int32)
+        d_piv_d = pairwise(q, delta.pivot, metric="l2", use_kernel=kernel)
+        lb_d = torch.clamp_min(d_piv_d - delta.radius[None, :], 0.0)
+        lb_d = torch.where(elig_d, lb_d, float("inf"))
     order_d, lb_d_sorted, _ = _sorted_bounds(lb_d, beam)
     return PhaseBounds(order=order_d, lb_sorted=lb_d_sorted, n_elig=n_elig_d)
 
@@ -321,27 +330,28 @@ def scan_sorted(
     ``_scan_phase``; the routing tier's host pruning)."""
     qn = q.shape[0]
     dev = q.device
-    top_d = torch.full((qn, kk), float("inf"), device=dev)
-    top_i = torch.full((qn, kk), -1, dtype=torch.int32, device=dev)
-    # real (unpadded) member count per bucket, for the cost instrumentation
-    bucket_count = torch.sum(forest.bucket_mask, dim=1, dtype=torch.int32)  # (NB,)
-    top_d, top_i, visits, ndist, npad, steps = _scan_phase(
-        kops.bucket_scan_phase if kernel else kref.bucket_scan_phase_ref,
-        q, bounds, beam, top_d, top_i, forest.bucket_x, forest.bucket_ids,
-        forest.bucket_scale, bucket_count, qmask,
-    )
-    visits_main = visits
-
-    n_elig_d = torch.zeros((qn,), dtype=torch.int32, device=dev)
-    if delta is not None:
-        dcount = torch.sum(delta.mask, dim=1, dtype=torch.int32)  # (I_d,)
-        top_d, top_i, dv, dd, dp, dsteps = _scan_phase(
-            kops.delta_scan_topk if kernel else kref.bucket_scan_phase_ref,
-            q, dbounds, beam, top_d, top_i, delta.x, delta.ids, None, dcount, qmask,
+    with phase("scan"):
+        top_d = torch.full((qn, kk), float("inf"), device=dev)
+        top_i = torch.full((qn, kk), -1, dtype=torch.int32, device=dev)
+        # real (unpadded) member count per bucket, for the cost instrumentation
+        bucket_count = torch.sum(forest.bucket_mask, dim=1, dtype=torch.int32)  # (NB,)
+        top_d, top_i, visits, ndist, npad, steps = _scan_phase(
+            kops.bucket_scan_phase if kernel else kref.bucket_scan_phase_ref,
+            q, bounds, beam, top_d, top_i, forest.bucket_x, forest.bucket_ids,
+            forest.bucket_scale, bucket_count, qmask,
         )
-        visits, ndist, npad = visits + dv, ndist + dd, npad + dp
-        steps = steps + dsteps
-        n_elig_d = dbounds.n_elig
+        visits_main = visits
+
+        n_elig_d = torch.zeros((qn,), dtype=torch.int32, device=dev)
+        if delta is not None:
+            dcount = torch.sum(delta.mask, dim=1, dtype=torch.int32)  # (I_d,)
+            top_d, top_i, dv, dd, dp, dsteps = _scan_phase(
+                kops.delta_scan_topk if kernel else kref.bucket_scan_phase_ref,
+                q, dbounds, beam, top_d, top_i, delta.x, delta.ids, None, dcount, qmask,
+            )
+            visits, ndist, npad = visits + dv, ndist + dd, npad + dp
+            steps = steps + dsteps
+            n_elig_d = dbounds.n_elig
 
     return ScanOut(
         top_d=top_d,
@@ -450,8 +460,10 @@ def knn_search_impl(
         forest, q, sel, kk=kk, beam=beam, kernel=kernel,
         delta=delta, delta_sel=sel,
     )
-    stats = scan_stats(route_dists, route_cmps, out, kk=kk)
-    return torch.sqrt(out.top_d), out.top_i, stats
+    with phase("finish"):
+        stats = scan_stats(route_dists, route_cmps, out, kk=kk)
+        dists = torch.sqrt(out.top_d)
+    return dists, out.top_i, stats
 
 
 class VisitRows(NamedTuple):
@@ -512,14 +524,16 @@ def knn_search_explain_impl(
         forest, q, bounds, kk=kk, beam=beam, kernel=kernel,
         delta=delta, dbounds=dbounds,
     )
-    stats = scan_stats(route_dists, route_cmps, out, kk=kk)
-    rows = VisitRows(
-        order=bounds.order,
-        visits=out.visits_main[None],
-        dorder=None if dbounds is None else dbounds.order,
-        dvisits=None if delta is None else (out.visits - out.visits_main)[None],
-    )
-    return torch.sqrt(out.top_d), out.top_i, stats, rows
+    with phase("finish"):
+        stats = scan_stats(route_dists, route_cmps, out, kk=kk)
+        rows = VisitRows(
+            order=bounds.order,
+            visits=out.visits_main[None],
+            dorder=None if dbounds is None else dbounds.order,
+            dvisits=None if delta is None else (out.visits - out.visits_main)[None],
+        )
+        dists = torch.sqrt(out.top_d)
+    return dists, out.top_i, stats, rows
 
 
 def knn_exact(x: Tensor, q: Tensor, *, k: int, kernel: bool = True) -> tuple[Tensor, Tensor]:

@@ -19,7 +19,9 @@ maintain spans and per-island node-access counters, exposed by
 ``repro_torch.obs.trace`` (trace propagation and ``Trace.reconstruct``),
 ``repro_torch.obs.attribution`` (contributing / wasted visits behind
 ``OverlapIndex.explain``), ``repro_torch.obs.export`` (Prometheus render and
-parse, and the ``python -m repro_torch.obs.export`` CLI).
+parse, and the ``python -m repro_torch.obs.export`` CLI),
+``repro_torch.obs.phases`` (the search's device phases: profiler ranges
+while a profiler records, CUDA-event times on sampled searches).
 """
 from repro_torch.obs.events import EventLog, events_path_from_env
 from repro_torch.obs.metrics import Counter, Gauge, Histogram, Registry

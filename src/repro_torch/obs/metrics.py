@@ -1,6 +1,6 @@
-"""Dependency-free metrics primitives: counters, gauges, streaming
-histograms, and phase-span timers, behind one ``Registry`` (the port's own
-copy of ``repro/obs/metrics.py``).
+"""Metrics primitives: counters, gauges, streaming histograms, and
+phase-span timers, behind one ``Registry`` (the port's own copy of
+``repro/obs/metrics.py``; of torch it reads only the profiler's flag).
 
 The paper's whole argument is measured in observability terms — overlap
 reduction is proven by node-access counts and search time — but until this
@@ -27,6 +27,12 @@ Design constraints, in order:
 Spans nest: ``with reg.span("search"): with reg.span("plan_lookup"): ...``
 records a duration histogram under the path ``"search/plan_lookup"`` — the
 nesting stack is per-thread, so concurrent engines don't interleave paths.
+While a ``torch.profiler`` records, a span is also a profiler range named by
+its path, on the profiler's clock beside torch's own operators; otherwise it
+costs one read of torch's "profiler enabled" flag more.  ``profiled_path``
+names the innermost such range on the calling thread, whatever registry
+opened it, so lower layers can nest their own ranges under it
+(``obs/phases.py``).
 """
 from __future__ import annotations
 
@@ -36,9 +42,11 @@ import time
 from contextlib import contextmanager
 from typing import Any, Iterator
 
+import torch.autograd.profiler as _profiler
+
 from repro_torch.obs import trace as trace_mod
 
-__all__ = ["Counter", "Gauge", "Histogram", "Registry"]
+__all__ = ["Counter", "Gauge", "Histogram", "Registry", "profiled_path"]
 
 MetricKey = tuple[str, tuple[tuple[str, Any], ...]]
 
@@ -171,6 +179,23 @@ class _NullHistogram(Histogram):
         pass
 
 
+# the paths of the spans open as profiler ranges on this thread, innermost
+# last, across registries
+_ranges = threading.local()
+
+
+def profiled_path() -> str | None:
+    """The path of the innermost span open as a profiler range on this
+    thread (``None``: none is, or no profiler records)."""
+    st = getattr(_ranges, "stack", None)
+    return st[-1] if st else None
+
+
+def _ended_now(dur_s: float) -> int:
+    """``start_ns`` of a span that ends now and lasted ``dur_s``."""
+    return time.time_ns() - round(float(dur_s) * 1e9)
+
+
 # shared inert instances a disabled Registry hands out — callers keep their
 # unconditional `reg.counter(...).inc()` style at ~one dict-free call of cost
 _NULL_COUNTER = _NullCounter()
@@ -245,9 +270,13 @@ class Registry:
 
         Yields the full path (or ``None`` when disabled).  The duration is
         observed into ``histogram(path)`` in SECONDS, and — when an event
-        log is attached — emitted as one ``{"event": "span", ...}`` line.
-        Exceptions propagate; the stack still unwinds and the (partial)
-        duration is still recorded, so a failing phase stays visible.
+        log is attached — emitted as one ``{"event": "span", ...}`` line
+        whose ``start_ns`` is on the clock a ``torch.profiler`` stamps (Unix
+        nanoseconds), so the log lines up with an exported chrome trace.
+        While a profiler records, the span is also a profiler range named
+        ``path``.  Exceptions propagate; the stack still unwinds and the
+        (partial) duration is still recorded, so a failing phase stays
+        visible.
         """
         if not self.enabled:
             yield None
@@ -255,6 +284,14 @@ class Registry:
         stack = self._stack()
         stack.append(name)
         path = "/".join(stack)
+        rng = None
+        if _profiler._is_profiler_enabled:
+            rng = _profiler.record_function(path)
+            rng.__enter__()
+            ranges = getattr(_ranges, "stack", None)
+            if ranges is None:
+                ranges = _ranges.stack = []
+            ranges.append(path)
         # trace linkage: when an ambient sampled TraceContext is installed
         # (obs/trace.use_trace) AND events are attached, this span joins the
         # request's tree — parentage comes from the context's own stack, so
@@ -264,17 +301,21 @@ class Registry:
         sid = parent = None
         if ctx is not None:
             sid, parent = ctx.push()
+        start_ns = time.time_ns() if self.events is not None else 0
         t0 = time.perf_counter()
         try:
             yield path
         finally:
             dur = time.perf_counter() - t0
+            if rng is not None:
+                ranges.pop()
+                rng.__exit__(None, None, None)
             stack.pop()
             self.histogram(path, **labels).observe(dur)
             if ctx is not None:
                 ctx.pop()
             if self.events is not None:
-                rec = {"event": "span", "span": path, "dur_s": dur}
+                rec = {"event": "span", "span": path, "start_ns": start_ns, "dur_s": dur}
                 if labels:
                     rec["labels"] = dict(labels)
                 if ctx is not None:
@@ -284,8 +325,9 @@ class Registry:
                 self.events.emit(rec)
 
     def record_span(self, name: str, dur_s: float, **labels) -> None:
-        """Record a span whose duration was measured externally (e.g. queue
-        wait = admission time minus submit time): observes the histogram
+        """Record a span whose duration was measured externally and that
+        ends now (e.g. queue wait = admission time minus submit time, at
+        admission): observes the histogram
         under ``name`` and — with events attached — emits a span event with
         the same trace linkage a ``span()`` exit would carry."""
         if not self.enabled:
@@ -293,7 +335,8 @@ class Registry:
         self.histogram(name, **labels).observe(float(dur_s))
         if self.events is None:
             return
-        rec = {"event": "span", "span": name, "dur_s": float(dur_s)}
+        rec = {"event": "span", "span": name, "start_ns": _ended_now(dur_s),
+               "dur_s": float(dur_s)}
         if labels:
             rec["labels"] = dict(labels)
         ctx = trace_mod.current_trace()
@@ -317,6 +360,7 @@ class Registry:
         rec = {
             "event": "span",
             "span": name,
+            "start_ns": _ended_now(dur_s),
             "dur_s": float(dur_s),
             "trace_id": ctx.trace_id,
             "span_id": ctx.root_id,
@@ -326,19 +370,17 @@ class Registry:
             rec["labels"] = dict(labels)
         self.events.emit(rec)
 
-    def emit_event(self, event: dict[str, Any], *, traced_only: bool = False) -> None:
+    def emit_event(self, event: dict[str, Any]) -> None:
         """Emit a structured point event, stamped with trace linkage when a
         sampled ambient trace is active (parented at the current span,
-        nothing pushed).  ``traced_only=True`` drops the event entirely
-        outside a sampled trace — for per-request annotations (island
-        counters, plan identity) that would otherwise bloat steady-state
-        logs."""
+        nothing pushed).  Per-request annotations (``OverlapIndex``'s island
+        and router events) are built only under a sampled trace with an
+        event log, so steady-state logs never carry them."""
         if self.events is None or not self.enabled:
             return
         ctx = trace_mod.current_trace()
         if ctx is None:
-            if not traced_only:
-                self.events.emit(event)
+            self.events.emit(event)
             return
         sid, parent = ctx.link()
         self.events.emit(

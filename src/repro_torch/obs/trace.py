@@ -53,6 +53,10 @@ class TraceContext:
     object unconditionally; the registry only emits linkage for sampled
     ones.  Span ids are ``<trace_id>.<n>`` — unique within the trace,
     allocation is thread-safe (``root_id`` is always ``.1``).
+
+    ``clock`` is the ``obs.phases.PhaseRun`` the current thread's search
+    marks its device phases on (``None`` outside a sampled
+    ``OverlapIndex.search``).
     """
 
     __slots__ = ("trace_id", "sampled", "root_id", "_n", "_lock", "_local")
@@ -87,6 +91,14 @@ class TraceContext:
 
     def pop(self) -> None:
         self._stack().pop()
+
+    @property
+    def clock(self):
+        return getattr(self._local, "clock", None)
+
+    @clock.setter
+    def clock(self, clock) -> None:
+        self._local.clock = clock
 
     def link(self) -> tuple[str, str]:
         """Allocate an id parented at the current position WITHOUT pushing
