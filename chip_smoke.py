@@ -1536,7 +1536,7 @@ def time_k1(built) -> list[dict]:
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.bucket_scan import bucket_scan_phase_cuda
+    from repro_torch.kernels.bucket_scan import blocks_per_sm, bucket_scan_phase_cuda
 
     rows = []
     for name, b in built.items():
@@ -1567,9 +1567,13 @@ def time_k1(built) -> list[dict]:
             nbytes = (int(touched.sum()) * cap * 4 + int(count[touched].sum()) * row_bytes
                       + qn * d * 4 + int(slots.sum()) * 8 + qn * kk * 16 + qn * 16)
             flops = 4.0 * d * float(got[3].sum())
-            # what the kernel copies through L2: the whole bucket (ids, rows,
-            # scales) for every (query, active in-range slot) visit
-            gathered = float(got[2].sum()) * cap * (4 + row_bytes)
+            # what the kernel copies through L2: rows [0, extent) of the
+            # bucket (ids, rows, scales) for every (query, active slot) visit
+            staged = torch.zeros(qn, dtype=torch.int32, device=q.device)
+            bucket_scan_phase_cuda(*args, staged=staged)
+            staged_share = float(staged.sum()) / max(float(got[4].sum()), 1.0)
+            gathered = float(staged.sum()) * (4 + row_bytes)
+            blocks = blocks_per_sm(cap, d, kk, beam, int8=quantize)
             ms = device_ms(lambda: bucket_scan_phase_cuda(*args), reps=21)
             plain = device_ms(lambda: ref.bucket_scan_phase_ref(*args), reps=3,
                               launches_hint=int(qsteps.max()) * 12)
@@ -1580,15 +1584,16 @@ def time_k1(built) -> list[dict]:
                              dataset=name, quantize=quantize, beam=beam, ms=ms,
                              plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=by,
                              share=b_ms / ms, bytes=nbytes, touched=int(touched.sum()),
-                             gathered=gathered,
-                             qsteps_max=int(qsteps.max()), qsteps_mean=float(st.mean()),
+                             gathered=gathered, staged_share=staged_share,
+                             blocks_per_sm=blocks, qsteps_max=int(qsteps.max()), qsteps_mean=float(st.mean()),
                              max_abs_err=err, counters_differ=int(differ.sum())))
             log(f"[time] K1 {name} {kind} beam={beam} (Q={qn}, C={cap}, D={d}), one phase: "
                 f"kernel {ms * 1e3:.1f} us/launch, plain {plain:.2f} ms, bound "
                 f"{b_ms * 1e3:.2f} us by {by} ({b_ms / ms:.1%} of it; {nbytes} B: "
                 f"{int(touched.sum())} distinct buckets once, queries, visited slots, "
-                f"carry and outputs); {gathered / 1e9:.3f} GB copied through L2, "
-                f"{gathered / ms / 1e9:.2f} TB/s; "
+                f"carry and outputs); {gathered / 1e9:.3f} GB copied through L2 "
+                f"({staged_share:.1%} of the visited capacity), "
+                f"{gathered / ms / 1e9:.2f} TB/s; {blocks} blocks an SM; "
                 f"qsteps max {int(qsteps.max())} mean {float(st.mean()):.2f}; "
                 f"max |kernel - plain| {err:.2e}, counters differ on {int(differ.sum())} queries")
     return rows

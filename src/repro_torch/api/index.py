@@ -722,7 +722,9 @@ class OverlapIndex:
           search       per-phase span histograms (``search``,
                        ``search/plan_lookup``, ``search/device_execute``,
                        ``search/host_transfer``) with p50/p95/p99 seconds,
-                       and the node-access totals;
+                       and the node-access totals; after a sampled search
+                       also ``staged_share``, the rows K1 staged over the
+                       padded capacity of the buckets it visited;
           plan_cache   executor-table counters (hits / misses / evictions /
                        ``traces``: distinct operand shapes run, see
                        ``api/plan.py``);
@@ -779,18 +781,22 @@ class OverlapIndex:
                 "host_counts": host_counts.tolist(),
                 "max_rate": float(rates.max()) if rates.size else 0.0,
             }
+        search = {
+            "spans": {
+                k: v for k, v in snap["histograms"].items()
+                if k == "search" or k.startswith("search/")
+            },
+            "queries": obs.value("search.queries"),
+            "buckets_visited": obs.value("search.buckets_visited"),
+            "distances": obs.value("search.distances"),
+            "bound_distances": obs.value("search.bound_distances"),
+        }
+        capacity = obs.value("search.capacity_rows")
+        if capacity:  # only sampled searches count K1's staged rows (obs/phases.py)
+            search["staged_share"] = obs.value("search.staged_rows") / capacity
         return {
             "enabled": obs.enabled,
-            "search": {
-                "spans": {
-                    k: v for k, v in snap["histograms"].items()
-                    if k == "search" or k.startswith("search/")
-                },
-                "queries": obs.value("search.queries"),
-                "buckets_visited": obs.value("search.buckets_visited"),
-                "distances": obs.value("search.distances"),
-                "bound_distances": obs.value("search.bound_distances"),
-            },
+            "search": search,
             "plan_cache": self.plans.stats(),
             "ingest": {
                 **self.ingest_stats(),

@@ -45,7 +45,7 @@ from repro_torch.core.forest import FOREST_FIELDS, ForestArrays
 from repro_torch.core.metric import pairwise
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.obs.phases import phase
+from repro_torch.obs.phases import current_run, phase
 
 Tensor = torch.Tensor
 
@@ -223,9 +223,15 @@ def _scan_phase(
     scan_scale: Tensor | None,
     bucket_count: Tensor,
     qmask: Tensor | None = None,
+    *,
+    extent: Tensor | None = None,
+    staged: Tensor | None = None,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
     """One bounded best-first scan phase (main buckets or delta buckets) by
     ``phase``: a K1 dispatcher of ``kernels.ops`` or its plain version.
+    ``extent`` (NB,) is one past each bucket's last live row, K1 staging and
+    scoring nothing past it (None: derived from ``scan_ids``).  ``staged``
+    (Q,), if given, tallies the rows staged (a sampled search's counter).
 
     The carry's top-k streams through phases: the delta phase starts from
     the main phase's result.  Returns (top_d, top_i, visits, ndist, npad,
@@ -239,7 +245,7 @@ def _scan_phase(
     """
     top_d, top_i, visits, ndist, npad, qsteps = phase(
         q, scan_x, scan_ids, bucket_count, bounds.order, bounds.lb_sorted, beam,
-        top_d, top_i, scan_scale, qmask=qmask,
+        top_d, top_i, scan_scale, qmask=qmask, extent=extent, staged=staged,
     )
     steps = qsteps.max() if qsteps.numel() else qsteps.new_zeros(())
     return top_d, top_i, visits, ndist, npad, steps
@@ -327,31 +333,39 @@ def scan_sorted(
     """STEP 2b/2c executor body: bounded best-first scan over the bucket
     rows (and delta rows), visiting in the precomputed ``PhaseBounds``
     order.  ``qmask`` (Q,) bool masks queries out of both phases (see
-    ``_scan_phase``; the routing tier's host pruning)."""
+    ``_scan_phase``; the routing tier's host pruning).  A sampled search
+    (``obs.phases.current_run``) also tallies the rows K1 staged against
+    the padded capacity it visited."""
     qn = q.shape[0]
     dev = q.device
+    run = current_run()
     with phase("scan"):
         top_d = torch.full((qn, kk), float("inf"), device=dev)
         top_i = torch.full((qn, kk), -1, dtype=torch.int32, device=dev)
+        staged = None if run is None else torch.zeros((qn,), dtype=torch.int32, device=dev)
         # real (unpadded) member count per bucket, for the cost instrumentation
         bucket_count = torch.sum(forest.bucket_mask, dim=1, dtype=torch.int32)  # (NB,)
         top_d, top_i, visits, ndist, npad, steps = _scan_phase(
             kops.bucket_scan_phase if kernel else kref.bucket_scan_phase_ref,
             q, bounds, beam, top_d, top_i, forest.bucket_x, forest.bucket_ids,
-            forest.bucket_scale, bucket_count, qmask,
+            forest.bucket_scale, bucket_count, qmask, staged=staged,
         )
         visits_main = visits
 
         n_elig_d = torch.zeros((qn,), dtype=torch.int32, device=dev)
         if delta is not None:
+            # the delta's live slots are a prefix: its count is its extent
             dcount = torch.sum(delta.mask, dim=1, dtype=torch.int32)  # (I_d,)
             top_d, top_i, dv, dd, dp, dsteps = _scan_phase(
                 kops.delta_scan_topk if kernel else kref.bucket_scan_phase_ref,
                 q, dbounds, beam, top_d, top_i, delta.x, delta.ids, None, dcount, qmask,
+                extent=dcount, staged=staged,
             )
             visits, ndist, npad = visits + dv, ndist + dd, npad + dp
             steps = steps + dsteps
             n_elig_d = dbounds.n_elig
+        if run is not None:
+            run.count_rows(staged, npad)
 
     return ScanOut(
         top_d=top_d,

@@ -17,6 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import bucket_extent
 from repro_torch.kernels.ref import bucket_scan_phase_ref  # noqa: F401  (plain version)
 
 Tensor = torch.Tensor
@@ -28,16 +29,31 @@ _I = ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.library("bucket_scan")
     if lib.bucket_scan_phase_f32.argtypes is None:
-        lib.bucket_scan_phase_f32.argtypes = [_P] * 15 + [_I] * 7 + [_P]
+        lib.bucket_scan_phase_f32.argtypes = [_P] * 17 + [_I] * 7 + [_P]
         lib.bucket_scan_phase_f32.restype = _I
-        lib.bucket_scan_phase_i8.argtypes = [_P] * 16 + [_I] * 7 + [_P]
+        lib.bucket_scan_phase_i8.argtypes = [_P] * 18 + [_I] * 7 + [_P]
         lib.bucket_scan_phase_i8.restype = _I
         lib.bucket_scan_smem_bytes.argtypes = [_I] * 5
         lib.bucket_scan_smem_bytes.restype = ctypes.c_size_t
+        lib.bucket_scan_blocks_per_sm.argtypes = [_I] * 5
+        lib.bucket_scan_blocks_per_sm.restype = _I
     return lib
 
 
 _MAX_SMEM = 232_448  # bytes of shared memory one H100 block may use
+
+
+def _extent(bucket_ids: Tensor) -> Tensor:
+    """``ref.bucket_extent`` of a datastore's ids, derived once per ids
+    tensor: it is kept on the tensor while the tensor is unchanged (its
+    version counter), so a search over an uploaded forest launches nothing
+    for it and no field set (the persisted arrays, ``DeviceForest``) gains
+    a field."""
+    memo = getattr(bucket_ids, "_bucket_extent", None)
+    if memo is None or memo[0] != bucket_ids._version:
+        memo = (bucket_ids._version, bucket_extent(bucket_ids))
+        bucket_ids._bucket_extent = memo
+    return memo[1]
 
 
 def bucket_scan_phase_cuda(
@@ -52,6 +68,9 @@ def bucket_scan_phase_cuda(
     top_i: Tensor,
     scale: Tensor | None = None,
     qmask: Tensor | None = None,
+    *,
+    extent: Tensor | None = None,
+    staged: Tensor | None = None,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
     """One scan phase by the K1 kernel; returns (top_d, top_i, visits,
     ndist, npad, qsteps) as ``ref.bucket_scan_phase_ref`` does.
@@ -64,14 +83,17 @@ def bucket_scan_phase_cuda(
     datastore-sized ones (bucket_x, bucket_ids, scale) must already have the
     kernel's dtype and layout, since a copy there would cost a datastore pass.
     ``qmask`` (Q,) bool, if given, masks queries out of the phase: a False
-    query keeps its carry and has zero counters.
+    query keeps its carry and has zero counters.  ``extent`` (NB,) is one
+    past each bucket's last live row (``ref.bucket_extent``, derived from
+    ``bucket_ids`` once per ids tensor when not given): the kernel stages
+    and scores only rows below it.  ``staged`` (Q,) int32, if given, has each query's staged rows
+    (the extents of its active in-range slots) added to it.
     """
     dev = q.device
     ops = [q, bucket_x, bucket_ids, bucket_count, order, lb_sorted, top_d, top_i]
-    if scale is not None:
-        ops.append(scale)
-    if qmask is not None:
-        ops.append(qmask)
+    for t in (scale, qmask, extent, staged):
+        if t is not None:
+            ops.append(t)
     if not all(t.is_cuda and t.device == dev for t in ops):
         raise ValueError(
             "bucket_scan_phase_cuda needs every operand on one CUDA device, got "
@@ -90,6 +112,8 @@ def bucket_scan_phase_cuda(
         or q.shape[0] != qn or top_i.shape != (qn, kk) or beam < 1
         or order.shape != (qn, n_slots) or lb_sorted.shape != (qn, n_slots)
         or n_slots % beam or (qmask is not None and qmask.shape != (qn,))
+        or (extent is not None and extent.shape != (nb,))
+        or (staged is not None and staged.shape != (qn,))
     ):
         raise ValueError(
             "bucket_scan_phase_cuda shape mismatch: q "
@@ -98,6 +122,8 @@ def bucket_scan_phase_cuda(
             f"{tuple(lb_sorted.shape)}, beam {beam}, top_d {tuple(top_d.shape)}, "
             f"top_i {tuple(top_i.shape)}"
             + ("" if qmask is None else f", qmask {tuple(qmask.shape)}")
+            + ("" if extent is None else f", extent {tuple(extent.shape)}")
+            + ("" if staged is None else f", staged {tuple(staged.shape)}")
         )
     if bucket_ids.dtype != torch.int32 or not bucket_ids.is_contiguous():
         raise ValueError("bucket_ids must be contiguous int32")
@@ -113,9 +139,12 @@ def bucket_scan_phase_cuda(
             raise ValueError(f"scale given but bucket_x is {bucket_x.dtype}, not int8")
         if scale.shape != (nb, cap) or scale.dtype != torch.float32 or not scale.is_contiguous():
             raise ValueError("scale must be contiguous float32 (NB, C)")
+    if staged is not None and (staged.dtype != torch.int32 or not staged.is_contiguous()):
+        raise ValueError("staged must be contiguous int32: the kernel adds to it in place")
 
     q = q.to(torch.float32).contiguous()
     bucket_count = bucket_count.to(torch.int32).contiguous()
+    extent = (_extent(bucket_ids) if extent is None else extent).to(torch.int32).contiguous()
     order = order.to(torch.int32).contiguous()
     lb_sorted = lb_sorted.to(torch.float32).contiguous()
     top_d = top_d.to(torch.float32).contiguous()
@@ -140,10 +169,11 @@ def bucket_scan_phase_cuda(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         common = (
-            bucket_ids.data_ptr(), bucket_count.data_ptr(), order.data_ptr(),
-            lb_sorted.data_ptr(), top_d.data_ptr(), top_i.data_ptr(), out_d.data_ptr(),
-            out_i.data_ptr(), visits.data_ptr(), ndist.data_ptr(), npad.data_ptr(),
-            qsteps.data_ptr(), None if qmask is None else qmask.data_ptr(),
+            bucket_ids.data_ptr(), bucket_count.data_ptr(), extent.data_ptr(),
+            order.data_ptr(), lb_sorted.data_ptr(), top_d.data_ptr(), top_i.data_ptr(),
+            out_d.data_ptr(), out_i.data_ptr(), visits.data_ptr(), ndist.data_ptr(),
+            npad.data_ptr(), qsteps.data_ptr(), None if staged is None else staged.data_ptr(),
+            None if qmask is None else qmask.data_ptr(),
             qn, nb, cap, dim, beam, kk, n_slots, stream,
         )
         if scale is None:
@@ -158,3 +188,13 @@ def bucket_scan_phase_cuda(
 
 
 bucket_scan_phase_cuda.launches = 0  # kernel launches since the last reset
+
+
+def blocks_per_sm(cap: int, dim: int, kk: int, beam: int, *, int8: bool = False) -> int:
+    """Blocks of the K1 kernel that one SM of the current card holds at
+    once at this shape (the runtime's occupancy calculator: registers and
+    shared memory)."""
+    got = _lib().bucket_scan_blocks_per_sm(cap, dim, 1 if int8 else 4, kk, beam)
+    if got < 0:
+        raise RuntimeError(f"bucket_scan_blocks_per_sm refused C={cap} D={dim} k={kk}")
+    return got

@@ -71,6 +71,9 @@ def bucket_scan_phase(
     top_i: Tensor,
     scale: Tensor | None = None,
     qmask: Tensor | None = None,
+    *,
+    extent: Tensor | None = None,
+    staged: Tensor | None = None,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
     """One whole forest-scan phase (K1): every step's gather, distances and
     top-k merge, each query until its first inactive step.  Returns
@@ -79,13 +82,16 @@ def bucket_scan_phase(
     See ``bucket_scan.py`` for the kernel and ``ref.bucket_scan_phase_ref``
     for the plain version.  ``scale`` enables the int8 bucket storage path;
     ``qmask`` (Q,) bool masks queries out of the phase (they keep their
-    carry and do no work).
+    carry and do no work); ``extent`` (NB,) bounds the rows scanned in each
+    bucket (``ref.bucket_extent`` of ``bucket_ids`` when not given);
+    ``staged`` (Q,) int32 accumulates the rows each query staged.
     """
     args = (q, bucket_x, bucket_ids, bucket_count, order, lb_sorted, beam, top_d, top_i, scale,
             qmask)
+    kw = dict(extent=extent, staged=staged)
     if q.is_cuda:
-        return bucket_scan_phase_cuda(*args)
-    return ref.bucket_scan_phase_ref(*args)
+        return bucket_scan_phase_cuda(*args, **kw)
+    return ref.bucket_scan_phase_ref(*args, **kw)
 
 
 def eps_count(q: Tensor, x: Tensor, eps_sq) -> Tensor:

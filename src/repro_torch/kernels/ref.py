@@ -106,6 +106,16 @@ def bucket_scan_topk_ref(
     return vals, torch.gather(merged_i, 1, pos)
 
 
+def bucket_extent(bucket_ids: Tensor) -> Tensor:
+    """(NB,) i32: one past each bucket's last member with id >= 0, 0 for an
+    empty bucket.  Rows at or past it are padding, whatever holes lie below
+    it."""
+    nb, cap = bucket_ids.shape
+    pos = torch.arange(1, cap + 1, dtype=torch.int32, device=bucket_ids.device)
+    ext = torch.where(bucket_ids >= 0, pos, 0)
+    return ext.amax(dim=1) if cap else ext.new_zeros((nb,))
+
+
 def bucket_scan_phase_ref(
     q: Tensor,
     bucket_x: Tensor,
@@ -118,6 +128,9 @@ def bucket_scan_phase_ref(
     top_i: Tensor,
     scale: Tensor | None = None,
     qmask: Tensor | None = None,
+    *,
+    extent: Tensor | None = None,
+    staged: Tensor | None = None,
 ) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
     """One bounded best-first scan phase: the JAX package's ``while_loop``
     over ``bucket_scan_topk_ref`` steps, in lockstep over the queries.
@@ -136,9 +149,21 @@ def bucket_scan_phase_ref(
     has no active slot in any step (not even the +inf-bound ones an unfilled
     carry makes active), so it keeps its carry and its counters stay zero,
     as the JAX package's ``_scan_phase(qmask=)``.
+
+    ``extent`` (NB,), if given, is one past each bucket's last live row
+    (``bucket_extent``, held to [0, C]): members at or past it count as
+    padding.  ``staged`` (Q,) int32, if given, has each query's staged rows
+    added to it in place: the extents of its active slots whose bucket lies
+    in [0, NB), the rows the kernel copies (``npad`` counts C for each).
     """
     qn = q.shape[0]
-    cap = bucket_ids.shape[1]
+    nb, cap = bucket_ids.shape
+    if extent is not None:
+        extent = extent.to(torch.int32).clamp(0, cap)
+        cols = torch.arange(cap, device=bucket_ids.device)
+        bucket_ids = torch.where(cols[None, :] < extent[:, None], bucket_ids, -1)
+    elif staged is not None:
+        extent = bucket_extent(bucket_ids)
     zeros = torch.zeros((qn,), dtype=torch.int32, device=q.device)
     visits, ndist, qsteps = zeros, zeros, zeros
     n_steps = order.shape[1] // beam
@@ -158,6 +183,10 @@ def bucket_scan_phase_ref(
         n_members = torch.where(act, bucket_count[bsel.long()], 0)
         ndist = ndist + torch.sum(n_members, dim=1, dtype=torch.int32)
         qsteps = qsteps + act.any(dim=1).to(torch.int32)
+        if staged is not None:
+            inr = (bsel >= 0) & (bsel < nb)
+            rows = torch.where(act & inr, extent[bsel.long().clamp(0, max(nb - 1, 0))], 0)
+            staged += torch.sum(rows, dim=1, dtype=torch.int32)
     return top_d, top_i, visits, ndist, visits * cap, qsteps
 
 

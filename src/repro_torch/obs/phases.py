@@ -30,7 +30,10 @@ the clamp / where of ``bucket_bounds`` and ``delta_bounds``), ``sort``
     phase's boundary to the next one), their sum from the first boundary to
     the last (``search/device``) and the run's host time outside it
     (``search/host_only``, a lower bound on the device's idle time in the
-    call).
+    call).  The scan also hands the run the rows K1 staged and the padded
+    capacity of the buckets it visited (``PhaseRun.count_rows``), folded
+    into the counters ``search.staged_rows`` and ``search.capacity_rows``
+    and the gauge ``search.staged_share`` (their ratio).
 
 Core functions keep their signatures: the run travels with the ambient
 trace (``obs/trace.use_trace``), which keeps it per thread, and each thread
@@ -50,7 +53,7 @@ import torch.autograd.profiler as _profiler
 from repro_torch.obs.metrics import profiled_path
 from repro_torch.obs.trace import current_trace
 
-__all__ = ["PHASES", "PhaseClock", "PhaseRun", "attach", "phase", "to_host"]
+__all__ = ["PHASES", "PhaseClock", "PhaseRun", "attach", "current_run", "phase", "to_host"]
 
 PHASES = ("upload", "route", "bounds", "sort", "scan", "finish", "copy")
 
@@ -97,14 +100,15 @@ class _Phase:
             self._range.__exit__(*exc)
 
 
-def _run() -> "PhaseRun | None":
+def current_run() -> "PhaseRun | None":
+    """The sampled search's run on this thread, or None (unsampled)."""
     ctx = current_trace()
     return None if ctx is None else ctx.clock
 
 
 def phase(name: str):
     """Enter the search phase ``name`` for the ``with`` block (module doc)."""
-    run = _run()
+    run = current_run()
     if run is None and not _profiler._is_profiler_enabled:
         return _OFF
     return _Phase(name, run)
@@ -122,7 +126,7 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     (span ``wait``, on the copy's boundary: the device's last work before the
     copy) and the copy (span ``copy``) are timed apart, and the run's last
     boundary follows the copy."""
-    run = _run()
+    run = current_run()
     if run is None:
         with phase("copy"):
             return t.cpu().numpy()
@@ -165,6 +169,7 @@ class PhaseRun:
         self.registry = clock.registry
         self.cuda = clock.cuda
         self._marks: list[tuple[str | None, Any]] = []
+        self._rows: list[tuple[torch.Tensor, torch.Tensor]] = []  # (staged, capacity)
         self._pool: list[Any] = []
         self._stream = None
         self._ctx = None
@@ -204,6 +209,12 @@ class PhaseRun:
         ends)."""
         self._marks.append((name, self._stamp()))
 
+    def count_rows(self, staged: torch.Tensor, capacity: torch.Tensor) -> None:
+        """Keep a scan's (Q,) rows staged and padded capacity visited
+        (``npad``) until ``observe``, which reads them after the search's
+        copy has waited for the device."""
+        self._rows.append((staged, capacity))
+
     def wait(self) -> None:
         """Block the host until the device has passed the latest boundary."""
         if self.cuda:
@@ -236,3 +247,10 @@ class PhaseRun:
             reg.histogram(f"search/device/{name}").observe(sec)
         reg.histogram("search/device").observe(device_s)
         reg.histogram("search/host_only").observe(self._host_s - device_s)
+        if self._rows:
+            reg.counter("search.staged_rows").inc(sum(int(s.sum()) for s, _ in self._rows))
+            reg.counter("search.capacity_rows").inc(sum(int(c.sum()) for _, c in self._rows))
+            capacity = reg.value("search.capacity_rows")
+            if capacity:
+                reg.gauge("search.staged_share").set(
+                    reg.value("search.staged_rows") / capacity)

@@ -86,17 +86,44 @@ def _phase_problem(g, qn, nb, cap, dim, beam, kk, *, pad_frac=0.3, inf_frac=0.2,
             beam, top_d, top_i, scale]
 
 
-def _assert_phase_equal(args):
+def _assert_phase_equal(args, **kw):
     """The phase kernel (one launch) against the plain lockstep phase: bit
-    for bit in top_d, top_i, visits, ndist, npad and qsteps."""
+    for bit in top_d, top_i, visits, ndist, npad and qsteps (``kw``: the
+    ``extent`` both are given)."""
     n0 = bucket_scan_phase_cuda.launches
-    got = ops.bucket_scan_phase(*args)
+    got = ops.bucket_scan_phase(*args, **kw)
     torch.cuda.synchronize()
     assert bucket_scan_phase_cuda.launches == n0 + 1
-    want = ref.bucket_scan_phase_ref(*args)
+    want = ref.bucket_scan_phase_ref(*args, **kw)
     for name, a, b in zip(("top_d", "top_i", "visits", "ndist", "npad", "qsteps"), got, want):
         assert a.dtype == b.dtype and torch.equal(a, b), name
     return got
+
+
+def _packed(g, args):
+    """The problem's buckets with their live members a prefix, as the forests
+    keep them, of random length: 0 and C among them."""
+    ids = args[2]
+    nb, cap = ids.shape
+    live = torch.from_numpy(g.integers(0, cap + 1, nb).astype(np.int32)).to(ids.device)
+    live[0], live[-1] = 0, cap
+    cols = torch.arange(cap, device=ids.device)
+    full = torch.arange(nb * cap, dtype=torch.int32, device=ids.device).reshape(nb, cap)
+    args[2] = torch.where(cols[None, :] < live[:, None], full, -1).to(torch.int32)
+    args[3] = live
+    return args
+
+
+def _assert_staged_equal(args, extent=None):
+    """The kernel's staged rows (added to what ``staged`` holds) against the
+    plain phase's, with the extent given or derived from the ids."""
+    qn = args[0].shape[0]
+    got = torch.full((qn,), 7, dtype=torch.int32, device=args[0].device)
+    want = got.clone()
+    bucket_scan_phase_cuda(*args, extent=extent, staged=got)
+    ref.bucket_scan_phase_ref(*args, extent=extent, staged=want)
+    assert torch.equal(got, want)
+    return got - 7
 
 
 @pytest.mark.parametrize("qn,nb,cap,dim,beam,kk", [
@@ -111,6 +138,69 @@ def test_bucket_scan_kernel_matches_plain(dev, qn, nb, cap, dim, beam, kk, int8)
     g = np.random.default_rng(qn * 7 + cap + beam)
     got = _assert_phase_equal(_phase_problem(g, qn, nb, cap, dim, beam, kk, int8=int8))
     assert int(got[5].max()) > 0
+
+
+@pytest.mark.parametrize("qn,nb,cap,dim,beam,kk", [
+    (4, 7, 5, 6, 3, 4), (64, 40, 1000, 5, 1, 10), (48, 30, 250, 20, 1, 10),
+    (32, 12, 2500, 20, 3, 10),
+])
+@pytest.mark.parametrize("int8", [False, True])
+def test_bucket_scan_kernel_explicit_extent_with_holes(dev, qn, nb, cap, dim, beam, kk, int8):
+    """30% holes anywhere in a bucket: the extent (last live row + 1) given
+    explicitly gives the plain phase's six outputs, and the rows staged are
+    the plain phase's."""
+    g = np.random.default_rng(qn * 7 + cap + beam + 1)
+    args = _phase_problem(g, qn, nb, cap, dim, beam, kk, int8=int8)
+    got = _assert_phase_equal(args, extent=ref.bucket_extent(args[2]))
+    assert int(got[5].max()) > 0
+    staged = _assert_staged_equal(args, ref.bucket_extent(args[2]))
+    assert bool((staged <= got[4]).all())
+
+
+@pytest.mark.parametrize("qn,nb,cap,dim,beam,kk", [
+    (64, 40, 1000, 5, 1, 10), (64, 40, 1000, 5, 4, 10), (64, 40, 1000, 5, 1, 100),
+    (48, 30, 250, 20, 1, 10), (48, 30, 250, 20, 4, 10), (5, 13, 4, 8, 4, 11),
+])
+@pytest.mark.parametrize("int8", [False, True])
+def test_bucket_scan_kernel_packed_buckets(dev, qn, nb, cap, dim, beam, kk, int8):
+    """Live members a prefix of random length (0 and C among them) at WARD's
+    (C 1000, D 5) and Tracking's (C 250, D 20) shapes: bit for bit the plain
+    phase's with the extent derived and given; the staged rows equal the
+    plain phase's, and below npad where buckets are short."""
+    g = np.random.default_rng(qn + cap + beam + kk + int8)
+    args = _packed(g, _phase_problem(g, qn, nb, cap, dim, beam, kk, int8=int8))
+    got = _assert_phase_equal(args)
+    _assert_phase_equal(args, extent=args[3])
+    assert int(got[5].max()) > 0
+    staged = _assert_staged_equal(args)
+    assert torch.equal(staged, _assert_staged_equal(args, args[3]))
+    assert int(staged.sum()) < int(got[4].sum())
+
+
+def test_bucket_scan_kernel_capacity_past_16_bits(dev):
+    """C >= 65,536: the window holds no extent, which the kernel reads from
+    device memory instead; live prefixes longer than 65,535 rows."""
+    g = np.random.default_rng(65536)
+    args = _packed(g, _phase_problem(g, 4, 4, 70_000, 2, 1, 5))
+    cols = torch.arange(70_000, device=dev)
+    args[2][1] = torch.where(cols < 65_537, cols + 70_000, -1).to(torch.int32)
+    args[3][1] = 65_537
+    got = _assert_phase_equal(args)
+    assert int(got[5].max()) > 0
+    _assert_staged_equal(args)
+
+
+@pytest.mark.parametrize("cell,cap,dim,kk,blocks", [
+    ("ward-vbm.b16k-k10", 1000, 5, 10, 7), ("tracking-vbm.b16k-k10", 250, 20, 10, 4),
+    ("ward-vbm.b16k-k100", 1000, 5, 100, 6),
+])
+def test_bucket_scan_blocks_per_sm_at_the_cells_shapes(dev, cell, cap, dim, kk, blocks):
+    """The window carries the extents in the counts' word, so K1 holds at
+    least the blocks an SM it held before the extents (f32 buckets, beam 1):
+    7, 4 and 6."""
+    from repro_torch.kernels.bucket_scan import blocks_per_sm
+
+    assert blocks_per_sm(cap, dim, kk, 1) >= blocks, cell
 
 
 def test_bucket_scan_kernel_ties_and_dry_pool(dev):

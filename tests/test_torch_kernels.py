@@ -351,14 +351,23 @@ def _phase_args(p):
             None if p["scale"] is None else _t(p["scale"]))
 
 
+def _extent(ids):
+    """One past each bucket's last live row, 0 for an empty bucket."""
+    live = ids >= 0
+    return np.where(live.any(1), ids.shape[1] - np.argmax(live[:, ::-1], axis=1), 0).astype(np.int32)
+
+
 def _walk_alone(p, rows):
     """Plain emulation of the phase kernel's control flow: each query walks
     its own steps until its first inactive one, deciding every slot of a
-    step from the kth at the step's start, scoring each active bucket in
-    tiles of ``rows`` members, dropping candidates not below the kth at the
-    tile's start, and inserting the survivors in member order, each after
-    every equal value."""
+    step from the kth at the step's start, scoring each active bucket's rows
+    [0, extent) in tiles of ``rows`` members (holes below the extent stay
+    and score nothing), dropping candidates not below the kth at the tile's
+    start, and inserting the survivors in member order, each after every
+    equal value.  The fifth counter row is the rows staged: the extents of
+    the active in-range slots."""
     q, ids, count, order, lb, beam = (p[k] for k in ("q", "ids", "count", "order", "lb", "beam"))
+    ext = p["ext"] if p.get("ext") is not None else _extent(ids)
     bx = p["bx"].astype(np.float32)
     if p["scale"] is not None:
         bx = bx * p["scale"][..., None]
@@ -370,7 +379,7 @@ def _walk_alone(p, rows):
     qn, kk = p["top_d"].shape
     n_steps = order.shape[1] // beam
     out_d, out_i = p["top_d"].copy(), p["top_i"].copy()
-    counters = np.zeros((4, qn), np.int32)  # visits, ndist, npad, qsteps
+    counters = np.zeros((5, qn), np.int32)  # visits, ndist, npad, qsteps, staged
     for qi in range(qn):
         tv, ti = list(out_d[qi]), list(out_i[qi])
         for t in range(n_steps):
@@ -386,9 +395,10 @@ def _walk_alone(p, rows):
                 if not 0 <= b < nb:
                     continue
                 counters[1, qi] += count[b]
-                for c0 in range(0, cap, rows):
+                counters[4, qi] += ext[b]
+                for c0 in range(0, ext[b], rows):
                     kth2 = tv[-1]
-                    surv = [(d2_all[qi, b, m], ids[b, m]) for m in range(c0, min(cap, c0 + rows))
+                    surv = [(d2_all[qi, b, m], ids[b, m]) for m in range(c0, min(ext[b], c0 + rows))
                             if ids[b, m] >= 0 and d2_all[qi, b, m] < kth2]
                     for v, i in surv:
                         if v < tv[-1]:
@@ -402,12 +412,27 @@ def _walk_alone(p, rows):
 
 
 def _assert_walk_equals_lockstep(p, rows):
+    """The walk against the plain phase, and the plain phase given the
+    extents (``extent=``, ``staged=``) against the one without: bit for bit
+    in all six outputs.  The staged rows of the walk and of the plain phase
+    both equal the extents summed over each query's visited slots (a prefix
+    of its order, ``visits`` long)."""
     want = ref.bucket_scan_phase_ref(*_phase_args(p))
     got_d, got_i, counters = _walk_alone(p, rows)
     np.testing.assert_array_equal(got_d.view(np.int32), want[0].numpy().view(np.int32))
     np.testing.assert_array_equal(got_i, want[1].numpy())
     for j, name in enumerate(("visits", "ndist", "npad", "qsteps")):
         np.testing.assert_array_equal(counters[j], want[2 + j].numpy(), err_msg=name)
+    ext = p["ext"] if p.get("ext") is not None else _extent(p["ids"])
+    staged = torch.zeros(len(p["q"]), dtype=torch.int32)
+    with_ext = ref.bucket_scan_phase_ref(*_phase_args(p), extent=_t(ext), staged=staged)
+    for name, a, b in zip(("top_d", "top_i", "visits", "ndist", "npad", "qsteps"), with_ext, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    nb = len(ext)
+    visited = [[b for b in p["order"][qi, :v] if 0 <= b < nb]
+               for qi, v in enumerate(want[2].numpy())]
+    np.testing.assert_array_equal(staged.numpy(), [int(ext[v].sum()) for v in visited])
+    np.testing.assert_array_equal(counters[4], staged.numpy())
     return want
 
 
@@ -422,6 +447,45 @@ def test_phase_walk_alone_equals_lockstep(beam, int8):
         want = _assert_walk_equals_lockstep(p, rows=3)
         steps = int(want[5].max())
         assert 0 < steps <= p["order"].shape[1] // beam
+
+
+@pytest.mark.parametrize("over", [False, True], ids=["extent", "capacity"])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("beam", [1, 3])
+def test_phase_walk_alone_packed_buckets(beam, int8, over):
+    """Buckets whose live members are a prefix, as the forests keep them, of
+    0, 1, rows, rows + 1 and C members, scored in tiles of ``rows``: a bucket
+    of extent 0 is visited and counted but stages nothing.  An extent past
+    the last live row (``capacity``: C for every bucket) changes nothing but
+    the rows staged, which then equal ``npad``."""
+    rows, cap = 3, 7
+    for seed in range(3):
+        g = np.random.default_rng(1000 + 100 * beam + 10 * int8 + seed)
+        p = _phase_problem(g, 6, 10, cap, 4, beam, 5, pad_frac=0.0, seeded=bool(seed % 2),
+                           int8=int8)
+        live = np.array([0, 1, rows, rows + 1, cap] * 2, np.int32)
+        p["ids"][np.arange(cap)[None, :] >= live[:, None]] = -1
+        p["count"] = live.copy()
+        p["ext"] = np.full_like(live, cap) if over else live
+        want = _assert_walk_equals_lockstep(p, rows)
+        assert int(want[5].max()) > 0
+        if over:
+            staged = torch.zeros(6, dtype=torch.int32)
+            ref.bucket_scan_phase_ref(*_phase_args(p), extent=_t(p["ext"]), staged=staged)
+            assert torch.equal(staged, want[4])
+
+
+def test_k1_extent_is_derived_once_per_ids_tensor():
+    """The kernel wrapper derives a datastore's extents once and keeps them
+    while its ids are unchanged: an in-place write derives them anew."""
+    from repro_torch.kernels.bucket_scan import _extent
+
+    ids = torch.tensor([[0, -1, 2, -1], [-1, -1, -1, -1], [5, 6, 7, 8]], dtype=torch.int32)
+    first = _extent(ids)
+    assert first.tolist() == [3, 0, 4] and _extent(ids) is first
+    assert torch.equal(first, ref.bucket_extent(ids))
+    ids[1, 0] = 9
+    assert _extent(ids).tolist() == [3, 1, 4]
 
 
 def test_phase_walk_alone_unfilled_topk_pad_slots():

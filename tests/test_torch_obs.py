@@ -324,6 +324,81 @@ def test_a_search_nested_in_other_spans_still_times_its_host_share(blob_data):
     assert 0 <= hist["search/host_only"]["sum"] <= hist["request/search"]["sum"]
 
 
+# -- the rows K1 staged, on sampled searches ----------------------------------
+
+def _rows_counters(ix) -> tuple[int, int]:
+    return ix.obs.value("search.staged_rows"), ix.obs.value("search.capacity_rows")
+
+
+@pytest.mark.parametrize("delta", [False, True])
+def test_a_sampled_search_counts_the_rows_k1_staged(blob_data, delta):
+    """The staged rows are the extents (one past each bucket's last live
+    row) summed over the slots the plain phase visited, which are a prefix of
+    each query's visit order; the capacity rows are the padded distances."""
+    from repro_torch.core.knn import knn_search_explain_impl
+    from repro_torch.kernels.ref import bucket_extent
+    from repro_torch.stream.ingest import delta_view
+
+    ix = _build(blob_data, trace_sample=1.0)
+    if delta:
+        ix.ingest(_queries(blob_data, n=40, seed=9))
+    q = _queries(blob_data)
+    res = ix.search(q, k=5)
+    staged, capacity = _rows_counters(ix)
+    assert capacity == int(res.stats["padded_distances"].sum())
+    dv = delta_view(ix.device_delta) if delta else None
+    key = res.plan.key
+    _, _, _, rows = knn_search_explain_impl(ix.device, torch.from_numpy(q), k=key.k,
+                                            mode=key.mode, beam=key.beam, kernel=False,
+                                            delta=dv)
+
+    def prefix_sum(order, visits, sizes):
+        cols = torch.arange(order.shape[1])[None]
+        return int(torch.where(cols < visits[:, None], sizes[order.long()], 0).sum())
+
+    want = prefix_sum(rows.order, rows.visits[0], bucket_extent(ix.device.bucket_ids))
+    if delta:
+        assert int(rows.dvisits.sum()) > 0
+        want += prefix_sum(rows.dorder, rows.dvisits[0], dv.mask.sum(1))
+    assert staged == want
+    assert int(res.stats["distances"].sum()) <= staged < capacity
+    m = ix.metrics()
+    assert m["search"]["staged_share"] == pytest.approx(staged / capacity)
+    assert m["registry"]["gauges"]["search.staged_share"] == pytest.approx(staged / capacity)
+    assert "search_staged_share" in ix.obs.to_prometheus()
+    ix.search(q, k=5)  # the counters accumulate over sampled searches
+    assert _rows_counters(ix) == (2 * staged, 2 * capacity)
+
+
+@pytest.mark.parametrize("layout", ["single", "sharded", "routed"])
+def test_staged_rows_are_counted_on_every_island(blob_data, layout):
+    ix = _build(blob_data, layout=layout, trace_sample=1.0)
+    res = ix.search(_queries(blob_data), k=5)
+    staged, capacity = _rows_counters(ix)
+    assert capacity == int(res.stats["padded_distances"].sum())
+    assert int(res.stats["distances"].sum()) <= staged < capacity
+
+
+@pytest.mark.parametrize("trace", [None, TraceContext(sampled=False)], ids=["none", "unsampled"])
+def test_an_unsampled_search_counts_no_staged_rows(blob_data, trace):
+    from repro_torch.api.executor import IslandStats
+    from repro_torch.core.knn import SearchStats
+    from repro_torch.distributed.knn_island import IslandStats as ShardIslandStats
+
+    ix = _build(blob_data)
+    res = ix.search(_queries(blob_data), k=5, trace=trace)
+    m = ix.metrics()
+    assert "staged_share" not in m["search"]
+    assert not any("staged" in k or "capacity_rows" in k
+                   for part in ("counters", "gauges") for k in m["registry"][part])
+    # the counter rides in no result tuple
+    assert SearchStats._fields == ("buckets_visited", "distances", "bound_distances",
+                                   "padded_distances", "comparisons", "steps")
+    assert IslandStats._fields == ShardIslandStats._fields == (
+        "buckets_visited", "distances", "bound_distances")
+    assert set(res.stats) == set(SearchStats._fields)
+
+
 @pytest.mark.cuda
 def test_sampled_search_phases_on_the_card(blob_data):
     if not torch.cuda.is_available():
@@ -340,6 +415,9 @@ def test_sampled_search_phases_on_the_card(blob_data):
     plain = _build(blob_data, device="cuda").search(q, k=10)
     np.testing.assert_array_equal(res.ids, plain.ids)
     np.testing.assert_array_equal(res.dists, plain.dists)
+    staged, capacity = _rows_counters(ix)
+    assert capacity == 5 * int(res.stats["padded_distances"].sum())
+    assert 5 * int(res.stats["distances"].sum()) <= staged < capacity
 
 
 # -- the benchmark's reader ---------------------------------------------------
