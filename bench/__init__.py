@@ -6,7 +6,8 @@ runs one cell of ``BENCHMARK.json`` once and prints one JSON line.  Everything
 that belongs to one configuration, traffic mix, metric or kernel role lives in
 a file of its own that the harness finds by name (``catalog.py``):
 
-* ``configs/<config>.json``   a deployment: dataset, build and search settings,
+* ``configs/<config>.json``   a deployment: dataset, build and search settings
+                              (the search mode among them), its reference,
                               the limits of the correctness check;
 * ``traffic/<mix>.json``      a traffic mix, read by ``traffic.py``;
 * ``metrics/<metric>.py``     one reader per metric (the part of the name

@@ -5,11 +5,18 @@ Set-up makes the configuration's rows, draws the mix's query pool from the
 seed, builds the index through ``repro_torch.api.OverlapIndex.build`` and runs
 the search's one shape three times.  The window then sends the pool's batches
 one after another through ``OverlapIndex.search`` (a closed loop of one
-client; each call returns host arrays, so it has finished on the device) until
-``seconds`` have passed, and keeps the answers of ``check_calls`` calls drawn
-from the seed by reservoir sampling.  A traced run then profiles a stretch of
-about a second of the same calls.  Once the program is freed, the plain
-reference (``reference/knn.py``) judges the kept answers.
+client; each call returns host arrays, so it has finished on the device)
+until ``seconds`` have passed and the whole pool has been sent once, and keeps
+the answers of ``check_calls`` calls drawn from the seed by reservoir
+sampling.  A traced run then profiles a stretch of about a second of the same
+calls.  Once the program is freed, a plain reference judges the kept answers
+by the configuration's ``check`` limits: where its search is ``mode="all"``,
+against the brute force over every row (``reference/knn.py``); where it is
+``mode="forest"`` (Alg. 2), against the brute force over each query's routed
+rows (``reference/routed.py``), by a routing table worked out again from the
+rows and the configuration's build parameters (``reference/forest.py``), and
+the index of each row in the program's forest, copied before the index is
+freed, against that table.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import numpy as np
 from bench import datasets, devtrace, traffic
 from bench.catalog import Catalog, role_of
 from bench.reference import knn as reference
+from bench.reference import forest, routed
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 WARM_CALLS = 3
@@ -95,6 +103,22 @@ def pick_device(chips: int, device: str | None):
     return torch.device("cuda:0")
 
 
+def routes(config: dict[str, Any]) -> bool:
+    """Whether the configuration searches with routing (Alg. 2)."""
+    return config["search"]["mode"] == "forest"
+
+
+def check_limits(config: dict[str, Any]) -> dict[str, float]:
+    """The configuration's limit of each number its search's comparison
+    reports; a name missing or left over is refused."""
+    given = config["check"]
+    names = routed.NUMBERS if routes(config) else reference.NUMBERS
+    if set(given) != set(names):
+        raise ValueError(f"the configuration's check names {sorted(given)}, "
+                         f"its search's comparison {list(names)}")
+    return {n: given[n] for n in names}
+
+
 def build_index(x: np.ndarray, config: dict[str, Any], k: int, dev):
     from repro_torch.api import Config, IndexConfig, OverlapIndex, SearchConfig
 
@@ -103,15 +127,22 @@ def build_index(x: np.ndarray, config: dict[str, Any], k: int, dev):
     return OverlapIndex.build(x, cfg, device=dev)
 
 
-def search_counters(ix) -> tuple[int, int]:
+def program_owner(ix) -> np.ndarray:
+    """The index that the program's forest puts each row in."""
+    f = ix.forest
+    return routed.owner_of_forest(f.bucket_ids, f.bucket_index, ix.n_total)
+
+
+def search_counters(ix) -> tuple[int, int, int]:
     s = ix.metrics()["search"]
-    return int(s["queries"]), int(s["distances"])
+    return int(s["queries"]), int(s["distances"]), int(s["bound_distances"])
 
 
 def run_window(search: Callable, pool: list[np.ndarray], seconds: float, keep: int,
                g: np.random.Generator) -> tuple[Window, list[tuple[int, Any]]]:
-    """The closed loop; returns the window and the kept (call, answer) pairs,
-    a uniform sample of ``keep`` calls of the window (reservoir sampling)."""
+    """The closed loop, over ``seconds`` and at least one pass of the pool;
+    returns the window and the kept (call, answer) pairs, a uniform sample of
+    ``keep`` calls of the window (reservoir sampling)."""
     call_s: list[float] = []
     kept: list[tuple[int, Any]] = []
     n = len(pool)
@@ -119,7 +150,7 @@ def run_window(search: Callable, pool: list[np.ndarray], seconds: float, keep: i
     gc.collect()
     gc.freeze()
     t_start = now = time.perf_counter()
-    while now - t_start < seconds:
+    while now - t_start < seconds or len(call_s) < n:
         i = len(call_s)
         q = pool[i % n]
         t0 = time.perf_counter()
@@ -137,22 +168,42 @@ def run_window(search: Callable, pool: list[np.ndarray], seconds: float, keep: i
     return Window(call_s=call_s, queries=queries, wall_s=now - t_start), kept
 
 
+def derived_routing(x: np.ndarray, config: dict[str, Any], dev) -> routed.Routing:
+    """The routing table of the configuration's forest, worked out again
+    from the rows by the plain reference."""
+    import torch
+
+    t0 = time.perf_counter()
+    routing = forest.derive(torch.as_tensor(x, device=dev), config["index"])
+    print(f"check: routing table derived in {time.perf_counter() - t0:.3f} s, "
+          f"{len(routing.centers)} indexes", file=sys.stderr)
+    return routing
+
+
 def check(x: np.ndarray, pool: list[np.ndarray], kept: list[tuple[int, Any]], k: int,
-          limits: dict[str, float], dev) -> Checked:
-    """Judge the kept answers against the brute force over the same rows."""
+          limits: dict[str, float], dev, routing: routed.Routing | None = None,
+          owner: np.ndarray | None = None) -> Checked:
+    """Judge the kept answers against the brute force over the same rows,
+    or, where a derived ``routing`` table is given, over each query's routed
+    rows, and the program's ``owner`` of each row against that table."""
     import torch
 
     xt = torch.as_tensor(x, device=dev)
     readings, wrong, queries = [], 0, 0
     for call, res in kept:
         qt = torch.as_tensor(pool[call % len(pool)], device=dev)
-        truth = reference.exact_knn(xt, qt, k)
-        r = reference.judge(xt, qt, res.dists, res.ids, truth, limits)
+        if routing is None:
+            truth = reference.exact_knn(xt, qt, k)
+            r = reference.judge(xt, qt, res.dists, res.ids, truth, limits)
+        else:
+            r = routed.judge(xt, qt, res.dists, res.ids, k, routing, limits)
         wrong += r.pop("wrong_queries")
         queries += len(qt)
         readings.append(r)
-    return Checked(numbers=reference.combine(readings), limits=limits, wrong_queries=wrong,
-                   queries=queries)
+    numbers = reference.combine(readings)
+    if routing is not None:
+        numbers["index_rows"] = float(routed.index_rows(owner, routing.owner.cpu().numpy()))
+    return Checked(numbers=numbers, limits=limits, wrong_queries=wrong, queries=queries)
 
 
 def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, *,
@@ -168,6 +219,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, 
     config = cat.config(cell["config"])
     mix = cat.mix(cell["traffic"])
     traffic.check_mix(mix)
+    limits = check_limits(config)
     dev = pick_device(int(cell["chips"]), device)
     import torch
 
@@ -190,13 +242,13 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, 
         f"{name} {t - marks[i][1]:.3f}" for i, (name, t) in enumerate(marks[1:])),
         file=sys.stderr)
 
-    q0, d0 = search_counters(ix)
+    q0, d0, b0 = search_counters(ix)
     window, kept = run_window(search, pool, seconds, int(mix["check_calls"]),
                               datasets.sample_rng(seed, 3))
     peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
-    q1, d1 = search_counters(ix)
+    q1, d1, b1 = search_counters(ix)
     spans = ix.metrics()["search"]["spans"]
-    program = dict(queries=q1 - q0, distances=d1 - d0,
+    program = dict(queries=q1 - q0, distances=d1 - d0, bound_distances=b1 - b0,
                    device_execute_p50_s=spans["search/device_execute"]["p50"])
     f = ix.forest
     ctx = Context(config=config, mix=mix, setup_s=setup_s, window=window, program=program,
@@ -219,11 +271,13 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, 
         if value is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
 
+    owner = program_owner(ix) if routes(config) else None
     del search, ix
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    checked = check(x, pool, kept, k, config["check"], dev)
+    routing = derived_routing(x, config, dev) if owner is not None else None
+    checked = check(x, pool, kept, k, limits, dev, routing, owner)
     result: dict[str, Any] = {
         "correct": checked.correct,
         "attempted": window.queries,

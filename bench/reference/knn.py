@@ -27,6 +27,9 @@ import torch
 BLOCK_ELEMS = 1 << 28  # (query, row) pairs a block: 2 GiB of float64
 
 
+NUMBERS = ("kth_gap", "dist_err", "bad_rows")  # what ``judge`` compares, in its order
+
+
 class Truth(NamedTuple):
     ids: torch.Tensor  # (Q, k) int64
     kth_d2: torch.Tensor  # (Q,) float64 exact squared distance of the k-th nearest
@@ -114,18 +117,28 @@ def lowp_knn(x: torch.Tensor, q: torch.Tensor, k: int) -> tuple[np.ndarray, np.n
             torch.cat(out_i).to(torch.int32).cpu().numpy())
 
 
-def judge(x: torch.Tensor, q: torch.Tensor, dists, ids, truth: Truth,
-          limits: dict[str, float]) -> dict[str, float]:
-    """The compared numbers for one batch of answers (see the module doc),
-    and ``wrong_queries``: the queries whose answers break a limit."""
+class Answers(NamedTuple):
+    """A batch of answers read against the rows: what every search's check
+    compares, whatever its truth."""
+
+    ids: torch.Tensor  # (Q, k) int64 as answered
+    valid: torch.Tensor  # (Q, k) bool: the id names a row
+    bad: torch.Tensor  # (Q,) bool: the query's answers break a rule of form
+    exact: torch.Tensor  # (Q, k) float64 exact squared distance of each answered row
+    scale: torch.Tensor  # (Q, k) ||q||^2 + ||x||^2 of each answered row
+    err: torch.Tensor  # (Q,) widest |answered d2 - exact d2| / scale
+
+
+def read_answers(x: torch.Tensor, q: torch.Tensor, dists, ids, k: int) -> Answers | None:
+    """The answers of one batch, checked for form and distance, or None
+    where they have not the shape (Q, k)."""
     n = x.shape[0]
-    nq, k = truth.ids.shape
+    nq = q.shape[0]
     dev = x.device
     ids = torch.as_tensor(np.asarray(ids), device=dev).long()
     dists = torch.as_tensor(np.asarray(dists), device=dev).double()
     if ids.shape != (nq, k) or dists.shape != (nq, k):
-        return dict(kth_gap=float("inf"), dist_err=float("inf"), bad_rows=float(nq),
-                    wrong_queries=nq)
+        return None
     valid = (ids >= 0) & (ids < n)
     srt = torch.sort(ids, dim=1).values
     dup = (srt[:, 1:] == srt[:, :-1]).any(1)
@@ -134,16 +147,32 @@ def judge(x: torch.Tensor, q: torch.Tensor, dists, ids, truth: Truth,
     e = exact_d2(x, q, ids)
     xs = x[ids.clamp(0, n - 1)].double()
     scale = (xs ** 2).sum(-1) + (q.double() ** 2).sum(1)[:, None]
-    gap = torch.where(valid, (e - truth.kth_d2[:, None]) / scale, 0.0).amax(1).clamp_min(0.0)
     err = torch.where(valid & torch.isfinite(dists), (dists ** 2 - e).abs() / scale,
                       0.0).amax(1)
-    wrong = bad | (gap > limits["kth_gap"]) | (err > limits["dist_err"])
-    return dict(kth_gap=float(gap.max()), dist_err=float(err.max()),
-                bad_rows=float(bad.sum()), wrong_queries=int(wrong.sum()))
+    return Answers(ids=ids, valid=valid, bad=bad, exact=e, scale=scale, err=err)
+
+
+def judge(x: torch.Tensor, q: torch.Tensor, dists, ids, truth: Truth,
+          limits: dict[str, float]) -> dict[str, float]:
+    """The compared numbers for one batch of answers (see the module doc),
+    and ``wrong_queries``: the queries whose answers break a limit."""
+    nq, k = truth.ids.shape
+    a = read_answers(x, q, dists, ids, k)
+    if a is None:
+        return dict(kth_gap=float("inf"), dist_err=float("inf"), bad_rows=float(nq),
+                    wrong_queries=nq)
+    gap = torch.where(a.valid, (a.exact - truth.kth_d2[:, None]) / a.scale,
+                      0.0).amax(1).clamp_min(0.0)
+    wrong = a.bad | (gap > limits["kth_gap"]) | (a.err > limits["dist_err"])
+    return dict(kth_gap=float(gap.max()), dist_err=float(a.err.max()),
+                bad_rows=float(a.bad.sum()), wrong_queries=int(wrong.sum()))
+
+
+COUNTS = ("bad_rows", "outside_rows")  # numbers that count, and so add up over batches
 
 
 def combine(readings: list[dict[str, float]]) -> dict[str, float]:
     """The worst of each number over several batches."""
     keys = readings[0].keys()
-    return {key: (sum(r[key] for r in readings) if key == "bad_rows"
+    return {key: (sum(r[key] for r in readings) if key in COUNTS
                   else max(r[key] for r in readings)) for key in keys}

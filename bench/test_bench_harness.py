@@ -11,6 +11,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -24,9 +25,12 @@ for _p in (ROOT / "src", ROOT):
 from bench import datasets, harness, traffic  # noqa: E402
 from bench.catalog import Catalog, role_of  # noqa: E402
 from bench.reference import knn as reference  # noqa: E402
+from bench.reference import forest as forest_ref  # noqa: E402
+from bench.reference import routed  # noqa: E402
 
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
-TINY = {"ward-vbm": dict(n=4000, c_max=64), "tracking-vbm": dict(n=2000, c_max=45)}
+TINY = {"ward-vbm": dict(n=4000, c_max=64), "tracking-vbm": dict(n=2000, c_max=45),
+        "tracking-vbm-forest": dict(n=2000, c_max=45)}
 
 
 @pytest.fixture
@@ -51,20 +55,31 @@ def tiny_root(tmp_path):
     return tmp_path
 
 
-def run(root, cell, *, seed=3_000_000_011, trace=False, wrap=None):
+FOREST = "tracking-vbm-forest.b16k-k10"
+
+
+def run(root, cell, *, seed=3_000_000_011, trace=False, wrap=None, t_start=None):
     return harness.run_cell(Path(root), cell, seed, 0.3, trace,
-                            t_start=time.perf_counter(), device="cpu", wrap=wrap)
+                            t_start=time.perf_counter() if t_start is None else t_start,
+                            device="cpu", wrap=wrap)
 
 
 # -- finding the parts by name ------------------------------------------------
 
 def test_every_cell_finds_its_parts_by_name():
     cat = Catalog(ROOT)
+    modes = set()
     for cell in cat.spec["workloads"]:
         cfg = cat.config(cell["config"])
         mix = cat.mix(cell["traffic"])
         traffic.check_mix(mix)
         assert cfg["dataset"]["generator"] in ("ward", "tracking")
+        modes.add(cfg["search"]["mode"])
+        assert "mode" not in mix and "check" not in mix  # both are the configuration's
+        limits = harness.check_limits(cfg)
+        judge = routed if harness.routes(cfg) else reference
+        assert tuple(limits) == judge.NUMBERS
+        assert cfg["reference"] == f"bench/reference/{judge.__name__.rsplit('.', 1)[1]}.py"
         for trace in (False, True):
             names = [m["name"] for m in cat.metrics(cell["name"], trace)]
             assert names, (cell["name"], trace)
@@ -75,6 +90,24 @@ def test_every_cell_finds_its_parts_by_name():
     assert role_of("void at::native::radixSortKVInPlace<2, -1, 128, 32, float, long>", roles) == "sort"
     assert role_of("void (anonymous namespace)::pairwise_small(float const*)", roles) == "bounds"
     assert role_of("Memcpy DtoH (Device -> Pageable)", roles) is None
+    assert modes == {"forest", "all"}
+
+
+@pytest.mark.parametrize("name,mode,drop,add", [
+    ("tracking-vbm", "forest", [], []),  # a routed search judged by the exact search's limits
+    ("tracking-vbm-forest", "all", [], []),
+    ("tracking-vbm-forest", "forest", ["index_rows"], []),
+    ("tracking-vbm-forest", "forest", [], ["kth_gap"]),
+])
+def test_a_configuration_without_its_searchs_limits_is_refused(name, mode, drop, add):
+    cfg = json.loads((ROOT / "bench" / "configs" / f"{name}.json").read_text())
+    judge = routed if harness.routes(cfg) else reference
+    assert tuple(harness.check_limits(cfg)) == judge.NUMBERS
+    cfg["search"]["mode"] = mode
+    cfg["check"] = {n: v for n, v in cfg["check"].items() if n not in drop}
+    cfg["check"].update({n: 0.0 for n in add})
+    with pytest.raises(ValueError, match="comparison"):
+        harness.check_limits(cfg)
 
 
 def test_a_new_cell_config_mix_metric_and_role_are_files_of_their_own(tiny_root):
@@ -223,17 +256,185 @@ def test_the_control_fails_the_check_on_the_card():
     assert got["kth_gap"] > cfg["check"]["kth_gap"] and got["dist_err"] > cfg["check"]["dist_err"]
 
 
+# -- the routed reference (forest mode) ---------------------------------------
+
+# A forest of three indexes over eight rows in the plane: index 0 holds rows
+# 0-2 in two buckets and links index 1 as its overlap neighbour; index 1
+# holds rows 3-4, index 2 rows 5-7.
+TINY_X = torch.tensor([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0], [10.0, 0.0], [11.0, 0.0],
+                       [0.0, 10.0], [1.0, 10.0], [0.0, 11.0]])
+TINY_Q = torch.tensor([[2.0, 0.0], [0.2, 5.8], [10.2, 0.0], [0.0, 5.0]])
+LIM = dict(routed_gap=2e-5, dist_err=2e-5, bad_rows=0, outside_rows=0)
+
+
+TINY_BUCKETS = dict(bucket_ids=[[0, 1, -1], [2, -1, -1], [3, 4, -1], [5, 6, 7]],
+                    bucket_index=[0, 0, 1, 2])
+
+
+def _tiny_routing():
+    owner = routed.owner_of_forest(**TINY_BUCKETS, n=8)
+    return routed.Routing.of([[0.0, 0.0], [10.0, 0.0], [0.0, 10.0]], [[1], [-1], [-1]], owner)
+
+
+def _answers(rows):
+    """Sorted (dists, ids) host arrays of the given rows of each query."""
+    ids = np.array(rows)
+    d = np.sqrt(((TINY_X.numpy()[ids] - TINY_Q.numpy()[:, None, :]) ** 2).sum(-1))
+    return d.astype(np.float32), ids.astype(np.int32)
+
+
+def test_the_routed_reference_is_the_hand_computed_routed_knn():
+    r = _tiny_routing()
+    assert r.owner.tolist() == [0, 0, 0, 1, 1, 2, 2, 2]
+    # squared distances to the centers, worked by hand:
+    # q0 (2, 0):     4, 64, 104         -> index 0, routed rows 0-4 (with index 1)
+    # q1 (0.2, 5.8): 33.68, 130.68, 17.68 -> index 2, rows 5-7
+    # q2 (10.2, 0):  104.04, 0.04, 204.04 -> index 1, rows 3-4: fewer than k = 3
+    # q3 (0, 5):     25, 125, 25          -> a tie: index 0 or index 2
+    pair_q, pair_c = routed.nearest(r, TINY_Q)
+    assert pair_q.tolist() == [0, 1, 2, 3, 3] and pair_c.tolist() == [0, 2, 1, 0, 2]
+    truth = routed.routed_knn(TINY_X, TINY_Q[pair_q], 3, r, pair_c)
+    # q0: rows 0-4 at 4, 1, 5, 64, 81           -> 1, 0, 2
+    # q1: rows 5-7 at 17.68, 18.28, 27.08       -> 5, 6, 7 (row 2, at 23.08, is not routed)
+    # q2: rows 3-4 at 0.04, 0.64                -> 3, 4, none
+    # q3 via 0: rows 0-4 at 25, 26, 16, 125, 146 -> 2, 0, 1; via 2: 25, 26, 36 -> 5, 6, 7
+    assert truth.ids.tolist() == [[1, 0, 2], [5, 6, 7], [3, 4, -1], [2, 0, 1], [5, 6, 7]]
+    assert truth.size.tolist() == [5, 3, 2, 5, 3]
+    assert np.allclose(truth.d2.numpy(), [[1, 4, 5], [17.68, 18.28, 27.08],
+                                          [0.04, 0.64, np.inf], [16, 25, 26], [25, 26, 36]])
+    # the routed answers pass; q2's third answer is a row of another index,
+    # as the search fills a routed set smaller than k
+    d, ids = _answers([[1, 0, 2], [5, 6, 7], [3, 4, 0], [2, 0, 1]])
+    got = routed.judge(TINY_X, TINY_Q, d, ids, 3, r, LIM)
+    assert got == dict(routed_gap=0.0, dist_err=pytest.approx(0.0, abs=1e-7), bad_rows=0.0,
+                       outside_rows=0.0, wrong_queries=0)
+    # a routed top-k row dropped: q0 answers 0, 2, 3 without row 1 (d2 1),
+    # K = 64, so the gap is (64 - 1) / (4 + 1)
+    d, ids = _answers([[0, 2, 3], [5, 6, 7], [3, 4, 0], [2, 0, 1]])
+    got = routed.judge(TINY_X, TINY_Q, d, ids, 3, r, LIM)
+    assert got["routed_gap"] == pytest.approx(12.6) and got["wrong_queries"] == 1
+    # the exact answers over every row: q1's row 2 lies outside its routed set
+    d, ids = _answers([[1, 0, 2], [5, 6, 2], [3, 4, 0], [2, 0, 1]])
+    got = routed.judge(TINY_X, TINY_Q, d, ids, 3, r, LIM)
+    assert got["outside_rows"] == 1.0 and got["routed_gap"] == 0.0 and got["wrong_queries"] == 1
+
+
+def test_a_query_at_a_tied_center_passes_with_either_routing():
+    r = _tiny_routing()
+    for q3 in ([2, 0, 1], [5, 6, 7]):
+        d, ids = _answers([[1, 0, 2], [5, 6, 7], [3, 4, 0], q3])
+        assert routed.judge(TINY_X, TINY_Q, d, ids, 3, r, LIM)["wrong_queries"] == 0
+    # rows of both routings in one answer fit neither
+    d, ids = _answers([[1, 0, 2], [5, 6, 7], [3, 4, 0], [2, 5, 0]])
+    got = routed.judge(TINY_X, TINY_Q, d, ids, 3, r, LIM)
+    assert got["wrong_queries"] == 1 and got["outside_rows"] == 1.0
+
+
+@pytest.mark.parametrize("bucket_ids,bucket_index,rows", [
+    (TINY_BUCKETS["bucket_ids"], [0, 0, 1, 2], 0),
+    (TINY_BUCKETS["bucket_ids"], [2, 2, 0, 1], 0),  # the same indexes, numbered otherwise
+    ([[0, 1, -1], [2, -1, -1], [3, 4, -1], [5, 6, -1]], [0, 0, 1, 2], 1),  # row 7 in no bucket
+    ([[0, 1, 1], [2, -1, -1], [3, 4, -1], [5, 6, 7]], [0, 0, 1, 2], 1),  # row 1 twice
+    ([[0, 1, 7], [2, -1, -1], [3, 4, -1], [5, 6, -1]], [0, 0, 1, 2], 1),  # row 7 moved
+    (TINY_BUCKETS["bucket_ids"], [0, 3, 1, 2], 1),  # index 0 split: row 2 apart
+    (TINY_BUCKETS["bucket_ids"], [0, 0, 0, 2], 2),  # indexes 0 and 1 merged
+    (TINY_BUCKETS["bucket_ids"], [0, 0, 0, 0], 5),  # one index for every row
+])
+def test_the_program_forest_is_held_to_the_derived_index_of_each_row(bucket_ids, bucket_index,
+                                                                     rows):
+    owner = routed.owner_of_forest(bucket_ids, bucket_index, 8)
+    assert routed.index_rows(owner, _tiny_routing().owner.numpy()) == rows
+
+
+def _blobs():
+    """Five Gaussian blobs in 8-D and uniform noise: with eps 1.5, min_pts 8
+    and xi 0.1 / 0.7 the VBM build makes overlap indexes, DBM merges and
+    OBM makes one overlap index."""
+    g = np.random.default_rng(7)
+    centers = g.normal(size=(5, 8)) * 10.0
+    parts = [c + g.normal(size=(400, 8)) for c in centers]
+    parts.append(g.uniform(-15, 15, size=(100, 8)))
+    return np.concatenate(parts).astype(np.float32)
+
+
+def _cut(name, n, c_max):
+    cfg = json.loads((ROOT / "bench" / "configs" / f"{name}.json").read_text())
+    return datasets.make({**cfg["dataset"], "n": n}), {**cfg["index"], "c_max": c_max}
+
+
+BLOB_INDEX = dict(eps=1.5, min_pts=8, xi_min=0.1, xi_max=0.7)
+
+
+@pytest.mark.parametrize("case", ["blobs-vbm", "blobs-dbm", "blobs-obm", "tracking", "ward"])
+def test_the_derived_routing_table_is_the_built_forests(case):
+    """The plain derivation (DBSCAN, partitions, overlap rates, decision)
+    gives each row the index the program's build gives it, numbered alike,
+    with the same neighbour links and the centers to f32 rounding."""
+    from repro_torch.core.pipeline import IndexConfig, build_index_core
+
+    if case.startswith("blobs"):
+        x, index = _blobs(), dict(BLOB_INDEX, method=case.split("-")[1])
+    else:
+        x, index = _cut(*{"tracking": ("tracking-vbm-forest", 2000, 45),
+                          "ward": ("ward-vbm", 4000, 64)}[case])
+    f, _ = build_index_core(x, IndexConfig(**index), device="cpu")
+    r = forest_ref.derive(torch.from_numpy(x), index)
+    owner = routed.owner_of_forest(f.bucket_ids, f.bucket_index, len(x))
+    assert routed.index_rows(owner, r.owner.numpy()) == 0
+    assert np.array_equal(owner, r.owner.numpy())
+    links = np.zeros_like(r.routed.numpy())
+    for i, row in enumerate(f.neighbors):
+        links[i, row[row >= 0]] = True
+    np.fill_diagonal(links, True)
+    assert np.array_equal(links, r.routed.numpy())
+    assert np.abs(f.index_centers - r.centers.numpy()).max() <= 1e-6 * np.abs(x).max()
+    if case == "blobs-vbm":
+        assert f.is_overlap_index.any() and links.sum() > len(links)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_the_routed_control_fails_the_check(device):
+    """The routed reference with its products in TF32, in the program's
+    place, reads far above the limits on Tracking-like rows routed by a
+    hand-made forest of the tracks (on a CPU the operands are rounded to
+    TF32 as the tensor cores round them)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the control's TF32 products run on its tensor cores")
+    cfg = json.loads((ROOT / "bench" / "configs" / "tracking-vbm.json").read_text())
+    spec = {**cfg["dataset"], "n": 12_000}
+    x = torch.from_numpy(datasets.make(spec))
+    counts = datasets.geometry(spec).counts
+    owner = np.repeat(np.arange(len(counts)), counts)
+    centers = np.stack([x.numpy()[owner == i].mean(0) for i in range(len(counts))])
+    cap = int(counts.max())
+    bucket_ids = np.full((len(counts), cap), -1)
+    for i in range(len(counts)):
+        rows = np.nonzero(owner == i)[0]
+        bucket_ids[i, :len(rows)] = rows
+    r = routed.Routing.of(centers, np.full((len(counts), 1), -1),
+                          routed.owner_of_forest(bucket_ids, np.arange(len(counts)), len(x)))
+    q = torch.from_numpy(traffic.queries(x.numpy(), 256, np.random.default_rng(4)))
+    x, q = x.to(device), q.to(device)
+    d, i = routed.lowp_routed_knn(x, q, 10, r)
+    lim = harness.check_limits(json.loads(
+        (ROOT / "bench" / "configs" / "tracking-vbm-forest.json").read_text()))
+    got = routed.judge(x, q, d, i, 10, r, lim)
+    assert got["dist_err"] > lim["dist_err"] and got["wrong_queries"] > 0
+
+
 # -- whole runs on the CPU ----------------------------------------------------
 
 @pytest.mark.parametrize("cell,trace", [("ward-vbm.b16k-k10", False),
                                         ("tracking-vbm.b16k-k10", True),
-                                        ("ward-vbm.b16k-k100", True)])
+                                        ("ward-vbm.b16k-k100", True),
+                                        (FOREST, True)])
 def test_a_run_is_correct_and_its_line_has_the_contract_keys(tiny_root, cell, trace):
     out = run(tiny_root, cell, trace=trace)
     keys = KEYS + (["breakdown"] if trace else []) + ["checks"]
     assert list(out) == keys
     assert out["correct"] and out["failed"] == 0 and out["attempted"] > 0
-    assert set(out["checks"]) == {"kth_gap", "dist_err", "bad_rows"}
+    judge = routed if cell == FOREST else reference
+    assert tuple(out["checks"]) == judge.NUMBERS
     for c in out["checks"].values():
         assert c["value"] <= c["limit"]
     cat = Catalog(tiny_root)
@@ -283,6 +484,151 @@ def test_a_planted_fault_makes_the_run_incorrect(tiny_root, fault):
     out = run(tiny_root, "ward-vbm.b16k-k10", wrap=fault)
     assert out["correct"] is False
     assert out["failed"] > 0
+
+
+def test_the_window_sends_the_whole_pool_at_least_once():
+    calls = []
+    window, kept = harness.run_window(calls.append, [np.zeros((2, 1))] * 5, 0.0, 2,
+                                      np.random.default_rng(0))
+    assert window.calls == len(calls) == 5 and len(kept) == 2
+
+
+def _program_routing(ix):
+    """The routing table of the program's own forest (to plant faults with)."""
+    f = ix.forest
+    return routed.Routing.of(f.index_centers, f.neighbors,
+                             routed.owner_of_forest(f.bucket_ids, f.bucket_index, ix.n_total))
+
+
+def _routed_answers(ix, q, rows_of):
+    """A search result whose answers are the reference's routed k nearest
+    of the index that ``rows_of(centers d2)`` picks for each query."""
+    x = torch.from_numpy(np.asarray(ix.x_all))
+    r = _program_routing(ix)
+    qt = torch.from_numpy(q)
+    d2c = ((qt.double()[:, None, :] - r.centers.double()[None]) ** 2).sum(-1)
+    truth = routed.routed_knn(x, qt, ix.cfg.search.k, r, rows_of(d2c))
+    return SimpleNamespace(dists=np.sqrt(truth.d2.numpy()).astype(np.float32),
+                           ids=truth.ids.numpy().astype(np.int32))
+
+
+def _drop_routed(ix, search):
+    def wrapped(q):
+        more = ix.search(q, k=ix.cfg.search.k + 1)
+        return SimpleNamespace(dists=more.dists[:, 1:], ids=more.ids[:, 1:])
+    return wrapped
+
+
+def _second_index(ix, search):
+    def wrapped(q):
+        search(q)
+        return _routed_answers(ix, q, lambda d2c: torch.argsort(d2c, 1)[:, 1])
+    return wrapped
+
+
+def _global_answers(ix, search):
+    def wrapped(q):
+        search(q)
+        x, qt = torch.from_numpy(np.asarray(ix.x_all)), torch.from_numpy(q)
+        truth = reference.exact_knn(x, qt, ix.cfg.search.k)
+        return SimpleNamespace(dists=np.sqrt(reference.exact_d2(x, qt, truth.ids).numpy()),
+                               ids=truth.ids.numpy().astype(np.int32))
+    return wrapped
+
+
+def _tf32_control(ix, search):
+    def wrapped(q):
+        search(q)
+        d, i = routed.lowp_routed_knn(torch.from_numpy(np.asarray(ix.x_all)),
+                                      torch.from_numpy(q), ix.cfg.search.k,
+                                      _program_routing(ix))
+        return SimpleNamespace(dists=d, ids=i)
+    return wrapped
+
+
+@pytest.mark.parametrize("fault,number", [
+    (_drop_routed, "routed_gap"), (_second_index, "outside_rows"),
+    (_global_answers, "outside_rows"), (_tf32_control, "dist_err"),
+    (_stale, "routed_gap"), (_half, "bad_rows"), (_altered, "dist_err"),
+], ids=["routed_row_dropped", "second_nearest_index", "global_answers", "tf32_control",
+        "state_unchanged", "half_the_batch", "answer_altered"])
+def test_a_planted_fault_makes_a_forest_run_incorrect(tiny_root, fault, number):
+    out = run(tiny_root, FOREST, wrap=fault)
+    assert out["correct"] is False and out["failed"] > 0
+    assert out["checks"][number]["value"] > out["checks"][number]["limit"]
+
+
+def test_a_forest_built_wrong_makes_a_forest_run_incorrect(tiny_root, monkeypatch):
+    """The program's forest with the buckets of its second index given to
+    its first once the window is over: the answers were the program's own,
+    but the index of each row is no longer the derived table's."""
+    seen = []
+    run_window = harness.run_window
+
+    def then_merge(*args, **kw):
+        out = run_window(*args, **kw)
+        f = seen[0].forest
+        f.bucket_index = np.where(f.bucket_index == 1, 0, f.bucket_index).astype(np.int32)
+        return out
+    monkeypatch.setattr(harness, "run_window", then_merge)
+    out = run(tiny_root, FOREST, wrap=lambda ix, search: seen.append(ix) or search)
+    f = seen[0].forest
+    merged = int((np.asarray(f.bucket_ids)[np.asarray(f.bucket_index) == 0] >= 0).sum())
+    assert out["correct"] is False
+    assert out["checks"]["index_rows"]["limit"] < out["checks"]["index_rows"]["value"] < merged
+
+
+def test_the_forest_run_routes_and_counts_its_bounds(tiny_root):
+    """The forest cell searches with routing: each query bounds fewer
+    buckets than the forest holds (``mode="all"`` bounds every one) and
+    scans fewer rows than the same rows' exact cell."""
+    seen = []
+
+    def keep(ix, search):
+        seen.append(ix)
+        return search
+    forest = run(tiny_root, FOREST, trace=True, wrap=keep)["metrics"]
+    exact = run(tiny_root, "tracking-vbm.b16k-k10", trace=True)["metrics"]
+    buckets = seen[0].forest.n_buckets
+    assert 0 < forest["bound_distances_per_query.tracking_forest"]["value"] < buckets
+    assert (forest["distances_per_query.tracking_forest"]["value"]
+            < exact["distances_per_query.tracking"]["value"])
+
+
+# The check numbers and metrics of the three mode="all" cells on a fixed seed
+# and a clock that ticks 1/16 s a reading, as the harness before the routed
+# check read them (tiny_root, seed 3,000,000,011).
+BEFORE = {
+    "ward-vbm.b16k-k10": (dict(kth_gap=0.0, dist_err=3.543533227533887e-07, bad_rows=0.0),
+                          332.1171875),
+    "tracking-vbm.b16k-k10": (dict(kth_gap=1.721668999963367e-07,
+                                   dist_err=2.581578834341598e-07, bad_rows=0.0),
+                              105.21354166666667),
+    "ward-vbm.b16k-k100": (dict(kth_gap=2.7365993460619834e-09,
+                                dist_err=3.543533227533887e-07, bad_rows=0.0),
+                           393.6927083333333),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(BEFORE))
+@pytest.mark.parametrize("trace", [False, True])
+def test_the_exact_cells_read_what_they_read_before(tiny_root, monkeypatch, cell, trace):
+    clock = SimpleNamespace(t=0.0)
+
+    def tick():
+        clock.t += 0.0625
+        return clock.t
+    monkeypatch.setattr(harness, "time", SimpleNamespace(perf_counter=tick))
+    out = run(tiny_root, cell, trace=trace, t_start=tick())
+    checks, distances = BEFORE[cell]
+    assert {n: c["value"] for n, c in out["checks"].items()} == checks
+    assert out["attempted"] == 3 * 128
+    got = {n.split(".")[0]: m["value"] for n, m in out["metrics"].items()}
+    if trace:
+        assert got["distances_per_query"] == distances
+    else:
+        # 3 calls of two readings each: 384 queries in 0.375 s, each call 62.5 ms
+        assert got == dict(queries_per_s=1024.0, search_p95_ms=62.5, setup_s=0.25)
 
 
 # -- process-level rules ------------------------------------------------------
