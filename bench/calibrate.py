@@ -66,6 +66,10 @@ def readings(root, config_name, mixes, seeds, control_seeds, seconds, *, device=
     limits = harness.check_limits(config)
     dev = harness.pick_device(1, device)
     cuda = dev.type == "cuda"
+    if harness.writes(config):
+        yield from stream_readings(config_name, config, mixes, seeds, control_seeds, limits,
+                                   dev)
+        return
     forest = harness.routes(config)
     t0 = time.perf_counter()
     x = datasets.make(config["dataset"])
@@ -136,6 +140,42 @@ def readings(root, config_name, mixes, seeds, control_seeds, seconds, *, device=
             row = dict(side="control", config=config_name, traffic=name, seed=seed,
                        correct=all(nums[n] <= limits[n] for n in nums),
                        wrong_queries=wrong, **nums)
+            print(json.dumps(row), flush=True)
+            yield row
+
+
+def stream_readings(config_name, config, mixes, seeds, control_seeds, limits, dev):
+    """The control's readings of a streaming configuration."""
+    import torch
+
+    from bench import datasets, harness, traffic
+    from bench.reference import knn as reference
+    from bench.reference import stream as written
+
+    if seeds:
+        raise ValueError("a stream's program readings are bench/run.py's, one run a seed")
+    x = datasets.make(config["dataset"])
+    geo = datasets.geometry(config["dataset"])
+    for seed in control_seeds:
+        for name, mix in mixes.items():
+            k = int(mix["k"])
+            pool = traffic.query_pool(x, mix, seed)
+            warm = traffic.stream(x, geo, mix, pool, seed, traffic.WARM, harness.WARM_CALLS,
+                                  start=-harness.WARM_CALLS)
+            calls = traffic.stream(x, geo, mix, pool, seed, traffic.WINDOW, int(mix["calls"]))
+            writes = warm.writes + calls.writes
+            out = []
+            for j in sorted(harness.judged_calls(mix, seed)):
+                n = harness.WARM_CALLS + j + 1
+                xt = torch.as_tensor(written.rows_through(x, writes, n), device=dev)
+                qt = torch.as_tensor(calls.queries[j], device=dev)
+                d, i = reference.lowp_knn(xt, qt, k)
+                out.append(reference.judge(xt, qt, d, i, reference.exact_knn(xt, qt, k), limits))
+            wrong = sum(r.pop("wrong_queries") for r in out)
+            nums = dict(reference.combine(out), lost_rows=0.0)
+            row = dict(side="control", config=config_name, traffic=name, seed=seed,
+                       correct=all(nums[n] <= limits[n] for n in limits), wrong_queries=wrong,
+                       **nums)
             print(json.dumps(row), flush=True)
             yield row
 

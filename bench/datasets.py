@@ -10,9 +10,11 @@ where it does there), and the geometry it yields is that of
 ``ward_like(seed=geometry_seed)`` / ``tracking_like(seed=geometry_seed)``.  The
 points within that geometry, the background rows and the outliers come from
 the configuration's ``sample_seed``.  A run's ``--seed`` draws the queries
-(``traffic.py``), never the rows: a new sample of Tracking's rows builds
-another forest, whose device time a call differs by up to a fifth, so the
-rows are part of the deployment.
+(``traffic.py``), never the rows the index is built from: a new sample of
+Tracking's rows builds another forest, whose device time a call differs by
+up to a fifth, so the rows are part of the deployment.  What a stream writes
+later (``writes``) are fresh readings of the same geometry, drawn from the
+run's seed in fixed amounts a class.
 """
 from __future__ import annotations
 
@@ -94,6 +96,57 @@ def tracking_sample(geo: TrackingGeometry, seed: int) -> np.ndarray:
     idx = g.choice(n, geo.outliers, replace=False)
     x[idx] = g.uniform(x.min(), x.max(), size=(geo.outliers, x.shape[1]))
     return x.astype(np.float32)
+
+
+def _apportion(m: int, weights: np.ndarray) -> np.ndarray:
+    """``m`` rows over the classes in proportion to ``weights``: the floor of
+    each share, the rest to the largest remainders (ties to the lower
+    class).  The same for every seed, so every seed writes the same amount
+    into each class."""
+    share = m * weights / weights.sum()
+    out = np.floor(share).astype(np.int64)
+    rest = np.argsort(-(share - out), kind="stable")[: m - int(out.sum())]
+    out[rest] += 1
+    return out
+
+
+def writes(geo: WardGeometry, batches: int, rows: int, g: np.random.Generator, *,
+           drift: float = 0.0, start: int = 0) -> list[np.ndarray]:
+    """``batches`` batches of ``rows`` fresh (rows, D) f32 readings of the
+    fixed WARD geometry, by ``ward_sample``'s recipe: each class gets the
+    same number of rows in every batch, in proportion to its size (the few
+    background rows are not written); the seed draws the points and their
+    order.  With ``drift`` > 0, batch ``t`` (counted from ``start``; nothing
+    drifts before 0) has a share ``min(1, drift * t)`` of its rows on the
+    corridor between the two nearest classes instead, as
+    ``examples/iot_stream.py`` makes a stream drift: a uniform point of the
+    middle half of the segment between their centres plus Gaussian noise of
+    ``1 + 10 drift * t`` times their readings' mean scale, so the corridor
+    both fills and widens as the stream goes on (at ``drift`` 0.025 it holds
+    half a batch at 6 times the scale after 20 batches, where the example's
+    noise has grown 6-fold too).  It is the widening that raises the
+    indexes' overlap: a corridor as narrow as its classes stays inside the
+    one index they share."""
+    if not isinstance(geo, WardGeometry):
+        raise ValueError("a stream writes fresh readings of the WARD geometry only")
+    centers, scales = geo.centers, geo.scales.mean(1)
+    d2 = ((centers[:, None] - centers[None]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    a, b = np.unravel_index(np.argmin(d2), d2.shape)
+    out = []
+    for t in range(start, start + batches):
+        grown = max(0.0, drift * t)
+        n_cor = int(round(rows * min(1.0, grown)))
+        parts = [centers[c] + g.normal(size=(m, centers.shape[1])) * geo.scales[c]
+                 for c, m in enumerate(_apportion(rows - n_cor, geo.counts)) if m]
+        if n_cor:
+            f = g.uniform(0.25, 0.75, size=(n_cor, 1))
+            parts.append(centers[a] * (1 - f) + centers[b] * f
+                         + g.normal(size=(n_cor, centers.shape[1]))
+                         * (0.5 * (scales[a] + scales[b]) * (1.0 + 10.0 * grown)))
+        batch = np.concatenate(parts)
+        out.append(batch[g.permutation(rows)].astype(np.float32))
+    return out
 
 
 def geometry(spec: dict[str, Any]):

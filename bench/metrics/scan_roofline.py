@@ -4,8 +4,12 @@ marks as ``scan``.
 
 Work: 4 D f32 operations a reported distance; bytes: each call reads the
 forest's member rows and ids once and the queries once, and writes its
-answers once (``bench/roofline.py``).  The least time is the larger of the
-two bounds over the traced calls, at the H100 SXM's data-sheet rates."""
+answers once (``bench/roofline.py``).  In a stream that writes, a call also
+reads the live rows and ids of the delta buckets once each, as it reads the
+main buckets' slots, and the forest's slots change with each rebuild: the
+harness counts both before each traced search (``trace_slots``).  The least
+time is the larger of the two bounds over the traced calls, at the H100
+SXM's data-sheet rates."""
 from bench import roofline
 
 
@@ -19,7 +23,11 @@ def read(ctx):
     dim = ctx.forest["dim"]
     per_call_q = ctx.trace_queries / tr.calls
     ops_ms, _ = roofline.bound(0.0, roofline.scan_work(ctx.trace_distances, dim))
-    bytes_ms, _ = roofline.bound(
-        roofline.scan_bytes(slots=ctx.forest["slots"], dim=dim, queries=per_call_q,
-                            k=int(ctx.mix["k"])) * tr.calls, 0.0)
+    if ctx.trace_slots:
+        nbytes = roofline.scan_bytes(slots=ctx.trace_slots, dim=dim, queries=ctx.trace_queries,
+                                     k=int(ctx.mix["k"]))
+    else:
+        nbytes = roofline.scan_bytes(slots=ctx.forest["slots"], dim=dim, queries=per_call_q,
+                                     k=int(ctx.mix["k"])) * tr.calls
+    bytes_ms, _ = roofline.bound(nbytes, 0.0)
     return max(ops_ms, bytes_ms) / (scan_s * 1e3) * 100.0
